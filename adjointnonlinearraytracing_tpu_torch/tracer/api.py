@@ -1,0 +1,87 @@
+"""Differentiable tracing API: ``trace`` as a ``torch.autograd.Function``
+whose backward pass is the constant-memory adjoint sweep.
+
+Twin of ``adjointnonlinearraytracing_tpu/tracer/api.py::trace``.
+
+Gradient contract: only the field data ``rif`` receives a gradient; the ray
+inputs ``x``, ``v`` get none.  ``h`` and ``ds`` are Python floats.
+
+Where it runs: CUDA tensors go through the hand-written kernels
+(``kernels/csrc/trace_fwd.cu``, ``kernels/csrc/backtrace.cu``) or raise; CPU
+tensors go through the plain steppers of ``tracer/eikonal.py``.  There is no
+fallback from one to the other.
+
+What is not here: the JAX package chooses between a paired-window stepper and
+a cell-table stepper (``_impl`` with ``ANRT_FAST_PATH``, ``ANRT_NMAX``,
+``ANRT_WINDOW_MEM_MB``).  Both tables exist because its compiler had no
+per-lane gather and no scatter-add; on this GPU the kernels read the 8 corners
+of a cell from the raw grid and scatter with ``atomicAdd``, so there is one
+path and no table, and those settings have no counterpart.
+
+Determinism: on the CPU the gradient is reproducible bitwise
+(``index_add_``); on the GPU the adjoint's ``atomicAdd`` order varies from run
+to run, so the gradient is reproducible to rounding only.
+
+Precision: the constant-memory adjoint re-integrates trajectories in reverse;
+at float32 the reconstruction drifts on rough (high-curvature) index fields
+and the gradient error grows with field roughness.  Use float64 inputs when
+optimizing non-smooth fields.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from ..fields import grid as G
+from ..kernels import wrappers as K
+from . import eikonal as E
+
+
+def _check_rays(x, v, name="trace"):
+    if x.ndim != 2 or x.shape[-1] != 3:
+        raise ValueError(f"{name}: x must be (N, 3), got {tuple(x.shape)}")
+    if v.shape != x.shape:
+        raise ValueError(f"{name}: v{tuple(v.shape)} must match x{tuple(x.shape)}")
+
+
+def _check_rif(rif, name="trace"):
+    if rif.ndim != 3:
+        raise ValueError(
+            f"{name}: rif must be a 3D voxel grid, got shape {tuple(rif.shape)}")
+
+
+class _Trace(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, rif, x, v, h, ds):
+        rif, x, v = rif.detach(), x.detach(), v.detach()
+        steps = E.max_steps_fwd(max(rif.shape), h, ds)
+        if rif.is_cuda:
+            xt, vt = K.trace_fwd(rif, h, x, v, ds, steps)
+        else:
+            xt, vt = E.trace(G.GridField(rif, h), x, v, ds, steps)
+        ctx.save_for_backward(rif, xt, vt)
+        ctx.h, ctx.ds = h, ds
+        return xt, vt
+
+    @staticmethod
+    def backward(ctx, dxt, dvt):
+        rif, xt, vt = ctx.saved_tensors
+        h, ds = ctx.h, ctx.ds
+        steps = E.max_steps_bwd(max(rif.shape), h, ds)
+        if rif.is_cuda:
+            g = K.backtrace(rif, h, xt, vt, dxt.contiguous(), dvt.contiguous(), ds, steps,
+                            G.snap_tol(rif.dtype))
+        else:
+            g = E.backtrace(G.GridField(rif, h), xt, vt, dxt, dvt, ds, steps)
+        return g.reshape(rif.shape), None, None, None, None
+
+
+def trace(rif: torch.Tensor, x: torch.Tensor, v: torch.Tensor, h: float, ds: float):
+    """Differentiable volume trace.  rif: (D,H,W) voxel grid; x, v: (N,3).
+
+    Returns the exit state ``(xt, vt)``.  d(loss)/d(rif) is computed by the
+    constant-memory adjoint; ``x`` and ``v`` receive no gradient.
+    """
+    _check_rif(rif)
+    _check_rays(x, v)
+    return _Trace.apply(rif, x, v, float(h), float(ds))
