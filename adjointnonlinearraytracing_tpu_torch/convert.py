@@ -35,3 +35,24 @@ def rif_to_numpy(rif: torch.Tensor) -> np.ndarray:
     if rif.ndim != 3:
         raise ValueError(f"rif_to_numpy: expected a 3D voxel grid, got shape {tuple(rif.shape)}")
     return rif.detach().cpu().numpy()
+
+
+def checkpoint_from_jax_npz(path: str, device="cuda"):
+    """A checkpoint written by the JAX package's ``save_checkpoint`` as the port's state.
+
+    Returns ``(n, AdamState, loss_hist)``: the field, Adam's step count and
+    moments, and the loss history, on ``device`` in the dtypes of the file.
+    The file's ``key`` is a JAX PRNG key, which has no meaning for a
+    ``torch.Generator``, so none comes back: the resumed run draws from a
+    fresh generator of its own.  ``opt.multires_opt(resume_from=path)`` reads
+    such a file directly in the same way, so a run begun in the JAX package
+    resumes in the port and, given a loss that draws no random numbers, both
+    then take the same steps.
+    """
+    from .opt.multires import load_checkpoint  # opt imports this module
+
+    n, adam, loss_hist, key_state = load_checkpoint(path, device=device)
+    if key_state is not None:
+        raise ValueError(f"{path} holds a torch generator state: it was written by the "
+                         "port, not by the JAX package; use opt.load_checkpoint")
+    return n, adam, loss_hist

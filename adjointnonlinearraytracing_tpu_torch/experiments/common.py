@@ -1,0 +1,216 @@
+"""Shared plumbing of the experiments.
+
+Twin of ``adjointnonlinearraytracing_tpu/experiments/common.py``.  An experiment
+has a params dict, a loss over its rays, and the multires Adam loop.
+
+* randomness flows through an explicit ``torch.Generator`` (``params['seed']``),
+* rejected/cropped rays are masked, not dropped,
+* ``autodiff`` switches between the constant-memory adjoint
+  (``tracer.trace``) and plain autograd through the stepper
+  (``tracer.trace_ad``), the cross-validation toggle.
+
+Not in this port yet, and raising where asked for: the checkpointed-exact
+gradient (mode ``"exact"``, ``ROADMAP.md`` A7), exit-step bucketing
+(``ANRT_BUCKETED > 1``, A8) and tracing sharded over several devices
+(``use_mesh=True``, A15).
+"""
+
+from __future__ import annotations
+
+import os
+import warnings
+
+import torch
+
+from ..convert import require_device
+from ..tracer import api
+
+
+def _per_ray(mask, diff):
+    m = mask.to(diff.dtype)
+    return m[:, None] if diff.ndim == 2 else m
+
+
+def masked_mean_sq(diff, mask):
+    """sum(mask * diff^2) / count(mask): the masked analog of dropping rows."""
+    return (_per_ray(mask, diff) * diff ** 2).sum() / torch.clamp(mask.sum(), min=1)
+
+
+def masked_sum_sq(diff, mask):
+    return (_per_ray(mask, diff) * diff ** 2).sum()
+
+
+def make_trace(vol_span, ds, autodiff=False, use_mesh=False, res=None,
+               gradient=None, seg=32, probe_rays=None, device=None):
+    """Volume trace closure: ``h`` is derived from the *current* grid
+    resolution while ``ds`` stays fixed from the finest one.
+
+    ``gradient`` selects the differentiation strategy:
+      - "adjoint" (default): O(1)-memory reverse re-integration
+        (``tracer.trace``: the kernels on CUDA tensors)
+      - "ad": plain autograd through the stepper (``tracer.trace_ad``)
+      - "exact": the checkpointed-segment adjoint; not ported yet, raises
+      - a mutable dict ``{"mode": <one of the above>}``, read at trace time:
+        the hook of the stage-level escalation
+    ``autodiff=True`` is the alias for "ad".
+
+    The closure traces where its tensors live.  With ``device`` given, it is
+    checked at once (a CUDA device that is not there raises here) and the
+    closure refuses tensors that live elsewhere instead of moving them.
+    ``probe_rays`` (a sample of the run's source) is accepted and unused
+    until exit-step bucketing is ported: the kernels already leave the step
+    loop per ray.  ``res`` and ``seg`` are accepted for the JAX signature.
+    """
+    if use_mesh:
+        raise NotImplementedError(
+            "make_trace: use_mesh=True needs the multi-device layer (ROADMAP.md A15)")
+    if int(os.environ.get("ANRT_BUCKETED", "0")) > 1:
+        raise NotImplementedError(
+            "make_trace: ANRT_BUCKETED > 1 needs exit-step compaction (ROADMAP.md A8)")
+    if gradient is None:
+        gradient = "ad" if autodiff else "adjoint"
+    dev = None if device is None else require_device(device)
+
+    def trace(nt, x, v):
+        if dev is not None:
+            for name, t in (("the field", nt), ("x", x), ("v", v)):
+                if t.device.type != dev.type:
+                    raise RuntimeError(
+                        f"make_trace: {name} is on {t.device}, this trace was made for {dev}")
+        h = vol_span / max(nt.shape[0] - 1, 1)
+        mode = gradient["mode"] if isinstance(gradient, dict) else gradient
+        if mode is None:
+            mode = "adjoint"
+        if mode == "ad":
+            return api.trace_ad(nt, x, v, h, ds)
+        if mode == "exact":
+            raise NotImplementedError(
+                "make_trace: gradient mode 'exact' needs the checkpointed-segment "
+                "adjoint, which is not ported yet (ROADMAP.md A7).  If the stage "
+                "escalation chose it, the adjoint drifts on this scene at this "
+                "precision: run in float64, or keep the adjoint knowingly with "
+                "ANRT_EXACT_TOL set above the drift or auto_exact=False")
+        if mode != "adjoint":
+            raise ValueError(f"make_trace: unknown gradient mode {mode!r}")
+        return api.trace(nt, x, v, h, ds)
+
+    return trace
+
+
+def gradient_spotcheck(eta, x, v, vol_span, ds, mask=None, n_rays=2048,
+                       metrics=None, name="grad_spotcheck", perturb=True,
+                       perturb_amp=0.05):
+    """One-shot adjoint-vs-exact gradient comparison on this run's scene.
+
+    The constant-memory adjoint re-integrates trajectories in reverse; at
+    float32 its gradient drifts on rough fields (``tracer/api.py`` precision
+    note).  Every experiment run calls this once at startup on a subsample of
+    its real rays so drift on a *given* scene is measured, not assumed.  The
+    exact gradient is autograd through the plain stepper
+    (``tracer.trace_ad``), which the JAX package's tests hold equal to its
+    checkpointed-exact gradient to machine precision.  Returns the max
+    relative deviation, the relative L2 deviation and the cosine, and logs
+    them.
+
+    ``perturb`` adds a smooth gaussian bump of amplitude ``perturb_amp``
+    (default 5%) so the check exercises curvature even when the initial field
+    is flat.  Pass an amplitude representative of the run's actual field
+    deviation: drift grows with ray curvature, so a 5% bump wildly
+    overestimates drift for weak-signal scenes like fuel injection.
+    """
+    x = x[:n_rays]
+    v = v[:n_rays]
+    m = None if mask is None else mask[:n_rays]
+    eta = eta.detach()
+    if perturb and eta.shape[0] >= 2:
+        ax = torch.linspace(-1.0, 1.0, eta.shape[0], dtype=eta.dtype, device=eta.device)
+        zz, yy, xx = torch.meshgrid(ax, ax, ax, indexing="ij")
+        eta = eta + perturb_amp * torch.exp(-(xx ** 2 + yy ** 2 + zz ** 2) / 0.18)
+    h = vol_span / max(eta.shape[0] - 1, 1)
+
+    def probe_grad(trace_fn):
+        nt = eta.clone().requires_grad_(True)
+        xt, vt = trace_fn(nt, x, v, h, ds)
+        per = (xt ** 2 + xt * vt).sum(dim=-1)
+        if m is not None:
+            per = torch.where(m, per, torch.zeros_like(per))
+        (g,) = torch.autograd.grad(per.sum(), nt)
+        return g.reshape(-1)
+
+    g_adj = probe_grad(api.trace)
+    g_ex = probe_grad(api.trace_ad)
+    tiny = 1e-30
+    diff = g_adj - g_ex
+    rel = float(diff.abs().max() / torch.clamp(g_ex.abs().max(), min=tiny))
+    l2 = float(torch.linalg.norm(diff) / torch.clamp(torch.linalg.norm(g_ex), min=tiny))
+    cos = float(torch.dot(g_adj, g_ex) / torch.clamp(
+        torch.linalg.norm(g_adj) * torch.linalg.norm(g_ex), min=tiny))
+    if metrics is not None:
+        metrics.log(0, **{name: rel, name + "_rel_l2": l2, name + "_cos": cos})
+    if rel > 1e-2:
+        warnings.warn(
+            f"adjoint gradient deviates {rel:.2e} (rel, max-norm; rel-L2 "
+            f"{l2:.2e}, cosine {cos:.4f}) from the exact gradient on this "
+            "scene; consider float64 (tracer/api.py precision note)")
+    return dict(max_rel=rel, rel_l2=l2, cos=cos)
+
+
+def make_stage_escalator(holder, vol_span, ds, probe_rays, metrics=None,
+                         tol=None, n_rays=2048, rays_per_iter=None):
+    """Stage-level gradient auto-escalation.
+
+    Returns a ``stage_fn`` for ``opt.multires_opt``: at the start of each
+    resolution stage it re-runs the adjoint-vs-exact spot check on the
+    *current* field (drift grows with resolution and field roughness: the
+    startup check on the coarse init can pass while a fine stage drifts) and
+    flips ``holder['mode']`` to ``"exact"`` when the rel-L2 deviation exceeds
+    ``tol`` (``ANRT_EXACT_TOL``, default 0.01).  Until the exact gradient is
+    ported, the next trace then raises rather than carry on with a drifting
+    gradient.
+
+    ``probe_rays`` is a callable ``() -> (x, v, mask)`` sampling this run's
+    real source distribution.  ``rays_per_iter`` is accepted for the JAX
+    signature.
+    """
+    if tol is None:
+        tol = float(os.environ.get("ANRT_EXACT_TOL", "0.01"))
+
+    def stage_fn(stage, n):
+        if holder.get("mode") not in (None, "adjoint"):
+            return  # already escalated / explicitly chosen
+        if stage == 0:
+            return  # startup spot check covers the first stage
+        x, v, mask = probe_rays()
+        stats = gradient_spotcheck(
+            n, x, v, vol_span, ds, mask=mask, n_rays=n_rays, metrics=metrics,
+            name=f"grad_spotcheck_stage{stage}", perturb=False)
+        if stats["rel_l2"] > tol:
+            holder["mode"] = "exact"
+            warnings.warn(
+                f"stage {stage} (res {n.shape[0]}): adjoint gradient rel-L2 "
+                f"drift {stats['rel_l2']:.2e} > {tol:g}; escalating to the "
+                "exact gradient for the remaining stages")
+            if metrics is not None:
+                metrics.log(0, gradient_escalated_stage=stage, gradient_mode="exact")
+
+    return stage_fn
+
+
+def per_view_planes(planes, rpv):
+    """First-plane-per-view sensor list.
+
+    ``rpv`` entries are equal counts; returns lists of ``(1, 3)`` tensors.
+    """
+    sensor_p, sensor_n, sensor_t = [], [], []
+    offset = 0
+    for count in rpv:
+        sensor_p.append(planes[None, offset, 0, :])
+        sensor_n.append(planes[None, offset, 1, :])
+        sensor_t.append(planes[None, offset, 2, :])
+        offset += count
+    return sensor_p, sensor_n, sensor_t
+
+
+def split_views(arr, rpv):
+    """Split of a concatenated per-view tensor."""
+    return list(torch.split(arr, list(rpv)))

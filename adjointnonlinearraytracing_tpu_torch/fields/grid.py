@@ -13,6 +13,8 @@ Twin of ``adjointnonlinearraytracing_tpu/fields/grid.py``; same semantics:
   masked-out lane gathers 0 and so contributes ``(0, 0)``.
 * Data layout: ``data[z, y, x]`` with ``p = (x, y, z)``; the flat index is
   ``(z*H + y)*W + x``.
+* ``upres_volume`` resamples a volume onto a finer (or coarser) lattice; the
+  multi-resolution optimiser uses it between stages.
 
 Everything here is plain, dtype-polymorphic torch (f32 and f64) and runs where
 its tensors live.  The one exception is :func:`eval_grad`, which hands CUDA
@@ -267,3 +269,46 @@ def snap_to_nodes(p: torch.Tensor, h: float, tol: Optional[float] = None) -> tor
     r = torch.round(pm)
     pm = torch.where((pm - r).abs() <= tol, r, pm)
     return pm * ht
+
+
+def upres_volume(n: torch.Tensor, new_res) -> torch.Tensor:
+    """Trilinearly resample a cubic volume to ``new_res`` per axis; 1D, 2D or 3D.
+
+    The source grid is placed on ``[0, 1]^ndim`` with spacing
+    ``1 / (res - 1)`` and sampled at ``linspace(0, 1, new_res)`` per axis,
+    with both corners clamped per axis.  Plain torch in ``n``'s dtype on
+    ``n``'s device: it runs once per resolution change, not per step.
+    """
+    if isinstance(new_res, int):
+        new_res = (new_res,) * n.ndim
+    new_res = tuple(int(r) for r in new_res)
+    h = 1.0 / max(n.shape[0] - 1, 1)
+
+    axes = [torch.linspace(0.0, 1.0, r, dtype=n.dtype, device=n.device) for r in new_res]
+    mesh = torch.meshgrid(*axes, indexing="ij")
+    pts = torch.stack([m.reshape(-1) for m in mesh], dim=-1)  # (N, ndim)
+
+    pm = pts / h
+    posf = torch.floor(pm)
+    frac = pm - posf
+    pos = posf.to(torch.int64)
+    top = torch.tensor(n.shape, dtype=torch.int64, device=n.device) - 1
+    zero = torch.zeros_like(top)
+    pos0 = torch.minimum(torch.maximum(pos, zero), top)
+    pos1 = torch.minimum(torch.maximum(pos + 1, zero), top)
+
+    flat = n.reshape(-1)
+    strides = [1] * n.ndim  # of the C-order flat index
+    for ax in range(n.ndim - 2, -1, -1):
+        strides[ax] = strides[ax + 1] * n.shape[ax + 1]
+
+    out = torch.zeros((pts.shape[0],), dtype=n.dtype, device=n.device)
+    for corner in range(2 ** n.ndim):
+        idx = torch.zeros((pts.shape[0],), dtype=torch.int64, device=n.device)
+        w = torch.ones((pts.shape[0],), dtype=n.dtype, device=n.device)
+        for ax in range(n.ndim):
+            upper = (corner >> (n.ndim - 1 - ax)) & 1
+            idx = idx + (pos1 if upper else pos0)[:, ax] * strides[ax]
+            w = w * (frac[:, ax] if upper else 1.0 - frac[:, ax])
+        out = out + w * flat[idx]
+    return out.reshape(new_res)

@@ -1,7 +1,7 @@
 """Build the CUDA kernels at first use and load them with ``ctypes``.
 
 Each ``csrc/*.cu`` has a plain C interface (no PyTorch headers), so ``nvcc``
-compiles it in seconds; the three compile in parallel into one shared library
+compiles it in seconds; all of them compile in parallel into one shared library
 each.  Libraries go to ``kernels/_build/`` (git-ignored) under a name that
 carries a hash of the sources and flags, so an edited source is rebuilt and an
 unchanged one is reused.
@@ -25,7 +25,7 @@ from typing import Dict
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent / "_build"
-KERNELS = ("eval_grad", "trace_fwd", "backtrace")
+KERNELS = ("eval_grad", "trace_fwd", "backtrace", "gather_rows")
 NVCC_FLAGS = (
     "-gencode=arch=compute_90a,code=sm_90a", "-std=c++17", "-O3", "-fmad=false",
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",

@@ -2,9 +2,10 @@
 the current stream, launch-error check, and a launch counter.
 
 The wrappers take CUDA tensors only and raise on anything else; the callers
-that users reach (``fields.grid.eval_grad``, ``tracer.api.trace``) send CPU
-tensors to the plain versions instead (``fields.grid.eval_grad_plain``,
-``tracer.eikonal.trace`` / ``backtrace``).
+that users reach (``fields.grid.eval_grad``, ``tracer.api.trace``,
+``benchmarks.probe_dma_gather.gather_rows``) send CPU tensors to the plain
+versions instead (``fields.grid.eval_grad_plain``, ``tracer.eikonal.trace`` /
+``backtrace``, ``benchmarks.probe_dma_gather.gather_rows_plain``).
 
 K1 ``eval_grad`` (csrc/eval_grad.cu)
     replaces ``benchmarks/probe_evalmath.py::_pl_eval_kernel`` of the JAX
@@ -22,12 +23,17 @@ K3 ``backtrace`` (csrc/backtrace.cu)
     the only device-memory traffic in the loop is the atomics.  Their order is
     not fixed, so the gradient is not bitwise reproducible from run to run
     (the CPU path's ``index_add_`` is).
+K4 ``gather_rows`` (csrc/gather_rows.cu)
+    replaces the semaphore-ring row gather
+    ``benchmarks/probe_dma_gather.py::_ring_kernel``; bound by bytes (each
+    row read once and written once, plus the index); one warp per row, 16
+    bytes per lane, bit-exact.
 """
 
 from __future__ import annotations
 
 import ctypes
-from typing import Optional, Tuple
+from typing import List, Optional, Tuple
 
 import torch
 
@@ -37,18 +43,36 @@ from . import build
 #: one where it launches its kernel and nowhere else
 LAUNCHES = {name: 0 for name in build.KERNELS}
 
-_VP, _I, _D = ctypes.c_void_p, ctypes.c_int, ctypes.c_double
+_VP, _I, _D, _LL = ctypes.c_void_p, ctypes.c_int, ctypes.c_double, ctypes.c_longlong
 _ARGTYPES = {
     "eval_grad": [_I, _VP, _I, _I, _I, _D, _VP, _VP, _VP, _VP, _I, _VP],
     "trace_fwd": [_I, _VP, _I, _I, _I, _D, _D, _VP, _VP, _VP, _VP, _I, _I, _VP],
     "backtrace": [_I, _VP, _I, _I, _I, _D, _D, _D, _VP, _VP, _VP, _VP, _VP, _I, _I, _VP],
+    "gather_rows": [_I, _VP, _VP, _VP, _LL, _I, _VP],
 }
+_VEC_BYTES = 16  # K4 moves 128-bit vectors
 _INT_MAX = 2 ** 31 - 1
+
+
+#: when a list, every launch appends ``(kernel name, start event, stop event)``
+#: to it: CUDA events recorded on the launch's stream around the kernel, read
+#: by the caller after a synchronise (see :func:`record_events`)
+_events: Optional[List[Tuple[str, "torch.cuda.Event", "torch.cuda.Event"]]] = None
 
 
 def reset_launches() -> None:
     for name in LAUNCHES:
         LAUNCHES[name] = 0
+
+
+def record_events(sink: Optional[list]) -> None:
+    """Time every launch from now on into ``sink`` (a list), or stop with ``None``.
+
+    Lets a run say how much of a training step its kernels take without a
+    profiler: two event records per launch, no synchronisation.
+    """
+    global _events
+    _events = sink
 
 
 def _check_grid(data: torch.Tensor, name: str) -> None:
@@ -78,18 +102,35 @@ def _check_rays(data: torch.Tensor, name: str, **arrays: torch.Tensor) -> int:
     return n
 
 
-def _launch(name: str, data: torch.Tensor, *args) -> None:
-    """Call kernel ``name`` on ``data``'s device and current stream; raise if refused."""
+def _launch(name: str, device: torch.device, *args) -> None:
+    """Call kernel ``name`` with ``args`` and ``device``'s current stream; raise if refused.
+
+    The one place a launch is counted.
+    """
     fn = getattr(build.load(name), f"anrt_{name}")
     fn.argtypes = _ARGTYPES[name]
     fn.restype = _I
-    d, hgt, wid = data.shape
-    with torch.cuda.device(data.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        err = fn(int(data.dtype == torch.float64), data.data_ptr(), wid, hgt, d, *args, stream)
+    with torch.cuda.device(device):
+        stream = torch.cuda.current_stream()
+        sink = _events
+        if sink is not None:
+            start = torch.cuda.Event(enable_timing=True)
+            stop = torch.cuda.Event(enable_timing=True)
+            start.record(stream)
+        err = fn(*args, stream.cuda_stream)
+        if sink is not None:
+            stop.record(stream)
+            sink.append((name, start, stop))
     if err != 0:
         raise RuntimeError(f"{name}: kernel launch failed with CUDA error {err}")
     LAUNCHES[name] += 1
+
+
+def _launch_on_grid(name: str, data: torch.Tensor, *args) -> None:
+    """:func:`_launch` for the kernels whose first arguments are a ``(D, H, W)`` grid."""
+    d, hgt, wid = data.shape
+    _launch(name, data.device, int(data.dtype == torch.float64), data.data_ptr(),
+            wid, hgt, d, *args)
 
 
 def eval_grad(data: torch.Tensor, h: float, p: torch.Tensor,
@@ -104,9 +145,9 @@ def eval_grad(data: torch.Tensor, h: float, p: torch.Tensor,
     n = torch.empty((n_pts,), dtype=data.dtype, device=data.device)
     grad = torch.empty((n_pts, 3), dtype=data.dtype, device=data.device)
     if n_pts:  # nothing to launch for an empty batch
-        _launch("eval_grad", data, float(h), p.data_ptr(),
-                None if mask is None else mask.data_ptr(), n.data_ptr(), grad.data_ptr(),
-                n_pts)
+        _launch_on_grid("eval_grad", data, float(h), p.data_ptr(),
+                        None if mask is None else mask.data_ptr(), n.data_ptr(),
+                        grad.data_ptr(), n_pts)
     return n, grad
 
 
@@ -118,8 +159,8 @@ def trace_fwd(data: torch.Tensor, h: float, x0: torch.Tensor, v0: torch.Tensor,
     xt = torch.empty_like(x0)
     vt = torch.empty_like(v0)
     if n_rays:
-        _launch("trace_fwd", data, float(h), float(ds), x0.data_ptr(), v0.data_ptr(),
-                xt.data_ptr(), vt.data_ptr(), n_rays, int(max_steps))
+        _launch_on_grid("trace_fwd", data, float(h), float(ds), x0.data_ptr(), v0.data_ptr(),
+                        xt.data_ptr(), vt.data_ptr(), n_rays, int(max_steps))
     return xt, vt
 
 
@@ -131,7 +172,44 @@ def backtrace(data: torch.Tensor, h: float, xt: torch.Tensor, vt: torch.Tensor,
     n_rays = _check_rays(data, "backtrace", xt=xt, vt=vt, dx=dx, dv=dv)
     g = torch.zeros((data.numel(),), dtype=data.dtype, device=data.device)
     if n_rays:
-        _launch("backtrace", data, float(h), float(ds), float(snap_tol), xt.data_ptr(),
-                vt.data_ptr(), dx.data_ptr(), dv.data_ptr(), g.data_ptr(), n_rays,
-                int(max_steps))
+        _launch_on_grid("backtrace", data, float(h), float(ds), float(snap_tol),
+                        xt.data_ptr(), vt.data_ptr(), dx.data_ptr(), dv.data_ptr(), g.data_ptr(),
+                        n_rays, int(max_steps))
     return g
+
+
+def gather_rows(table: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
+    """K4: ``out[i] = table[idx[i]]`` for a ``(R, L)`` table and ``(N,)`` indices.
+
+    ``table`` is f32 or f64 with a row of whole 16-byte vectors (``L`` a
+    multiple of 4 for f32, of 2 for f64); ``idx`` is int32 or int64 on the
+    table's device.  Indices outside ``[0, R)`` are the caller's error: the
+    kernel does not check them and the wrapper does not scan them (a scan
+    would read the whole index vector once more and synchronise).
+    """
+    if table.dtype not in (torch.float32, torch.float64):
+        raise TypeError(f"gather_rows: table must be float32 or float64, got {table.dtype}")
+    if table.ndim != 2 or not table.is_contiguous() or table.shape[0] == 0:
+        raise ValueError(f"gather_rows: table must be a contiguous, non-empty (R, L) tensor, "
+                         f"got shape {tuple(table.shape)}, strides {table.stride()}")
+    row_bytes = table.shape[1] * table.element_size()
+    if row_bytes == 0 or row_bytes % _VEC_BYTES or table.data_ptr() % _VEC_BYTES:
+        raise ValueError(f"gather_rows: a row must be whole {_VEC_BYTES}-byte vectors on a "
+                         f"{_VEC_BYTES}-byte aligned table, got rows of {row_bytes} bytes at "
+                         f"address {table.data_ptr():#x}")
+    if row_bytes // _VEC_BYTES > _INT_MAX:
+        raise ValueError(f"gather_rows: rows of {row_bytes} bytes are outside the kernel's "
+                         "int32 indexing")
+    if idx.dtype not in (torch.int32, torch.int64):
+        raise TypeError(f"gather_rows: idx must be int32 or int64, got {idx.dtype}")
+    if idx.device != table.device or idx.ndim != 1 or not idx.is_contiguous():
+        raise ValueError(f"gather_rows: idx must be a contiguous (N,) tensor on {table.device}, "
+                         f"got shape {tuple(idx.shape)} on {idx.device}")
+    if not table.is_cuda:
+        raise ValueError(f"gather_rows: the kernel takes CUDA tensors, got a table on "
+                         f"{table.device}")
+    out = torch.empty((idx.shape[0], table.shape[1]), dtype=table.dtype, device=table.device)
+    if idx.shape[0]:
+        _launch("gather_rows", table.device, int(idx.dtype == torch.int64), table.data_ptr(),
+                idx.data_ptr(), out.data_ptr(), idx.shape[0], row_bytes // _VEC_BYTES)
+    return out

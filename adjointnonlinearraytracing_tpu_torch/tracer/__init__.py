@@ -1,4 +1,4 @@
 """Eikonal steppers (plain versions) and the differentiable tracing API."""
 
 from . import eikonal  # noqa: F401
-from .api import trace  # noqa: F401
+from .api import trace, trace_ad  # noqa: F401

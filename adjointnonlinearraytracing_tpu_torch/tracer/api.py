@@ -53,7 +53,9 @@ def _check_rif(rif, name="trace"):
 class _Trace(torch.autograd.Function):
     @staticmethod
     def forward(ctx, rif, x, v, h, ds):
-        rif, x, v = rif.detach(), x.detach(), v.detach()
+        # the kernels take contiguous tensors; the CPU path takes any strides,
+        # and the same call must work on both
+        rif, x, v = (t.detach().contiguous() for t in (rif, x, v))
         steps = E.max_steps_fwd(max(rif.shape), h, ds)
         if rif.is_cuda:
             xt, vt = K.trace_fwd(rif, h, x, v, ds, steps)
@@ -85,3 +87,20 @@ def trace(rif: torch.Tensor, x: torch.Tensor, v: torch.Tensor, h: float, ds: flo
     _check_rif(rif)
     _check_rays(x, v)
     return _Trace.apply(rif, x, v, float(h), float(ds))
+
+
+def trace_ad(rif: torch.Tensor, x: torch.Tensor, v: torch.Tensor, h: float, ds: float):
+    """Tape twin of :func:`trace`: autograd straight through the plain stepper.
+
+    Twin of the JAX package's ``trace_ad``.  The exact discrete gradient, with
+    memory that grows with the step count; used for cross-validation
+    (``make_trace``'s ``"ad"`` mode) and as the exact reference of the
+    gradient spot check.  It runs ``tracer.eikonal.trace`` where its tensors
+    live, on the card too: it is the taped plain version by definition, not a
+    fallback of :func:`trace`, and launches no kernel.  ``rif``, ``x`` and
+    ``v`` all receive gradients.
+    """
+    _check_rif(rif, "trace_ad")
+    _check_rays(x, v, "trace_ad")
+    h, ds = float(h), float(ds)
+    return E.trace(G.GridField(rif, h), x, v, ds, E.max_steps_fwd(max(rif.shape), h, ds))

@@ -5,16 +5,28 @@ one CUDA device and ``nvcc``; without a GPU it exits non-zero and prints no
 result.  Phases (any failure is an uncaught exception):
 
 1. device  - require CUDA, print the card's name and power limit.
-2. build   - compile the three kernels from ``kernels/csrc`` and load them.
+2. build   - compile the four kernels from ``kernels/csrc`` and load them.
 3. kernels - hold K1 ``eval_grad``, K2 ``trace_fwd``, K3 ``backtrace`` against
    their plain PyTorch versions on the card: at a small size in f64 and at the
-   bench scene's full width (128^3 grid, 2^18 rays) in f32; time kernel, plain
-   version and, where one exists, a library call; compute each kernel's bound.
-4. main path - the bench scene through the entry points a user calls, with
-   the launch counters zeroed just before and read just after:
-   ``bench.run`` and ``api.trace`` forward + adjoint (K2 and K3, one launch
-   each per pass; they never launch K1) and ``fields.grid.eval_grad`` on the
-   rays' points (K1, one launch).
+   bench scene's full width (128^3 grid, 2^18 rays) in f32; hold K4
+   ``gather_rows`` against its plain version at the gather probe's full size
+   (66^3 rows of 128, 2^18 indices; f32 and f64, int32 and int64); time
+   kernel, plain version and, where one exists, a library call; compute each
+   kernel's bound.
+4. main paths - each through the entry points a user calls, with the launch
+   counters zeroed just before and read just after:
+   a. the bench scene: ``bench.run`` and ``api.trace`` forward + adjoint (K2
+      and K3, one launch each per pass; they never launch K1) and
+      ``fields.grid.eval_grad`` on the rays' points (K1, one launch);
+   b. the gather probe: ``benchmarks.probe_dma_gather.run`` (K4);
+   c. the fuel-injection trainer at full width:
+      ``experiments.fuel_injection.run_opt`` with the shipped configuration
+      (six stages 3^3 .. 65^3, 16 views of 128x128 = 262,144 rays, the real
+      volume, f32), ``optim_iters`` cut from 300 to 10 (210 Adam steps), with
+      the spot check and the stage escalation on; K2 and K3 are asserted at
+      exactly the launches the code implies, K1 and K4 at none.  Then the
+      same trainer in f64 at a small size on the card against the CPU, and,
+      when the short run predicts that it fits, the full 300-iteration run.
 5. report  - one JSON line of the kernels, then the result line.
 
 Bounds use the published peaks of one H100 SXM: 3.35 TB/s of device memory,
@@ -22,6 +34,8 @@ Bounds use the published peaks of one H100 SXM: 3.35 TB/s of device memory,
 """
 
 import json
+import math
+import os
 import subprocess
 import sys
 import time
@@ -32,14 +46,24 @@ if not torch.cuda.is_available():
     sys.exit("chip_smoke: no CUDA device; this check runs on the GPU only")
 
 from adjointnonlinearraytracing_tpu_torch import bench
+from adjointnonlinearraytracing_tpu_torch.benchmarks import probe_dma_gather
 from adjointnonlinearraytracing_tpu_torch.benchmarks.scenes import build_case
+from adjointnonlinearraytracing_tpu_torch.experiments import fuel_injection, voxel_scenes
 from adjointnonlinearraytracing_tpu_torch.fields import grid as G
 from adjointnonlinearraytracing_tpu_torch.kernels import build
 from adjointnonlinearraytracing_tpu_torch.kernels import wrappers as K
 from adjointnonlinearraytracing_tpu_torch.tracer import api
 from adjointnonlinearraytracing_tpu_torch.tracer import eikonal as E
+from adjointnonlinearraytracing_tpu_torch.utils.metrics import MetricsLogger
 
 RES, NRAYS = 128, 1 << 18
+# the gather probe's own size: a table of 66^3 rows of 128 f32, 2^18 indices
+GATHER_ROWS, GATHER_N, GATHER_REPS = 66 ** 3, 1 << 18, 8
+# the fuel trainer: iterations per stage are FUEL_ITERS * (stage + 1); the
+# shipped configuration has 300
+FUEL_ITERS, FUEL_ITERS_SHIPPED = 10, 300
+# the full-length run is made when 30 x the short run's time is below this
+FULL_RUN_BUDGET_S = 400.0
 PEAK_BYTES_PER_S = 3.35e12
 PEAK_F32_FLOPS = 67e12
 
@@ -127,6 +151,15 @@ def time_ms(fn, reps, flush=None):
     return total / reps
 
 
+def set_bound(rec):
+    """The least time the card could take for ``rec``'s bytes and operations."""
+    by_bytes = 1e3 * rec["bytes"] / PEAK_BYTES_PER_S
+    by_ops = 1e3 * rec["flops"] / PEAK_F32_FLOPS
+    rec["bound_ms"] = max(by_bytes, by_ops)
+    rec["bound_by"] = "bytes" if by_bytes >= by_ops else "operations"
+    return rec
+
+
 def scene(res, nrays, dtype, noise=0.0):
     """The bench scene plus the cotangents of the bench loss and K1's points."""
     rif, x0, v0, span = build_case(res=res, nrays=nrays, dtype=dtype, device="cuda")
@@ -206,6 +239,27 @@ def api_small_check():
     if abs(l_gpu - l_cpu) > TOL_F64 * abs(l_cpu) or err > TOL_F64:
         raise AssertionError("api.trace on the card disagrees with the CPU reference")
 
+    # the same call with non-contiguous rif, x, v (the kernels take contiguous
+    # tensors: api.trace makes them so) gives the same exit state, bit for bit
+    rif, x0, v0, span = build_case(res=17, nrays=512, dtype="float64", device="cuda")
+    h = span / 16
+    strided_rif = rif.permute(2, 1, 0).contiguous().permute(2, 1, 0)
+    xv = torch.cat([x0, v0], dim=1)
+    sx, sv = xv[:, :3], xv[:, 3:]
+    if strided_rif.is_contiguous() or sx.is_contiguous() or sv.is_contiguous():
+        raise AssertionError("the strided case is contiguous")
+    strided_rif.requires_grad_(True)
+    xt_s, vt_s = api.trace(strided_rif, sx, sv, h, h / 2)
+    (xt_s ** 2).sum().backward()
+    ref = rif.clone().requires_grad_(True)
+    xt_c, vt_c = api.trace(ref, x0, v0, h, h / 2)
+    (xt_c ** 2).sum().backward()
+    gerr = rel_err(strided_rif.grad, ref.grad)[0]
+    print(f"api[strided rif, x, v] exit state equal {bool(torch.equal(xt_s, xt_c))}, "
+          f"gradient rel_err {gerr:.3e} (tol {TOL_F64:g})", flush=True)
+    if not (torch.equal(xt_s, xt_c) and torch.equal(vt_s, vt_c)) or gerr > TOL_F64:
+        raise AssertionError("api.trace on strided inputs disagrees with contiguous ones")
+
 
 def time_kernels(s, cmp):
     """Times (ms) of kernel, plain version and library call at full width, and bounds."""
@@ -253,11 +307,256 @@ def time_kernels(s, cmp):
                + cmp["bstats"]["evals"] * FLOPS_BWD_EVAL
                + cmp["bstats"]["splats"] * FLOPS_BWD_SPLAT))
     for rec in t.values():
-        by_bytes = 1e3 * rec["bytes"] / PEAK_BYTES_PER_S
-        by_ops = 1e3 * rec["flops"] / PEAK_F32_FLOPS
-        rec["bound_ms"] = max(by_bytes, by_ops)
-        rec["bound_by"] = "bytes" if by_bytes >= by_ops else "operations"
+        set_bound(rec)
     return t
+
+
+def gather_check_and_time():
+    """K4 against its plain version at the probe's size, exactly; times and bound."""
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    table = torch.randn((GATHER_ROWS, probe_dma_gather.LANES), generator=gen,
+                        dtype=torch.float32, device="cuda")
+    idx = torch.randint(0, GATHER_ROWS, (GATHER_N,), generator=gen, dtype=torch.int32,
+                        device="cuda")
+    worst = 0.0
+    for tab in (table, table.double()):
+        for ind in (idx, idx.long()):
+            got = K.gather_rows(tab, ind)
+            want = probe_dma_gather.gather_rows_plain(tab, ind)
+            torch.cuda.synchronize()
+            err = float((got - want).abs().max())
+            worst = max(worst, err)
+            print(f"kernels[gather_rows {str(tab.dtype)[6:]} table {tuple(tab.shape)}, "
+                  f"{str(ind.dtype)[6:]} idx ({GATHER_N},)] max abs err {err:g} (must be 0), "
+                  f"bitwise equal {bool(torch.equal(got, want))}", flush=True)
+            if err != 0.0 or not torch.equal(got, want):
+                raise AssertionError("gather_rows disagrees with its plain version")
+    del tab, got, want
+    flush = torch.zeros(64 << 20, dtype=torch.float32, device="cuda")
+    row_bytes = table.shape[1] * table.element_size()
+    rec = dict(
+        ms=time_ms(lambda: K.gather_rows(table, idx), 10, flush),
+        plain_ms=time_ms(lambda: probe_dma_gather.gather_rows_plain(table, idx), 10, flush),
+        # the one library call that computes the same function; used nowhere in the port
+        library_ms=time_ms(lambda: torch.index_select(table, 0, idx), 10, flush),
+        # what this run's data needs: each gathered row read once and written
+        # once, each index read once (the table as a whole is not an input
+        # that must move: only the rows picked are)
+        bytes=2 * GATHER_N * row_bytes + GATHER_N * idx.element_size(), flops=0,
+        max_abs_err=worst)
+    set_bound(rec)
+    print(f"gather_rows[f32, int32] {rec['ms']:.4f} ms = {100 * rec['bound_ms'] / rec['ms']:.1f} % "
+          f"of the byte bound {rec['bound_ms']:.4f} ms ({rec['bytes'] / 1e6:.1f} MB); plain "
+          f"{rec['plain_ms']:.4f} ms; torch.index_select {rec['library_ms']:.4f} ms", flush=True)
+    return rec
+
+
+def gather_probe_path():
+    """The probe's entry point; it launches K4 for its check, its warm-up and each repetition."""
+    K.reset_launches()
+    rec = probe_dma_gather.run(R=GATHER_ROWS, N=GATHER_N, reps=GATHER_REPS)
+    launches = dict(K.LAUNCHES)
+    print(f"gather probe: {json.dumps(rec)}", flush=True)
+    want = {"eval_grad": 0, "trace_fwd": 0, "backtrace": 0, "gather_rows": 2 + GATHER_REPS}
+    if launches != want:
+        raise AssertionError(f"probe_dma_gather.run must launch {want}, counted {launches}")
+    if rec["max_abs_err"] != 0.0 or not rec["kernel"]["ms_per_dispatch"] > 0:
+        raise AssertionError("probe_dma_gather.run: wrong result or no time")
+    return launches
+
+
+def fuel_params():
+    """Section ``default`` of ``configs/params-fuel.yaml``, written out (the GPU machine
+    is not known to have ``yaml``; a CPU test holds the two equal)."""
+    return dict(fuel_injection.default_params(), nviews=16)
+
+
+def fuel_launches(params):
+    """K2 and K3 launches that ``run_opt(params)`` implies, from the code:
+    one K2 for the ground truth; per Adam step one K2 (loss) and one K3 (its
+    gradient); per spot check (one at start-up, one at the start of every
+    stage but the first) one K2 and one K3 through ``tracer.trace`` (the exact
+    side is the taped plain version and launches nothing)."""
+    stages = len(params["res_list"])
+    steps = sum(params["optim_iters"] * (s + 1) for s in range(stages))
+    checks = (1 if params.get("grad_spotcheck", True) else 0) + (
+        stages - 1 if params.get("auto_exact", True) else 0)
+    return steps, {"eval_grad": 0, "trace_fwd": 1 + steps + checks,
+                   "backtrace": steps + checks, "gather_rows": 0}
+
+
+def fuel_path(iters, label):
+    """The fuel-injection trainer at full width for ``iters`` iterations a stage.
+
+    In f32 the constant-memory adjoint drifts on this scene (rays of a view
+    run along a grid axis and ``ds`` divides ``h``, so every few steps a
+    position sits on a node plane, where forward and reverse can pick
+    different cells), and the stage spot check would escalate to the exact
+    gradient, which the port does not have yet and raises for.  The run keeps
+    the spot checks and the escalator on, prints what they measure, and lifts
+    the escalation tolerance (``ANRT_EXACT_TOL``) for its duration.
+    """
+    params = dict(fuel_params(), optim_iters=iters, grad_spotcheck=True, auto_exact=True)
+    res_list = params["res_list"]
+    nrays = params["nviews"] * params["nbins"] ** 2 * params["spp"]
+    steps, want = fuel_launches(params)
+    step_rows, events = [], []
+
+    def stat(it, loss, secs):
+        step_rows.append((it, loss, secs, len(events)))
+
+    metrics = MetricsLogger()
+    saved_tol = os.environ.get("ANRT_EXACT_TOL")
+    os.environ["ANRT_EXACT_TOL"] = "1e30"
+    K.reset_launches()
+    K.record_events(events)
+    t0 = time.time()
+    try:
+        eta, hist, gtruth = fuel_injection.run_opt(params, None, stat_fn=stat, metrics=metrics)
+        torch.cuda.synchronize()
+    finally:
+        K.record_events(None)
+        if saved_tol is None:
+            del os.environ["ANRT_EXACT_TOL"]
+        else:
+            os.environ["ANRT_EXACT_TOL"] = saved_tol
+    seconds = time.time() - t0
+    launches = dict(K.LAUNCHES)
+    checks = {k: v for row in metrics.history for k, v in row.items()
+              if k.startswith("grad_spotcheck")}
+    for name in ["grad_spotcheck"] + [f"grad_spotcheck_stage{s}" for s in range(1, 6)]:
+        print(f"fuel[{label}] {name} (adjoint against the taped plain version, 2048 rays): "
+              f"max-rel {checks[name]:.3e}, rel-L2 {checks[name + '_rel_l2']:.3e}, cosine "
+              f"{checks[name + '_cos']:.5f}; the escalation tolerance is 0.01 by default",
+              flush=True)
+    print(f"fuel[{label}] {params['nviews']} views x {params['nbins']}^2 = {nrays} rays, "
+          f"stages {res_list}, optim_iters {iters} (shipped {FUEL_ITERS_SHIPPED}), "
+          f"{steps} Adam steps in {seconds:.2f} s; launches {launches}", flush=True)
+    if launches != want:
+        raise AssertionError(f"run_opt must launch {want}, counted {launches}")
+    if nrays != 262144 or len(hist) != steps or len(step_rows) != steps:
+        raise AssertionError("the fuel run is not at full width or lost steps")
+    if not all(map(math.isfinite, hist)):
+        raise AssertionError("a loss of the fuel run is not finite")
+    if not hist[-1] < hist[0]:
+        raise AssertionError(f"the loss did not fall: {hist[0]} -> {hist[-1]}")
+    clamp_max = float(params["step_res"])
+    if eta.shape != (65, 65, 65) or eta.dtype != torch.float32 or not eta.is_cuda:
+        raise AssertionError("the recovered field is not a 65^3 f32 tensor on the card")
+    if not bool(torch.isfinite(eta).all()) or float(eta.min()) < 1.0 \
+            or float(eta.max()) > clamp_max:
+        raise AssertionError("the recovered field leaves [1, clamp_max]")
+    # the shell is frozen at every stage and a finer shell is interpolated
+    # from the coarser shell alone, so a shell that had moved at any stage
+    # would show here; resampling a constant costs a few roundings
+    interior = torch.zeros_like(eta, dtype=torch.bool)
+    interior[1:-1, 1:-1, 1:-1] = True
+    start = torch.ones((), dtype=torch.float32, device="cuda") + params["fuel_val"]
+    shell_dev = float((eta[~interior] - start).abs().max())
+    moved = float((eta[interior] - start).abs().max())
+    if shell_dev > 1e-6 or not moved > 1e-6:
+        raise AssertionError(f"boundary shell moved by {shell_dev} or interior stayed ({moved})")
+
+    # per stage: step time on the host clock (each step ends with the loss
+    # read back, so the device has finished), and K2 + K3 of that step from
+    # the events recorded around the launches
+    per_stage, first = [], 0
+    for s, res in enumerate(res_list):
+        rows = step_rows[first:first + iters * (s + 1)]
+        first += len(rows)
+        step_ms = sorted(1e3 * r[2] for r in rows)
+        kern = []
+        for r in rows:
+            (n2, a2, b2), (n3, a3, b3) = events[r[3] - 2:r[3]]  # the step's own two launches
+            if (n2, n3) != ("trace_fwd", "backtrace"):
+                raise AssertionError("a step's launches are not K2 then K3")
+            kern.append((a2.elapsed_time(b2), a3.elapsed_time(b3)))
+        k2 = sorted(k[0] for k in kern)[len(kern) // 2]
+        k3 = sorted(k[1] for k in kern)[len(kern) // 2]
+        med = step_ms[len(step_ms) // 2]
+        per_stage.append(dict(res=res, steps=len(rows), step_ms_median=med,
+                              step_ms_mean=sum(step_ms) / len(step_ms),
+                              rays_per_s=nrays / (1e-3 * med), k2_ms_median=k2, k3_ms_median=k3,
+                              kernel_share=(k2 + k3) / med, loss_last=rows[-1][1]))
+        print(f"fuel[{label}] stage {s} res {res}^3: {len(rows)} steps, median "
+              f"{med:.3f} ms/step = {nrays / (1e-3 * med):.4g} rays/s; K2 {k2:.3f} ms + K3 "
+              f"{k3:.3f} ms = {100 * (k2 + k3) / med:.1f} % of the step, the rest "
+              f"{med - k2 - k3:.3f} ms is host work and small kernels; loss {rows[-1][1]:.6g}",
+              flush=True)
+    # K2 and K3 against their plain versions at this path's shapes (the run's
+    # own rays: same seed, same generator; the ground truth at 65^3), and the
+    # work of one pass as the plain versions count it.  Made after the counts
+    # were read: these launches are not the main path's.
+    rays, _ = fuel_injection.gen_start_rays(
+        params, torch.Generator(device="cuda").manual_seed(params["seed"]))
+    x0, v0 = rays.x.contiguous(), rays.v.contiguous()
+    h = params["vol_span"] / (res_list[-1] - 1)
+    ds = h / params["step_res"]
+    field = G.GridField(gtruth, h)
+    fwork, bwork = {}, {}
+    with torch.no_grad():
+        nf, nb = E.max_steps_fwd(res_list[-1], h, ds), E.max_steps_bwd(res_list[-1], h, ds)
+        xt_p, vt_p = E.trace(field, x0, v0, ds, nf, stats=fwork)
+        xt_k, vt_k = K.trace_fwd(gtruth, h, x0, v0, ds, nf)
+        dx, dv = 2.0 * (xt_p - 0.5), torch.ones_like(vt_p)
+        g_p = E.backtrace(field, xt_p, vt_p, dx, dv, ds, nb, stats=bwork)
+        g_k = K.backtrace(gtruth, h, xt_p, vt_p, dx, dv, ds, nb, G.snap_tol(gtruth.dtype))
+    e2 = max(rel_err(xt_k, xt_p)[0], rel_err(vt_k, vt_p)[0])
+    e3 = rel_err(g_k, g_p)[0]
+    differ = int(((xt_k != xt_p) | (vt_k != vt_p)).any(dim=1).sum())
+    k2_last, k3_last = per_stage[-1]["k2_ms_median"], per_stage[-1]["k3_ms_median"]
+    print(f"fuel[{label}] kernels at this scene's shapes (65^3, {nrays} rays): trace_fwd "
+          f"rel_err {e2:.3e} (tol {TOL_F32_STATE:g}), {differ} rays not bitwise equal; "
+          f"backtrace rel_err {e3:.3e} (tol {TOL_F32_GRAD:g}), max |g| "
+          f"{float(g_p.abs().max()):.4g}", flush=True)
+    print(f"fuel[{label}] work of a pass at 65^3: forward {fwork['ray_steps']} ray-steps "
+          f"({fwork['ray_steps'] / nrays:.1f} a ray, {fwork['evals']} evaluating the field), "
+          f"K2 at {fwork['ray_steps'] / (1e-3 * k2_last):.4g} ray-steps/s; backward "
+          f"{bwork['ray_steps']} ray-steps, {bwork['splats']} splats = {8 * bwork['splats']} "
+          f"atomic adds, K3 at {8 * bwork['splats'] / (1e-3 * k3_last):.4g} adds/s at 65^3 and "
+          f"{8 * bwork['splats'] / (1e-3 * per_stage[0]['k3_ms_median']):.4g} adds/s at 3^3 "
+          "(if the coarse stages splat as often)", flush=True)
+    if not (e2 <= TOL_F32_STATE and e3 <= TOL_F32_GRAD and float(g_p.abs().max()) > 0):
+        raise AssertionError("a stepper kernel disagrees with its plain version on the fuel scene")
+    err = fuel_injection.reconstruction_error(eta, gtruth,
+                                              background=1.0 + params["fuel_val"])
+    print(f"fuel[{label}] loss {hist[0]:.6g} -> {hist[-1]:.6g}; shell deviation {shell_dev:.2e}; "
+          f"reconstruction_error (background 1 + fuel_val) {json.dumps(err)}", flush=True)
+    return dict(seconds=seconds, steps=steps, launches=launches, per_stage=per_stage,
+                loss_first=hist[0], loss_last=hist[-1], spot_checks=checks,
+                fwd_ray_steps=fwork["ray_steps"], atomic_adds=8 * bwork["splats"], **err)
+
+
+def fuel_small_check():
+    """The same trainer in f64 at a small size, on the card against the CPU.
+
+    The card runs the kernels (and, for the spot checks, the taped plain
+    version); the CPU runs the plain versions throughout: the whole slice,
+    kernels in, against plain versions."""
+    params = dict(fuel_params(), res_list=[3, 5, 9], nviews=2, nbins=16, optim_iters=3,
+                  dtype="float64", grad_spotcheck=True, auto_exact=True)
+    rays, _ = fuel_injection.gen_start_rays(params, torch.Generator().manual_seed(0),
+                                            torch.float64)
+    gtruth = voxel_scenes.fuel_injection_rif(params["fuel_val"], torch.float64, "cpu")
+    steps, want = fuel_launches(params)
+    K.reset_launches()
+    eta_gpu, hist_gpu, _ = fuel_injection.run_opt(params, None, gtruth, rays=rays)
+    launches = dict(K.LAUNCHES)
+    eta_cpu, hist_cpu, _ = fuel_injection.run_opt(params, None, gtruth, rays=rays, device="cpu")
+    if launches != want or dict(K.LAUNCHES) != want:
+        raise AssertionError(f"the small run must launch {want} on the card and nothing on "
+                             f"the CPU, counted {launches} then {dict(K.LAUNCHES)}")
+    hist_err = max(abs(a - b) / abs(b) for a, b in zip(hist_gpu, hist_cpu))
+    scale = float((eta_cpu - 1.0).abs().max())
+    eta_err = float((eta_gpu.cpu() - eta_cpu).abs().max()) / scale
+    print(f"fuel[f64 {params['res_list']}, {rays.x.shape[0]} rays, {steps} steps] card against "
+          f"CPU: loss history rel_err {hist_err:.3e}, final field err {eta_err:.3e} of its "
+          f"largest deviation from 1 ({scale:.3e}) (tol {TOL_F64:g}); loss "
+          f"{hist_cpu[0]:.6g} -> {hist_cpu[-1]:.6g}", flush=True)
+    if len(hist_gpu) != steps or not eta_gpu.is_cuda or eta_cpu.is_cuda:
+        raise AssertionError("the small runs did not run where they were asked to")
+    if not (hist_err <= TOL_F64 and eta_err <= TOL_F64 and hist_cpu[-1] < hist_cpu[0]):
+        raise AssertionError("the fuel trainer on the card disagrees with the CPU")
 
 
 BENCH_ITERS = 3
@@ -340,23 +639,52 @@ def main():
           f"splats {cmp['bstats']['splats']} "
           f"({8 * cmp['bstats']['splats']} atomic adds)", flush=True)
 
+    gather = gather_check_and_time()
+    times["gather_rows"] = gather
+
     K.reset_launches()
     rec, after_trace = main_path()
-    launches = dict(K.LAUNCHES)
+    bench_launches = dict(K.LAUNCHES)
     print(f"main path: {json.dumps(rec)}", flush=True)
     print(f"launches after bench.run and api.trace: {after_trace}; "
-          f"after fields.grid.eval_grad as well: {launches}", flush=True)
-    want = {"eval_grad": 0, "trace_fwd": MAIN_PATH_PASSES, "backtrace": MAIN_PATH_PASSES}
+          f"after fields.grid.eval_grad as well: {bench_launches}", flush=True)
+    want = {"eval_grad": 0, "trace_fwd": MAIN_PATH_PASSES, "backtrace": MAIN_PATH_PASSES,
+            "gather_rows": 0}
     if after_trace != want:
         raise AssertionError(f"{MAIN_PATH_PASSES} forward + adjoint passes must launch "
                              f"{want}, counted {after_trace}")
-    if launches != {**want, "eval_grad": 1}:
-        raise AssertionError(f"fields.grid.eval_grad must launch K1 once, counted {launches}")
+    if bench_launches != {**want, "eval_grad": 1}:
+        raise AssertionError(f"fields.grid.eval_grad must launch K1 once, counted "
+                             f"{bench_launches}")
 
+    probe_launches = gather_probe_path()
+    fuel = fuel_path(FUEL_ITERS, f"f32 full width, optim_iters cut to {FUEL_ITERS}")
+    fuel_small_check()
+    predicted = fuel["seconds"] * FUEL_ITERS_SHIPPED / FUEL_ITERS
+    if predicted <= FULL_RUN_BUDGET_S:
+        print(f"fuel: the {fuel['steps']}-step run took {fuel['seconds']:.1f} s, so the shipped "
+              f"{FUEL_ITERS_SHIPPED} iterations a stage are predicted at {predicted:.0f} s: "
+              "running them", flush=True)
+        full_run = fuel_path(FUEL_ITERS_SHIPPED, "f32 full width, shipped optim_iters")
+        print(f"fuel[shipped] {full_run['steps']} steps in {full_run['seconds']:.1f} s, "
+              f"rel_norm {full_run['rel_norm']:.4f}", flush=True)
+    else:
+        print(f"fuel: the {fuel['steps']}-step run took {fuel['seconds']:.1f} s; the shipped "
+              f"{FUEL_ITERS_SHIPPED} iterations a stage are predicted at {predicted:.0f} s, over "
+              f"the {FULL_RUN_BUDGET_S:.0f} s kept for them: not run", flush=True)
+
+    paths = {"bench": bench_launches, "probe": probe_launches, "fuel": fuel["launches"]}
     replaces = {
         "eval_grad": "adjointnonlinearraytracing_tpu/benchmarks/probe_evalmath.py:107",
         "trace_fwd": "adjointnonlinearraytracing_tpu/tracer/paired.py:64",
         "backtrace": "adjointnonlinearraytracing_tpu/tracer/paired.py:260",
+        "gather_rows": "adjointnonlinearraytracing_tpu/benchmarks/probe_dma_gather.py:47",
+    }
+    errs = dict(zip(("eval_grad", "trace_fwd", "backtrace"), zip(cmp["abs_err"], cmp["rel_err"])))
+    errs["gather_rows"] = (gather["max_abs_err"], gather["max_abs_err"])
+    fuel_stage_ms = {
+        "trace_fwd": {f"{st['res']}^3": st["k2_ms_median"] for st in fuel["per_stage"]},
+        "backtrace": {f"{st['res']}^3": st["k3_ms_median"] for st in fuel["per_stage"]},
     }
     # tolerance on the error relative to the plain version's largest magnitude,
     # and the data-dependent work this run's inputs needed
@@ -364,22 +692,33 @@ def main():
         "eval_grad": {"rel_tol": TOL_F32_STATE, "points": NRAYS,
                       "launched_by": "fields.grid.eval_grad"},
         "trace_fwd": {"rel_tol": TOL_F32_STATE, **cmp["fstats"],
-                      "launched_by": "bench.run, tracer.api.trace"},
+                      "fuel_ms_by_stage": fuel_stage_ms["trace_fwd"],
+                      "launched_by": "bench.run, tracer.api.trace, "
+                                     "experiments.fuel_injection.run_opt"},
         "backtrace": {"rel_tol": TOL_F32_GRAD, **cmp["bstats"],
                       "atomic_adds": 8 * cmp["bstats"]["splats"],
-                      "launched_by": "bench.run, tracer.api.trace"},
+                      "fuel_ms_by_stage": fuel_stage_ms["backtrace"],
+                      "launched_by": "bench.run, tracer.api.trace, "
+                                     "experiments.fuel_injection.run_opt"},
+        "gather_rows": {"rel_tol": 0.0, "rows": GATHER_N, "table_rows": GATHER_ROWS,
+                        "launched_by": "benchmarks.probe_dma_gather.run"},
     }
     kernels = []
-    for i, name in enumerate(build.KERNELS):
+    for name in build.KERNELS:
         rec_k = times[name]
+        by_path = {path: counts[name] for path, counts in paths.items()}
+        if sum(by_path.values()) < 1:
+            raise AssertionError(f"{name} was launched by none of the main paths")
         kernels.append({
             "name": name, "route": "cuda",
             "source": f"adjointnonlinearraytracing_tpu_torch/kernels/csrc/{name}.cu",
-            "replaces": replaces[name], "launches": launches[name],
+            "replaces": replaces[name], "launches": sum(by_path.values()),
+            "launches_by_path": by_path,
             "launches_by_api_trace": after_trace[name],
-            "max_abs_err": cmp["abs_err"][i], "max_rel_err": cmp["rel_err"][i], "ms": rec_k["ms"],
+            "max_abs_err": errs[name][0], "max_rel_err": errs[name][1], "ms": rec_k["ms"],
             "plain_ms": rec_k["plain_ms"], "bound_ms": rec_k["bound_ms"],
-            "bound_by": rec_k["bound_by"], "library_ms": rec_k["library_ms"],
+            "bound_by": rec_k["bound_by"], "share_of_bound": rec_k["bound_ms"] / rec_k["ms"],
+            "library_ms": rec_k["library_ms"],
             **extra[name],
         })
     print(f"elapsed: {time.time() - t_start:.1f} s")

@@ -143,6 +143,21 @@ def test_f32_eval_matches_f32_reference(case):
     _close(g, g_ref, 1e-4)
 
 
+@pytest.mark.parametrize("shape,new_res", [
+    ((6,), 11), ((5, 5), (9, 7)), ((4, 4, 4), 7), ((5, 5, 5), (9, 9, 9)), ((9, 9, 9), 5),
+    ((3, 3, 3), 3)])
+def test_upres_volume(shape, new_res):
+    """1D/2D/3D, up, down and same size; nodes of the coarse grid keep their values."""
+    n = np.random.default_rng(4).uniform(size=shape)
+    got = TG.upres_volume(torch.from_numpy(n), new_res)
+    want = JG.upres_volume(jnp.asarray(n), new_res)
+    assert got.dtype == torch.float64
+    _close(got, want)
+    if new_res == 3:
+        _close(got, n)
+    assert TG.upres_volume(torch.from_numpy(n).float(), new_res).dtype == torch.float32
+
+
 def test_eval_grad_against_the_pallas_kernel_it_replaces():
     """The port's eval_grad against ``_pl_eval_kernel`` run in interpret mode.
 

@@ -12,6 +12,7 @@ import pytest
 import torch
 
 import adjointnonlinearraytracing_tpu_torch as port
+from adjointnonlinearraytracing_tpu_torch import convert
 from adjointnonlinearraytracing_tpu_torch.benchmarks.scenes import build_case
 from adjointnonlinearraytracing_tpu_torch.kernels import wrappers
 
@@ -26,7 +27,7 @@ def _modules():
 
 def test_every_module_imports_without_jax():
     names = _modules()
-    assert len(names) >= 12
+    assert len(names) >= 28
     code = (
         "import importlib, sys\n"
         "from adjointnonlinearraytracing_tpu_torch.kernels import build\n"
@@ -51,7 +52,7 @@ def test_every_module_imports_without_jax():
 def test_sources_name_neither_jax_nor_the_jax_package():
     files = sorted((ROOT / "adjointnonlinearraytracing_tpu_torch").rglob("*.py"))
     files.append(ROOT / "chip_smoke.py")
-    assert len(files) >= 14
+    assert len(files) >= 30
     for f in files:
         assert not FORBIDDEN.search(f.read_text()), f
 
@@ -65,6 +66,37 @@ def test_build_case_default_device_needs_a_gpu():
     assert rif.device.type == "cpu" and rif.shape == (5, 5, 5) and x0.shape == (4, 3)
 
 
+def test_trainer_probe_and_trace_closure_need_a_gpu_and_never_use_the_cpu_instead():
+    """The entry points of the fuel trainer and of the gather probe default to
+    the GPU; asked for it where there is none they raise."""
+    if torch.cuda.is_available():
+        pytest.skip("a GPU is present: this checks the GPU-less behaviour")
+    from adjointnonlinearraytracing_tpu_torch.benchmarks import probe_dma_gather
+    from adjointnonlinearraytracing_tpu_torch.experiments import common, fuel_injection, runner
+    from adjointnonlinearraytracing_tpu_torch.experiments import voxel_scenes
+    from adjointnonlinearraytracing_tpu_torch.sources import sources
+
+    tiny = dict(fuel_injection.default_params(), res_list=[3], nviews=1, nbins=2, optim_iters=1)
+    for call in (
+            lambda: fuel_injection.run_opt(tiny),
+            lambda: fuel_injection.run_opt(tiny, device="cuda"),
+            lambda: runner.run(str(ROOT / "configs" / "params-fuel.yaml")),
+            lambda: probe_dma_gather.run(R=8, N=4, reps=1),
+            lambda: common.make_trace(1.0, 0.1, device="cuda"),
+            lambda: voxel_scenes.fuel_injection_rif(),
+            lambda: sources.plane_source3(0.0, 2, 1.0),
+            lambda: convert.checkpoint_from_jax_npz("missing.npz")):
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            call()
+    # a closure made for one device refuses tensors that live on another
+    # instead of moving them or tracing where they are
+    trace = common.make_trace(1.0, 0.1, device="cpu")
+    rif, x0, v0, _ = build_case(res=5, nrays=4, span=1.0, device="cpu")
+    assert trace(rif, x0, v0)[0].shape == (4, 3)
+    with pytest.raises(RuntimeError, match="this trace was made for cpu"):
+        trace(rif.to("meta"), x0, v0)
+
+
 def test_kernel_wrappers_refuse_cpu_tensors():
     rif, x0, v0, _ = build_case(res=5, nrays=4, device="cpu")
     with pytest.raises(ValueError, match="CUDA tensors"):
@@ -73,6 +105,8 @@ def test_kernel_wrappers_refuse_cpu_tensors():
         wrappers.trace_fwd(rif, 1.0, x0, v0, 0.5, 4)
     with pytest.raises(ValueError, match="CUDA tensors"):
         wrappers.backtrace(rif, 1.0, x0, v0, x0, v0, 0.5, 4, 1e-3)
+    with pytest.raises(ValueError, match="CUDA tensors"):
+        wrappers.gather_rows(torch.zeros(4, 128), torch.zeros(2, dtype=torch.int32))
     assert set(wrappers.LAUNCHES.values()) == {0}
 
 

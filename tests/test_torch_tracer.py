@@ -203,3 +203,39 @@ def test_api_rejects_bad_shapes():
         TA.trace(rif, x[:, :2], x[:, :2], 1.0, 0.5)
     with pytest.raises(ValueError, match="must match"):
         TA.trace(rif, x, x[:4], 1.0, 0.5)
+
+
+def test_api_trace_takes_strided_inputs(grad_refs):
+    """Non-contiguous ``rif``, ``x``, ``v`` give what their contiguous copies give."""
+    data, (x, v) = _field(), _rays("outside")
+    rif = torch.from_numpy(np.ascontiguousarray(data.transpose(2, 1, 0))).permute(2, 1, 0)
+    xv = torch.from_numpy(np.concatenate([x, v], axis=1))
+    tx, tv = xv[:, :3], xv[:, 3:]
+    assert not (rif.is_contiguous() or tx.is_contiguous() or tv.is_contiguous())
+    rif.requires_grad_(True)
+    xt, vt = TA.trace(rif, tx, tv, H, DS)
+    (xt ** 2).sum().add(vt.sum()).backward()
+    ref = torch.from_numpy(data).requires_grad_(True)
+    xt_c, vt_c = TA.trace(ref, tx.contiguous(), tv.contiguous(), H, DS)
+    (xt_c ** 2).sum().add(vt_c.sum()).backward()
+    assert torch.equal(xt, xt_c) and torch.equal(vt, vt_c)
+    assert torch.equal(rif.grad, ref.grad) and float(ref.grad.abs().max()) > 0
+
+
+def test_trace_ad_matches_jax_trace_ad():
+    """Value and gradient with respect to ``rif``, ``x`` and ``v`` of the tape twin."""
+    data, (x, v) = _field(), _rays("outside")
+
+    def jloss(r, x, v):
+        xt, vt = JT.trace_ad(r, x, v, H, DS)
+        return jnp.sum(xt ** 2 + xt * vt)
+
+    want = jax.jit(jax.value_and_grad(jloss, argnums=(0, 1, 2)))(
+        jnp.asarray(data), jnp.asarray(x), jnp.asarray(v))
+    tr, tx, tv = (torch.from_numpy(a).requires_grad_(True) for a in (data, x, v))
+    xt, vt = TA.trace_ad(tr, tx, tv, H, DS)
+    loss = (xt ** 2 + xt * vt).sum()
+    loss.backward()
+    assert abs(float(loss.detach()) - float(want[0])) <= FWD_RTOL * abs(float(want[0]))
+    for t, g in zip((tr, tx, tv), want[1]):
+        _close(t.grad, g, GRAD_RTOL)
