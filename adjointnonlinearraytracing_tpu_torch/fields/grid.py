@@ -231,9 +231,12 @@ def splat_delta(field: GridField, p, val, grad, mask=None) -> torch.Tensor:
 
 
 def scatter_into(acc_flat: torch.Tensor, field: GridField, p, val, grad, mask=None) -> torch.Tensor:
-    """Accumulate splat contributions into ``acc_flat`` **in place**; returns it."""
+    """Accumulate splat contributions into ``acc_flat`` **in place**; returns it.
+
+    The contributions are computed in ``p``'s type and added in ``acc_flat``'s.
+    """
     idx, contrib = _splat_corner_values(field, p, val, grad, mask)
-    return acc_flat.index_add_(0, idx.reshape(-1), contrib.reshape(-1))
+    return acc_flat.index_add_(0, idx.reshape(-1), contrib.reshape(-1).to(acc_flat.dtype))
 
 
 def inbounds(field: GridField, p: torch.Tensor) -> torch.Tensor:

@@ -12,19 +12,30 @@
 //
 // Bound by operations: the grid (8.4 MB at 128^3 f32) stays in L2, each ray
 // reads 24 B and writes 24 B once, and does ~100 flops per step (58 would
-// do) for a few hundred steps.  Design: no per-step launch and no state in device memory;
-// rays of a warp are neighbours in the scene only by chance, so the corner
-// reads are uncoalesced L1/L2 hits, which a later change may address.
+// do) for a few hundred steps.  Design: no per-step launch and no state in
+// device memory.  What holds it back on the card is how many distinct L1/L2
+// lines a warp's 8 corner reads touch each step: 8 x 32 when its rays are
+// strangers (the bench scene draws entry points at random), a few when they
+// are neighbours.  So the caller may pass an order (tracer/order.py: entry
+// cell in Z-order): thread i takes ray order[i], reads x0[order[i]] and
+// writes xt[order[i]], so the outputs stay in the caller's order and each
+// ray's arithmetic, and so its result, is the same bit for bit.  With it an
+// H100 runs ~1e11 ray-steps/s on coherent and on randomly drawn rays alike,
+// still under a tenth of the operation bound: each step's corner reads wait
+// on the position the step before computed, and that chain of cache hits a
+// ray is what is left (not measured apart).
 #include "trilinear.cuh"
 
 namespace anrt {
 
 template <typename T>
 __global__ void trace_fwd_kernel(Grid<T> g, T ds, const T* __restrict__ x0,
-                                 const T* __restrict__ v0, T* __restrict__ xt_out,
-                                 T* __restrict__ vt_out, int n_rays, int max_steps) {
-  const int i = blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= n_rays) return;
+                                 const T* __restrict__ v0, const int* __restrict__ order,
+                                 T* __restrict__ xt_out, T* __restrict__ vt_out, int n_rays,
+                                 int max_steps) {
+  const int t = blockIdx.x * blockDim.x + threadIdx.x;
+  if (t >= n_rays) return;
+  const int i = ray_of(order, t);
   T x[3], v[3], xt[3], vt[3];
   load3(x0, i, x);
   load3(v0, i, v);
@@ -65,12 +76,12 @@ __global__ void trace_fwd_kernel(Grid<T> g, T ds, const T* __restrict__ x0,
 
 template <typename T>
 int launch_trace_fwd(const void* rif, int W, int H, int D, double h, double ds,
-                     const void* x0, const void* v0, void* xt, void* vt, int n_rays,
-                     int max_steps, cudaStream_t stream) {
+                     const void* x0, const void* v0, const int* order, void* xt, void* vt,
+                     int n_rays, int max_steps, cudaStream_t stream) {
   if (n_rays > 0) {
     trace_fwd_kernel<T><<<blocks_for(n_rays), kThreads, 0, stream>>>(
         make_grid<T>(rif, W, H, D, h), static_cast<T>(ds), static_cast<const T*>(x0),
-        static_cast<const T*>(v0), static_cast<T*>(xt), static_cast<T*>(vt), n_rays,
+        static_cast<const T*>(v0), order, static_cast<T*>(xt), static_cast<T*>(vt), n_rays,
         max_steps);
   }
   return static_cast<int>(cudaGetLastError());
@@ -78,12 +89,14 @@ int launch_trace_fwd(const void* rif, int W, int H, int D, double h, double ds,
 
 }  // namespace anrt
 
+// order: null, or n_rays ray indices (thread i takes ray order[i]).
 extern "C" int anrt_trace_fwd(int is_double, const void* rif, int W, int H, int D, double h,
-                              double ds, const void* x0, const void* v0, void* xt, void* vt,
-                              int n_rays, int max_steps, void* stream) {
+                              double ds, const void* x0, const void* v0, const void* order,
+                              void* xt, void* vt, int n_rays, int max_steps, void* stream) {
   auto s = static_cast<cudaStream_t>(stream);
-  return is_double ? anrt::launch_trace_fwd<double>(rif, W, H, D, h, ds, x0, v0, xt, vt,
+  auto o = static_cast<const int*>(order);
+  return is_double ? anrt::launch_trace_fwd<double>(rif, W, H, D, h, ds, x0, v0, o, xt, vt,
                                                     n_rays, max_steps, s)
-                   : anrt::launch_trace_fwd<float>(rif, W, H, D, h, ds, x0, v0, xt, vt,
+                   : anrt::launch_trace_fwd<float>(rif, W, H, D, h, ds, x0, v0, o, xt, vt,
                                                    n_rays, max_steps, s);
 }

@@ -1,6 +1,7 @@
-// Trilinear voxel-field routines shared by the three kernels of the port:
-// clamped 8-corner fetch, value, gradient, off-diagonal Hessian and the splat
-// (transpose of value + gradient) with atomicAdd.
+// Trilinear voxel-field routines shared by the three stepper kernels of the
+// port: clamped 8-corner fetch, value, gradient, off-diagonal Hessian, the
+// splat (transpose of value + gradient) and the per-ray run of splats that
+// the adjoint sums in registers before it adds them anywhere.
 //
 // Semantics are those of fields/grid.py: data[z, y, x] with p = (x, y, z),
 // flat index (z*H + y)*W + x, pm = p / h as a true division, both corners
@@ -8,6 +9,13 @@
 // the gradient part of the splat carry 1/h.  The arithmetic repeats the plain
 // torch version operation by operation; compile with -fmad=false so that
 // floor(), inbounds() and escaped() decide alike on nodes and faces.
+//
+// What bounds them on the card: the corner reads are L1/L2 hits (the grid is
+// at most 8.4 MB here) whose cost is how many distinct lines a warp touches,
+// so the callers run rays in a coherent order (tracer/order.py); the splat's
+// cost is its atomic adds, so SplatRun keeps one cell's 8 sums in registers
+// while a ray stays in that cell and adds them once when it leaves, and the
+// lanes of a warp that leave the same cell at once add their sums together.
 #pragma once
 
 #include <cuda_runtime.h>
@@ -137,12 +145,11 @@ __device__ __forceinline__ void hessian(const Grid<T>& g, const T v[2][2][2],
   hess[2] = (yz0 + w0[0] * (yz1 - yz0)) * g.inv_h2;
 }
 
-// Transpose of value_grad with respect to the voxel data: adds
-// val * B_i(p) + grad . dB_i(p) to the 8 corners.  The order of the atomic
-// adds across rays is not fixed, so the sum is not bitwise reproducible.
+// Transpose of value_grad with respect to the voxel data: the 8 corner terms
+// val * B_i(p) + grad . dB_i(p), in the plain version's order of operations.
 template <typename T>
-__device__ __forceinline__ void splat(const Grid<T>& g, T* acc, const Stencil<T>& s,
-                                      T val, const T grad[3]) {
+__device__ __forceinline__ void splat_terms(const Grid<T>& g, const Stencil<T>& s, T val,
+                                            const T grad[3], T out[2][2][2]) {
   const T wx[2] = {static_cast<T>(1) - s.w0[0], s.w0[0]};
   const T wy[2] = {static_cast<T>(1) - s.w0[1], s.w0[1]};
   const T wz[2] = {static_cast<T>(1) - s.w0[2], s.w0[2]};
@@ -153,12 +160,99 @@ __device__ __forceinline__ void splat(const Grid<T>& g, T* acc, const Stencil<T>
 #pragma unroll
     for (int b = 0; b < 2; ++b)
 #pragma unroll
-      for (int c = 0; c < 2; ++c) {
-        const T contrib = val * wx[a] * wy[b] * wz[c] + gx * sgn[a] * wy[b] * wz[c] +
-                          gy * wx[a] * sgn[b] * wz[c] + gz * wx[a] * wy[b] * sgn[c];
-        atomicAdd(acc + s.idx[a][b][c], contrib);
-      }
+      for (int c = 0; c < 2; ++c)
+        out[a][b][c] = val * wx[a] * wy[b] * wz[c] + gx * sgn[a] * wy[b] * wz[c] +
+                       gy * wx[a] * sgn[b] * wz[c] + gz * wx[a] * wy[b] * sgn[c];
 }
+
+// The splats of one ray into one cell, summed in registers.  A run is the
+// steps between two changes of the clamped stencil (the same 8 indices:
+// idx[0][0][0] and idx[1][1][1] fix the clamped corners on every axis); its
+// 8 sums go to acc (device or shared memory) when the ray leaves the cell and
+// at the end of the ray, so acc sees one add a corner per run instead of one
+// per step.  Lanes of a warp that flush runs of the same stencil at the same
+// time (neighbouring rays in a coherent order do) first sum them with
+// shuffles, and one of them issues the 8 atomicAdds.  The order of the adds
+// is not fixed, so the sum is reproducible to rounding only, not bitwise.
+template <typename T>
+struct SplatRun {
+  int idx[2][2][2];
+  T sum[2][2][2];
+  bool open = false;
+  int flushes = 0;  // runs this lane flushed (one a run)
+  int issued = 0;   // flushes this lane issued for its group of lanes (8 adds each)
+
+  // Called by every lane of the warp that is at this point; flushes the runs
+  // of the lanes whose `cond` holds.
+  __device__ __forceinline__ void flush_if(T* acc, bool cond) {
+    const unsigned active = __activemask();
+    if (!__any_sync(active, cond)) return;
+    const unsigned long long key =
+        cond ? (static_cast<unsigned long long>(idx[0][0][0]) << 32) |
+                   static_cast<unsigned>(idx[1][1][1])
+             : ~0ULL;  // never a stencil's key: indices are below 2^31
+    unsigned peers = __match_any_sync(active, key);
+    if (!cond) peers = 0u;  // a lane that keeps its run takes no part in the sums
+    const int lane = threadIdx.x & 31;
+    const bool leader = lane == __ffs(peers) - 1;
+    // tree sum over the peers into the lowest one (after Westphal,
+    // "voting and shuffling to optimize atomic operations")
+    int rank = __popc(peers & ((1u << lane) - 1u));
+    peers &= ~((2u << lane) - 1u);  // the peers above this lane
+    while (__any_sync(active, peers != 0u)) {
+      const int next = __ffs(peers) - 1;
+#pragma unroll
+      for (int a = 0; a < 2; ++a)
+#pragma unroll
+        for (int b = 0; b < 2; ++b)
+#pragma unroll
+          for (int c = 0; c < 2; ++c) {
+            const T t = __shfl_sync(active, sum[a][b][c], next < 0 ? lane : next);
+            if (next >= 0) sum[a][b][c] = sum[a][b][c] + t;
+          }
+      peers &= ~__ballot_sync(active, rank & 1);  // odd ranks have been summed
+      rank >>= 1;
+    }
+    if (cond && leader) {
+#pragma unroll
+      for (int a = 0; a < 2; ++a)
+#pragma unroll
+        for (int b = 0; b < 2; ++b)
+#pragma unroll
+          for (int c = 0; c < 2; ++c) atomicAdd(acc + idx[a][b][c], sum[a][b][c]);
+      ++issued;
+    }
+    if (cond) {
+      ++flushes;
+      open = false;
+    }
+  }
+
+  // One step of the ray, called by every lane at this point of the step: adds
+  // the step's terms to the run when `splat` holds and the stencil is the
+  // run's, else flushes the run first and starts another with them.
+  __device__ __forceinline__ void step(T* acc, bool splat, const Stencil<T>& s,
+                                       const T terms[2][2][2]) {
+    const bool same =
+        splat && open && idx[0][0][0] == s.idx[0][0][0] && idx[1][1][1] == s.idx[1][1][1];
+    flush_if(acc, splat && open && !same);
+    if (!splat) return;
+#pragma unroll
+    for (int a = 0; a < 2; ++a)
+#pragma unroll
+      for (int b = 0; b < 2; ++b)
+#pragma unroll
+        for (int c = 0; c < 2; ++c) {
+          if (same) {
+            sum[a][b][c] = sum[a][b][c] + terms[a][b][c];
+          } else {
+            sum[a][b][c] = terms[a][b][c];
+            idx[a][b][c] = s.idx[a][b][c];
+          }
+        }
+    open = true;
+  }
+};
 
 // p inside [0, hi) on every axis.
 template <typename T>
@@ -201,6 +295,11 @@ __device__ __forceinline__ void load3(const T* base, int i, T out[3]) {
 template <typename T>
 __device__ __forceinline__ void store3(T* base, int i, const T in[3]) {
   base[3 * i] = in[0]; base[3 * i + 1] = in[1]; base[3 * i + 2] = in[2];
+}
+
+// The ray a thread works on: order[i] where the caller gave an order.
+__device__ __forceinline__ int ray_of(const int* order, int i) {
+  return order == nullptr ? i : __ldg(order + i);
 }
 
 constexpr int kThreads = 128;

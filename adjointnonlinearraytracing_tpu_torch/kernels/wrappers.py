@@ -16,11 +16,22 @@ K2 ``trace_fwd`` (csrc/trace_fwd.cu)
     replaces the forward stepper loop ``tracer/paired.py::trace``; bound by
     operations (58 flops per ray-step at the least, grid resident in L2); the whole step
     loop runs inside one launch with the ray state in registers and a per-ray
-    early exit.
+    early exit.  What holds it back is how many distinct lines a warp's
+    corner reads touch, so it takes an optional ray ``order``
+    (``tracer/order.py``): thread ``i`` runs ray ``order[i]``, outputs stay in
+    the caller's order and are the same bit for bit.
 K3 ``backtrace`` (csrc/backtrace.cu)
     replaces the adjoint sweep loop ``tracer/paired.py::backtrace``; bound by
-    operations and by 8 atomicAdds per active ray-step; one thread per ray,
-    the only device-memory traffic in the loop is the atomics.  Their order is
+    operations and by the atomic adds of the splat, which serialise on one
+    address (every fuel stage splats ~2.5e8 terms, onto 27 words at 3^3).  A
+    ray sums its splats into one cell in registers and adds them when it
+    leaves the cell (one add a corner per run: ``flushes`` in the plain
+    version's stats), lanes of a warp leaving the same cell at once sum
+    their runs with shuffles and add once; where the gradient fits shared memory
+    (:func:`backtrace_path`: ``D*H*W`` elements within
+    :data:`SHARED_BYTES_MAX`) persistent blocks add runs into a
+    block-private gradient and that to device memory once, else runs go to
+    device memory; the same optional ray ``order`` as K2.  The adds' order is
     not fixed, so the gradient is not bitwise reproducible from run to run
     (the CPU path's ``index_add_`` is).
 K4 ``gather_rows`` (csrc/gather_rows.cu)
@@ -42,12 +53,18 @@ from . import build
 #: launches per kernel since the last :func:`reset_launches`; a wrapper adds
 #: one where it launches its kernel and nowhere else
 LAUNCHES = {name: 0 for name in build.KERNELS}
+#: K3's launches by path (:func:`backtrace_path`), counted with ``LAUNCHES``
+BACKTRACE_PATHS = {"shared": 0, "global": 0}
+#: the dynamic shared memory one block may opt in to on sm_90 (227 KB);
+#: ``kSharedMax`` in csrc/backtrace.cu
+SHARED_BYTES_MAX = 232448
 
 _VP, _I, _D, _LL = ctypes.c_void_p, ctypes.c_int, ctypes.c_double, ctypes.c_longlong
 _ARGTYPES = {
     "eval_grad": [_I, _VP, _I, _I, _I, _D, _VP, _VP, _VP, _VP, _I, _VP],
-    "trace_fwd": [_I, _VP, _I, _I, _I, _D, _D, _VP, _VP, _VP, _VP, _I, _I, _VP],
-    "backtrace": [_I, _VP, _I, _I, _I, _D, _D, _D, _VP, _VP, _VP, _VP, _VP, _I, _I, _VP],
+    "trace_fwd": [_I, _VP, _I, _I, _I, _D, _D, _VP, _VP, _VP, _VP, _VP, _I, _I, _VP],
+    "backtrace": [_I, _VP, _I, _I, _I, _D, _D, _D, _VP, _VP, _VP, _VP, _VP, _VP, _VP, _I, _I,
+                  _I, _VP],
     "gather_rows": [_I, _VP, _VP, _VP, _LL, _I, _VP],
 }
 _VEC_BYTES = 16  # K4 moves 128-bit vectors
@@ -61,8 +78,9 @@ _events: Optional[List[Tuple[str, "torch.cuda.Event", "torch.cuda.Event"]]] = No
 
 
 def reset_launches() -> None:
-    for name in LAUNCHES:
-        LAUNCHES[name] = 0
+    for counts in (LAUNCHES, BACKTRACE_PATHS):
+        for name in counts:
+            counts[name] = 0
 
 
 def record_events(sink: Optional[list]) -> None:
@@ -126,6 +144,17 @@ def _launch(name: str, device: torch.device, *args) -> None:
     LAUNCHES[name] += 1
 
 
+def _check_order(order: Optional[torch.Tensor], data: torch.Tensor, n: int, name: str) -> None:
+    if order is not None and (order.device != data.device or order.dtype != torch.int32
+                              or order.shape != (n,) or not order.is_contiguous()):
+        raise ValueError(f"{name}: order must be a contiguous int32 ({n},) tensor on "
+                         f"{data.device}, got {order.dtype} {tuple(order.shape)} on {order.device}")
+
+
+def _ptr(t: Optional[torch.Tensor]) -> Optional[int]:
+    return None if t is None else t.data_ptr()
+
+
 def _launch_on_grid(name: str, data: torch.Tensor, *args) -> None:
     """:func:`_launch` for the kernels whose first arguments are a ``(D, H, W)`` grid."""
     d, hgt, wid = data.shape
@@ -152,29 +181,60 @@ def eval_grad(data: torch.Tensor, h: float, p: torch.Tensor,
 
 
 def trace_fwd(data: torch.Tensor, h: float, x0: torch.Tensor, v0: torch.Tensor,
-              ds: float, max_steps: int) -> Tuple[torch.Tensor, torch.Tensor]:
-    """K2: exit state ``(xt, vt)`` of the rays ``(x0, v0)`` after at most ``max_steps``."""
+              ds: float, max_steps: int, order: Optional[torch.Tensor] = None
+              ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """K2: exit state ``(xt, vt)`` of the rays ``(x0, v0)`` after at most ``max_steps``.
+
+    ``order`` (int32 ``(N,)``, a permutation) is the order the threads take
+    the rays in; the outputs are in the rays' own order either way.
+    """
     _check_grid(data, "trace_fwd")
     n_rays = _check_rays(data, "trace_fwd", x0=x0, v0=v0)
+    _check_order(order, data, n_rays, "trace_fwd")
     xt = torch.empty_like(x0)
     vt = torch.empty_like(v0)
     if n_rays:
         _launch_on_grid("trace_fwd", data, float(h), float(ds), x0.data_ptr(), v0.data_ptr(),
-                        xt.data_ptr(), vt.data_ptr(), n_rays, int(max_steps))
+                        _ptr(order), xt.data_ptr(), vt.data_ptr(), n_rays, int(max_steps))
     return xt, vt
+
+
+def backtrace_path(numel: int, dtype: torch.dtype) -> str:
+    """K3's path for a grid of ``numel`` elements of ``dtype``: ``"shared"`` where
+    the whole gradient fits one block's shared memory, else ``"global"``."""
+    size = torch.empty((), dtype=dtype).element_size()
+    return "shared" if numel * size <= SHARED_BYTES_MAX else "global"
 
 
 def backtrace(data: torch.Tensor, h: float, xt: torch.Tensor, vt: torch.Tensor,
               dx: torch.Tensor, dv: torch.Tensor, ds: float, max_steps: int,
-              snap_tol: float) -> torch.Tensor:
-    """K3: flat ``(D*H*W,)`` voxel gradient from exit state and cotangents."""
+              snap_tol: float, order: Optional[torch.Tensor] = None,
+              tally: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """K3: flat ``(D*H*W,)`` voxel gradient from exit state and cotangents.
+
+    ``order`` as for :func:`trace_fwd`.  The path (:func:`backtrace_path`)
+    follows from the grid's size and type alone.  ``tally``, for checks: an
+    int64 ``(3,)`` tensor on the grid's device that the kernel adds to: the
+    runs it flushed (the plain version's ``flushes``), the flushes it issued
+    once the lanes of a warp had summed runs bound for the same stencil (8
+    atomic adds each), and, on the shared path, the adds of the
+    block-private gradients into the result.
+    """
     _check_grid(data, "backtrace")
     n_rays = _check_rays(data, "backtrace", xt=xt, vt=vt, dx=dx, dv=dv)
+    _check_order(order, data, n_rays, "backtrace")
+    if tally is not None and (tally.device != data.device or tally.dtype != torch.int64
+                              or tally.shape != (3,) or not tally.is_contiguous()):
+        raise ValueError(f"backtrace: tally must be a contiguous int64 (3,) tensor on "
+                         f"{data.device}, got {tally.dtype} {tuple(tally.shape)} on {tally.device}")
     g = torch.zeros((data.numel(),), dtype=data.dtype, device=data.device)
     if n_rays:
+        path = backtrace_path(data.numel(), data.dtype)
         _launch_on_grid("backtrace", data, float(h), float(ds), float(snap_tol),
-                        xt.data_ptr(), vt.data_ptr(), dx.data_ptr(), dv.data_ptr(), g.data_ptr(),
-                        n_rays, int(max_steps))
+                        xt.data_ptr(), vt.data_ptr(), dx.data_ptr(), dv.data_ptr(),
+                        _ptr(order), g.data_ptr(), _ptr(tally), n_rays, int(max_steps),
+                        int(path == "shared"))
+        BACKTRACE_PATHS[path] += 1
     return g
 
 

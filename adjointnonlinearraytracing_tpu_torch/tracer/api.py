@@ -9,7 +9,10 @@ inputs ``x``, ``v`` get none.  ``h`` and ``ds`` are Python floats.
 Where it runs: CUDA tensors go through the hand-written kernels
 (``kernels/csrc/trace_fwd.cu``, ``kernels/csrc/backtrace.cu``) or raise; CPU
 tensors go through the plain steppers of ``tracer/eikonal.py``.  There is no
-fallback from one to the other.
+fallback from one to the other.  On the card the forward pass first puts the
+rays in a coherent order (``tracer/order.py``), hands it to K2 and keeps it for
+K3 in the backward pass; outputs are in the caller's order, and the CPU path
+takes the rays as they come.
 
 What is not here: the JAX package chooses between a paired-window stepper and
 a cell-table stepper (``_impl`` with ``ANRT_FAST_PATH``, ``ANRT_NMAX``,
@@ -35,6 +38,7 @@ import torch
 from ..fields import grid as G
 from ..kernels import wrappers as K
 from . import eikonal as E
+from . import order as O
 
 
 def _check_rays(x, v, name="trace"):
@@ -57,22 +61,24 @@ class _Trace(torch.autograd.Function):
         # and the same call must work on both
         rif, x, v = (t.detach().contiguous() for t in (rif, x, v))
         steps = E.max_steps_fwd(max(rif.shape), h, ds)
+        order = None
         if rif.is_cuda:
-            xt, vt = K.trace_fwd(rif, h, x, v, ds, steps)
+            order = O.ray_order(x, v, rif.shape, h)
+            xt, vt = K.trace_fwd(rif, h, x, v, ds, steps, order)
         else:
             xt, vt = E.trace(G.GridField(rif, h), x, v, ds, steps)
-        ctx.save_for_backward(rif, xt, vt)
+        ctx.save_for_backward(rif, xt, vt, order)
         ctx.h, ctx.ds = h, ds
         return xt, vt
 
     @staticmethod
     def backward(ctx, dxt, dvt):
-        rif, xt, vt = ctx.saved_tensors
+        rif, xt, vt, order = ctx.saved_tensors
         h, ds = ctx.h, ctx.ds
         steps = E.max_steps_bwd(max(rif.shape), h, ds)
         if rif.is_cuda:
             g = K.backtrace(rif, h, xt, vt, dxt.contiguous(), dvt.contiguous(), ds, steps,
-                            G.snap_tol(rif.dtype))
+                            G.snap_tol(rif.dtype), order)
         else:
             g = E.backtrace(G.GridField(rif, h), xt, vt, dxt, dvt, ds, steps)
         return g.reshape(rif.shape), None, None, None, None

@@ -84,7 +84,7 @@ def trace(field: G.GridField, x0, v0, ds: float, max_steps: int,
 
 
 def backtrace(field: G.GridField, xt, vt, dx, dv, ds: float, max_steps: int,
-              stats: Optional[dict] = None):
+              stats: Optional[dict] = None, acc_dtype: Optional[torch.dtype] = None):
     """Adjoint reverse sweep; returns the flat voxel gradient.
 
     Eval and splat are masked by ``active & inbounds(snapped x)``, which makes
@@ -92,18 +92,34 @@ def backtrace(field: G.GridField, xt, vt, dx, dv, ds: float, max_steps: int,
     outside the grid mid-trajectory; the integration position stays unsnapped,
     only the evaluation point is snapped.  When ``stats`` is a dict it gets
     ``ray_steps`` (steps taken by active rays), ``evals`` (those that
-    evaluated the field) and ``splats`` (those that scatter, 8 adds each).
+    evaluated the field), ``splats`` (those that scatter, 8 terms each) and
+    ``flushes``: the runs of splats, a run being a ray's consecutive splats
+    into the same clamped stencil (the same 8 indices), i.e. the splats
+    whose stencil differs from that ray's previous splat's, the first splat
+    of a ray included.  K3 sums a run in registers and flushes it with 8
+    atomic adds, so it flushes exactly ``flushes`` runs; lanes of a warp
+    that flush into the same stencil at once sum first, so it issues at
+    most ``8 * flushes`` adds into its accumulator (device memory, or a
+    block's shared memory where the gradient fits there).
+
+    ``acc_dtype`` (default: the field's) is the type the gradient is summed
+    and returned in: float64 sums the same float32 terms with a rounding
+    error far below theirs, a reference for how well a float32 sum of
+    millions of terms came out.
     """
     ds_t = G._scalar(ds, xt)
     x, v = xt, vt
     la = dx
     mu = dv + ds_t * dx
     active = ~G.escaped(field, xt, -vt)
-    g = torch.zeros((field.data.numel(),), dtype=field.data.dtype,
+    g = torch.zeros((field.data.numel(),), dtype=acc_dtype or field.data.dtype,
                     device=field.data.device)
     ray_steps = 0
     evals = 0
     splats = 0
+    flushes = 0
+    numel = field.data.numel()
+    last = torch.full((xt.shape[0],), -1, dtype=torch.int64, device=xt.device)
 
     step = 0
     while step < max_steps and bool(active.any()):
@@ -124,6 +140,10 @@ def backtrace(field: G.GridField, xt, vt, dx, dv, ds: float, max_steps: int,
         if stats is not None:
             evals += int(emask.sum())
             splats += int(smask.sum())
+            idx = G._stencil(field, xe)[0]
+            key = idx[0, 0, 0] * numel + idx[1, 1, 1]
+            flushes += int((smask & (key != last)).sum())
+            last = torch.where(smask, key, last)
         G.scatter_into(g, field, xe, dn * ds_t, dnx * ds_t, smask)
 
         la = la + ds_t * (dn[:, None] * nx + n[:, None] * G.hess_matvec(hess, mu))
@@ -134,4 +154,5 @@ def backtrace(field: G.GridField, xt, vt, dx, dv, ds: float, max_steps: int,
         stats["ray_steps"] = ray_steps
         stats["evals"] = evals
         stats["splats"] = splats
+        stats["flushes"] = flushes
     return g
