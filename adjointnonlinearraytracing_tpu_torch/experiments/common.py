@@ -7,12 +7,13 @@ has a params dict, a loss over its rays, and the multires Adam loop.
 * rejected/cropped rays are masked, not dropped,
 * ``autodiff`` switches between the constant-memory adjoint
   (``tracer.trace``) and plain autograd through the stepper
-  (``tracer.trace_ad``), the cross-validation toggle.
+  (``tracer.trace_ad``), the cross-validation toggle; mode ``"exact"`` is the
+  checkpointed-exact gradient (``tracer.trace_exact``), which the stage
+  escalation switches to where the adjoint drifts.
 
-Not in this port yet, and raising where asked for: the checkpointed-exact
-gradient (mode ``"exact"``, ``ROADMAP.md`` A7), exit-step bucketing
-(``ANRT_BUCKETED > 1``, A8) and tracing sharded over several devices
-(``use_mesh=True``, A15).
+Not in this port yet, and raising where asked for: exit-step bucketing
+(``ANRT_BUCKETED > 1``, ``ROADMAP.md`` A8) and tracing sharded over several
+devices (``use_mesh=True``, A15).
 """
 
 from __future__ import annotations
@@ -24,6 +25,8 @@ import torch
 
 from ..convert import require_device
 from ..tracer import api
+from ..tracer import checkpointed
+from ..tracer import eikonal
 
 
 def _per_ray(mask, diff):
@@ -49,7 +52,9 @@ def make_trace(vol_span, ds, autodiff=False, use_mesh=False, res=None,
       - "adjoint" (default): O(1)-memory reverse re-integration
         (``tracer.trace``: the kernels on CUDA tensors)
       - "ad": plain autograd through the stepper (``tracer.trace_ad``)
-      - "exact": the checkpointed-segment adjoint; not ported yet, raises
+      - "exact": the checkpointed-segment adjoint (``tracer.trace_exact``
+        with ``seg``: the kernels K5, K6 on CUDA tensors): the exact
+        discrete gradient at any precision, ``O(N*(steps/seg + seg))`` memory
       - a mutable dict ``{"mode": <one of the above>}``, read at trace time:
         the hook of the stage-level escalation
     ``autodiff=True`` is the alias for "ad".
@@ -59,7 +64,7 @@ def make_trace(vol_span, ds, autodiff=False, use_mesh=False, res=None,
     closure refuses tensors that live elsewhere instead of moving them.
     ``probe_rays`` (a sample of the run's source) is accepted and unused
     until exit-step bucketing is ported: the kernels already leave the step
-    loop per ray.  ``res`` and ``seg`` are accepted for the JAX signature.
+    loop per ray.  ``res`` is accepted for the JAX signature.
     """
     if use_mesh:
         raise NotImplementedError(
@@ -84,12 +89,7 @@ def make_trace(vol_span, ds, autodiff=False, use_mesh=False, res=None,
         if mode == "ad":
             return api.trace_ad(nt, x, v, h, ds)
         if mode == "exact":
-            raise NotImplementedError(
-                "make_trace: gradient mode 'exact' needs the checkpointed-segment "
-                "adjoint, which is not ported yet (ROADMAP.md A7).  If the stage "
-                "escalation chose it, the adjoint drifts on this scene at this "
-                "precision: run in float64, or keep the adjoint knowingly with "
-                "ANRT_EXACT_TOL set above the drift or auto_exact=False")
+            return checkpointed.trace_exact(nt, x, v, h, ds, seg)
         if mode != "adjoint":
             raise ValueError(f"make_trace: unknown gradient mode {mode!r}")
         return api.trace(nt, x, v, h, ds)
@@ -155,6 +155,22 @@ def gradient_spotcheck(eta, x, v, vol_span, ds, mask=None, n_rays=2048,
     return dict(max_rel=rel, rel_l2=l2, cos=cos)
 
 
+def exact_mem_bytes(n_rays, res, vol_span, ds, seg=32):
+    """Checkpoint + replay footprint of ``trace_exact`` for one batch, as the
+    JAX package bounds it: ``(nseg, N, 7)`` checkpoints plus ``seg * N * 10``
+    of replay, 4 bytes each, with ``N`` capped at ``ANRT_EXACT_CHUNK`` (larger
+    batches run the backward pass chunk by chunk).  On the card the replay
+    lives in each thread's local memory, so the checkpoints are what is
+    allocated."""
+    chunk = checkpointed.exact_chunk_rays()
+    if chunk:
+        n_rays = min(n_rays, chunk)
+    h = vol_span / max(res - 1, 1)
+    steps = eikonal.max_steps_fwd(res, h, ds)
+    nseg = -(-steps // seg)
+    return 4 * n_rays * (nseg * 7 + seg * 10)
+
+
 def make_stage_escalator(holder, vol_span, ds, probe_rays, metrics=None,
                          tol=None, n_rays=2048, rays_per_iter=None):
     """Stage-level gradient auto-escalation.
@@ -164,9 +180,8 @@ def make_stage_escalator(holder, vol_span, ds, probe_rays, metrics=None,
     *current* field (drift grows with resolution and field roughness: the
     startup check on the coarse init can pass while a fine stage drifts) and
     flips ``holder['mode']`` to ``"exact"`` when the rel-L2 deviation exceeds
-    ``tol`` (``ANRT_EXACT_TOL``, default 0.01).  Until the exact gradient is
-    ported, the next trace then raises rather than carry on with a drifting
-    gradient.
+    ``tol`` (``ANRT_EXACT_TOL``, default 0.01); the closure's next trace
+    then runs ``tracer.trace_exact``.
 
     ``probe_rays`` is a callable ``() -> (x, v, mask)`` sampling this run's
     real source distribution.  ``rays_per_iter`` is accepted for the JAX

@@ -2,9 +2,11 @@
 
 Each ``csrc/*.cu`` has a plain C interface (no PyTorch headers), so ``nvcc``
 compiles it in seconds; all of them compile in parallel into one shared library
-each.  Libraries go to ``kernels/_build/`` (git-ignored) under a name that
-carries a hash of the sources and flags, so an edited source is rebuilt and an
-unchanged one is reused.
+each.  A source may hold more than one kernel (``SOURCE``: K2 ``trace_fwd`` and
+K5 ``trace_ckpt`` are one stepper loop in ``trace_fwd.cu``).  Libraries go to
+``kernels/_build/`` (git-ignored) under a name that carries a hash of the
+sources and flags, so an edited source is rebuilt and an unchanged one is
+reused.
 
 Flags: ``sm_90a`` only, and ``-fmad=false``.  Without FMA contraction the
 kernels repeat the plain torch arithmetic (separate multiply and add kernels)
@@ -25,7 +27,10 @@ from typing import Dict
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent / "_build"
-KERNELS = ("eval_grad", "trace_fwd", "backtrace", "gather_rows")
+KERNELS = ("eval_grad", "trace_fwd", "backtrace", "gather_rows", "trace_ckpt",
+           "backtrace_exact")
+#: the source (``csrc/<name>.cu``) that holds each kernel
+SOURCE = {**{k: k for k in KERNELS}, "trace_ckpt": "trace_fwd"}
 NVCC_FLAGS = (
     "-gencode=arch=compute_90a,code=sm_90a", "-std=c++17", "-O3", "-fmad=false",
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
@@ -52,10 +57,10 @@ def _digest() -> str:
 
 
 def _build_all() -> Dict[str, ctypes.CDLL]:
-    """Compile every kernel that has no current library, all at once, and load them."""
+    """Compile every source that has no current library, all at once, and load them."""
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     tag = _digest()
-    targets = {k: BUILD_DIR / f"lib{k}_{tag}.so" for k in KERNELS}
+    targets = {k: BUILD_DIR / f"lib{k}_{tag}.so" for k in sorted(set(SOURCE.values()))}
     procs = {}
     for name, out in targets.items():
         if out.exists():
@@ -78,13 +83,13 @@ def _build_all() -> Dict[str, ctypes.CDLL]:
 
 
 def load(name: str) -> ctypes.CDLL:
-    """The loaded library of kernel ``name``; builds all kernels on first call."""
+    """The loaded library that holds kernel ``name``; builds all kernels on first call."""
     with _lock:
         if not _libs:
             _libs.update(_build_all())
-        return _libs[name]
+        return _libs[SOURCE[name]]
 
 
 def build_logs() -> Dict[str, str]:
-    """What nvcc printed for each kernel built by this checkout (registers, spills)."""
+    """What nvcc printed for each source built by this checkout (registers, spills)."""
     return {p.stem: p.read_text() for p in sorted(BUILD_DIR.glob("*.log"))}

@@ -25,169 +25,80 @@
 //     lane issues the adds; an H100 measured this before keeping it, because
 //     with the other three alone the global adds still cost 40-50 % of K3's
 //     time at 65^3 and on the bench scene;
-//   * where the D*H*W gradient fits a block's shared memory (kSharedMax
-//     bytes: f32 up to 38^3, f64 up to 30^3), persistent blocks (as many as
-//     fill the SMs at the occupancy that size allows) walk the rays with a
-//     grid-stride loop and flush runs into a block-private gradient with
-//     shared-memory atomics, then add its nonzero words to device memory
-//     once; larger grids flush runs to device memory;
+//   * where the D*H*W gradient fits a block's shared memory, persistent
+//     blocks flush runs into a block-private gradient and add it to device
+//     memory once (adjoint.cuh: the shell K3 shares with K6);
 //   * the caller may give the rays in a coherent order (thread i takes ray
 //     order[i], tracer/order.py), so the lanes of a warp flush into the same
 //     or neighbouring words.
 // What is left is the arithmetic on the shared path, and on the global path
-// about as much again for the adds.  Which path runs is the caller's choice
-// (kernels/wrappers.py decides it from the grid's size and type alone); a
-// refused launch is an error, not a retry.  The order of the adds varies
-// from run to run, so the gradient is reproducible to rounding only, not
-// bitwise.
-#include "trilinear.cuh"
+// about as much again for the adds.  The order of the adds varies from run
+// to run, so the gradient is reproducible to rounding only, not bitwise.
+#include "adjoint.cuh"
 
 namespace anrt {
 
-// the opt-in dynamic shared memory of one block on sm_90 (227 KB)
-constexpr int kSharedMax = 232448;
-constexpr int kSharedThreads = 512;
-
-// Adds to counts the runs the ray flushed and the flushes it issued (8
-// atomic adds each) for its group of lanes.
+// One ray of the sweep; adds to counts the runs it flushed and the flushes it
+// issued (8 atomic adds each) for its group of lanes.
 template <typename T>
-__device__ __forceinline__ void backtrace_ray(const Grid<T>& g, T ds, T tol, const T* xt_in,
-                                              const T* vt_in, const T* dx_in, const T* dv_in,
-                                              T* acc, int r, int max_steps,
-                                              unsigned long long counts[2]) {
-  T x[3], v[3], la[3], mu[3];
-  load3(xt_in, r, x);
-  load3(vt_in, r, v);
-  load3(dx_in, r, la);
-  load3(dv_in, r, mu);
+struct BacktraceRay {
+  Grid<T> g;
+  T ds, tol;
+  const T *xt, *vt, *dx, *dv;
+  const int* order;
+  int max_steps;
+
+  __device__ __forceinline__ void operator()(int i, T* acc, unsigned long long counts[2]) const {
+    const int r = ray_of(order, i);
+    T x[3], v[3], la[3], mu[3];
+    load3(xt, r, x);
+    load3(vt, r, v);
+    load3(dx, r, la);
+    load3(dv, r, mu);
 #pragma unroll
-  for (int k = 0; k < 3; ++k) mu[k] = mu[k] + ds * la[k];
-  bool active = !escaped(g, x, v, static_cast<T>(-1));
-  SplatRun<T> run;
+    for (int k = 0; k < 3; ++k) mu[k] = mu[k] + ds * la[k];
+    bool active = !escaped(g, x, v, static_cast<T>(-1));
+    SplatRun<T> run;
 
-  for (int step = 0; step < max_steps && active; ++step) {
+    for (int step = 0; step < max_steps && active; ++step) {
 #pragma unroll
-    for (int k = 0; k < 3; ++k) x[k] = x[k] - ds * v[k];
-    T xe[3];
-    snap_to_nodes(g, x, tol, xe);
-    const bool emask = inbounds(g, xe);  // active holds inside the loop
+      for (int k = 0; k < 3; ++k) x[k] = x[k] - ds * v[k];
+      T xe[3];
+      snap_to_nodes(g, x, tol, xe);
+      const bool emask = inbounds(g, xe);  // active holds inside the loop
 
-    T n = 0, grad[3] = {0, 0, 0}, hess[3] = {0, 0, 0};
-    Stencil<T> s;
-    if (emask) {
-      s = stencil(g, xe);
-      T c[2][2][2];
-      fetch(g, s, true, c);
-      value_grad(g, c, s.w0, n, grad);
-      hessian(g, c, s.w0, hess);
-      const T dsn = ds * n;
+      T n = 0, grad[3] = {0, 0, 0}, hess[3] = {0, 0, 0};
+      Stencil<T> s;
+      if (emask) {
+        s = stencil(g, xe);
+        T c[2][2][2];
+        fetch(g, s, true, c);
+        value_grad(g, c, s.w0, n, grad);
+        hessian(g, c, s.w0, hess);
+        const T dsn = ds * n;
 #pragma unroll
-      for (int k = 0; k < 3; ++k) v[k] = v[k] - dsn * grad[k];
-    }
-
-    active = !escaped(g, xe, v, static_cast<T>(-1));
-
-    const T dn = mu[0] * grad[0] + mu[1] * grad[1] + mu[2] * grad[2];
-    const bool splat = active && emask;
-    T terms[2][2][2];
-    if (splat) {
-      const T dnx[3] = {n * mu[0] * ds, n * mu[1] * ds, n * mu[2] * ds};
-      splat_terms(g, s, dn * ds, dnx, terms);
-    }
-    run.step(acc, splat, s, terms);  // outside the branch: the warp's lanes flush together
-
-    const T hmu[3] = {hess[0] * mu[1] + hess[1] * mu[2], hess[0] * mu[0] + hess[2] * mu[2],
-                      hess[1] * mu[0] + hess[2] * mu[1]};
-#pragma unroll
-    for (int k = 0; k < 3; ++k) {
-      la[k] = la[k] + ds * (dn * grad[k] + n * hmu[k]);
-      mu[k] = mu[k] + ds * la[k];
-    }
-  }
-  run.flush_if(acc, run.open);
-  counts[0] += run.flushes;
-  counts[1] += run.issued;
-}
-
-// kShared: the block sums into a private (D*H*W) gradient in dynamic shared
-// memory and adds it to grad_out at the end; otherwise runs go to grad_out.
-// tally: null, or three counters the kernel adds to: runs flushed, flushes
-// issued after the warp's lanes summed equal targets (8 atomic adds each)
-// and, on the shared path, the adds of the block-private gradient into
-// grad_out.
-template <typename T, bool kShared>
-__global__ void __launch_bounds__(kShared ? kSharedThreads : kThreads)
-backtrace_kernel(Grid<T> g, T ds, T tol, const T* __restrict__ xt_in,
-                 const T* __restrict__ vt_in, const T* __restrict__ dx_in,
-                 const T* __restrict__ dv_in, const int* __restrict__ order,
-                 T* __restrict__ grad_out, unsigned long long* __restrict__ tally, int n_rays,
-                 int max_steps) {
-  extern __shared__ __align__(16) unsigned char smem[];
-  const int n_cells = g.W * g.H * g.D;
-  T* acc = grad_out;
-  if (kShared) {
-    acc = reinterpret_cast<T*>(smem);
-    for (int j = threadIdx.x; j < n_cells; j += blockDim.x) acc[j] = 0;
-    __syncthreads();
-  }
-  const int stride = gridDim.x * blockDim.x;
-  unsigned long long counts[2] = {0, 0}, adds = 0;
-  for (int i = blockIdx.x * blockDim.x + threadIdx.x; i < n_rays; i += stride)
-    backtrace_ray(g, ds, tol, xt_in, vt_in, dx_in, dv_in, acc, ray_of(order, i), max_steps,
-                  counts);
-  if (kShared) {
-    __syncthreads();
-    for (int j = threadIdx.x; j < n_cells; j += blockDim.x) {
-      const T sum = acc[j];
-      if (sum != static_cast<T>(0)) {
-        atomicAdd(grad_out + j, sum);
-        ++adds;
+        for (int k = 0; k < 3; ++k) v[k] = v[k] - dsn * grad[k];
       }
+      active = !escaped(g, xe, v, static_cast<T>(-1));
+      adjoint_update(g, ds, s, n, grad, hess, active && emask, la, mu, run, acc);
     }
+    run.flush_if(acc, run.open);
+    counts[0] += run.flushes;
+    counts[1] += run.issued;
   }
-  if (tally != nullptr) {
-    if (counts[0]) atomicAdd(tally, counts[0]);
-    if (counts[1]) atomicAdd(tally + 1, counts[1]);
-    if (adds) atomicAdd(tally + 2, adds);
-  }
-}
+};
 
 template <typename T>
 int launch_backtrace(const void* rif, int W, int H, int D, double h, double ds, double tol,
                      const void* xt, const void* vt, const void* dx, const void* dv,
                      const int* order, void* grad_out, unsigned long long* tally, int n_rays,
                      int max_steps, int use_shared, cudaStream_t stream) {
-  if (n_rays <= 0) return static_cast<int>(cudaGetLastError());
-  const Grid<T> g = make_grid<T>(rif, W, H, D, h);
-  const auto launch = [&](auto kernel, int blocks, int threads, size_t smem) {
-    kernel<<<blocks, threads, smem, stream>>>(
-        g, static_cast<T>(ds), static_cast<T>(tol), static_cast<const T*>(xt),
-        static_cast<const T*>(vt), static_cast<const T*>(dx), static_cast<const T*>(dv), order,
-        static_cast<T*>(grad_out), tally, n_rays, max_steps);
-  };
-  if (!use_shared) {
-    launch(backtrace_kernel<T, false>, blocks_for(n_rays), kThreads, 0);
-    return static_cast<int>(cudaGetLastError());
-  }
-  const size_t bytes = static_cast<size_t>(W) * H * D * sizeof(T);
-  if (bytes > static_cast<size_t>(kSharedMax)) return static_cast<int>(cudaErrorInvalidValue);
-  auto kernel = backtrace_kernel<T, true>;
-  cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                         static_cast<int>(bytes));
-  int device = 0, sms = 0, per_sm = 0;
-  if (err == cudaSuccess) err = cudaGetDevice(&device);
-  if (err == cudaSuccess)
-    err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
-  if (err == cudaSuccess)
-    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, kSharedThreads, bytes);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  if (per_sm < 1) return static_cast<int>(cudaErrorInvalidConfiguration);
-  const int wanted = (n_rays + kSharedThreads - 1) / kSharedThreads;
-  const int blocks = per_sm * sms < wanted ? per_sm * sms : wanted;
-  launch(kernel, blocks, kSharedThreads, bytes);
-  return static_cast<int>(cudaGetLastError());
+  const BacktraceRay<T> ray{make_grid<T>(rif, W, H, D, h), static_cast<T>(ds),
+                            static_cast<T>(tol), static_cast<const T*>(xt),
+                            static_cast<const T*>(vt), static_cast<const T*>(dx),
+                            static_cast<const T*>(dv), order, max_steps};
+  return launch_adjoint<T>(ray, W * H * D, grad_out, tally, n_rays, use_shared, stream);
 }
-
 }  // namespace anrt
 
 // grad_out must be zero-filled (or hold a sum to add to) before the call.

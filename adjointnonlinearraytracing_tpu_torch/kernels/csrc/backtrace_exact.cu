@@ -1,0 +1,136 @@
+// K6 backtrace_exact: the backward pass of the exact gradient, one thread per
+// ray at a time.
+//
+// Replaces the segment replay of the JAX package's checkpointed adjoint
+// (tracer/checkpointed.py::_backward_segments, plain variant; the port's
+// plain version is tracer/checkpointed.py::_backward_segments).  Per ray,
+// from the checkpoints K5 wrote (trace_fwd.cu): for each segment that starts
+// before the ray's capture step c, last to first, replay the segment forward
+// from its checkpoint (x, v, inside) with K2's own step (forward_step), so
+// every position and eval mask is the forward's bit for bit; then, over the
+// replayed positions in reverse, K3's evaluation (stencil, fetch,
+// value_grad, hessian) and K3's adjoint update (adjoint_update: splat into
+// the ray's run, la/mu recursion) with eval mask inside_k and no snapping.
+// Steps k >= c are gated off and are not run; start la = dx,
+// mu = dv + ds*dx (dv zeroed by the caller for rays that never escaped).  A ray that escaped without ever being inside (code 2) has no
+// evaluation, so its gradient is zero and it is skipped.
+//
+// What bounds it on the card: operations, about one forward step (the
+// replay) and one adjoint step a ray-step; and the splats' adds, which K3's
+// run sums, warp sums and shared-memory path remove (adjoint.cuh).  The
+// replayed positions of one stretch of at most kReplay steps live in the
+// thread's local memory (12 B a step in f32), written once and read once,
+// L1/L2-resident; a segment longer than kReplay is replayed in stretches,
+// the later ones first, each from the segment's checkpoint.  The order of the
+// adds varies from run to run, so the gradient is reproducible to rounding
+// only, not bitwise.
+#include "adjoint.cuh"
+
+namespace anrt {
+
+// the replay buffer's length in steps; a segment of up to kReplay steps is
+// replayed once
+constexpr int kReplay = 32;
+
+template <typename T>
+struct ExactRay {
+  Grid<T> g;
+  T ds;
+  const T* ckpts;  // (nseg, n_slots, 7)
+  const int* order;
+  const int* c;
+  const unsigned char* code;
+  const T *dx, *dv;
+  int n_slots, nseg, seg;
+
+  __device__ __forceinline__ void operator()(int i, T* acc, unsigned long long counts[2]) const {
+    const int r = ray_of(order, i);
+    const int steps = __ldg(code + r) == 2 ? 0 : __ldg(c + r);  // the gated-on steps
+    if (steps <= 0) return;
+    T la[3], mu[3];
+    load3(dx, r, la);
+    load3(dv, r, mu);
+#pragma unroll
+    for (int k = 0; k < 3; ++k) mu[k] = mu[k] + ds * la[k];
+    SplatRun<T> run;
+    T xs[kReplay][3];
+
+    const int last = (steps - 1) / seg < nseg - 1 ? (steps - 1) / seg : nseg - 1;
+    for (int s = last; s >= 0; --s) {
+      const int n = steps - s * seg < seg ? steps - s * seg : seg;  // the segment's steps
+      const T* row = ckpts + (static_cast<size_t>(s) * n_slots + i) * 7;
+      for (int b0 = (n - 1) / kReplay * kReplay; b0 >= 0; b0 -= kReplay) {
+        T x[3] = {row[0], row[1], row[2]}, v[3] = {row[3], row[4], row[5]};
+        bool inside = row[6] > static_cast<T>(0.5);
+        for (int j = 0; j < b0; ++j) inside = forward_step(g, ds, x, v, inside);
+        const int nb = n - b0 < kReplay ? n - b0 : kReplay;
+        unsigned ins = 0u;  // bit j: inside at the stretch's step j
+        for (int j = 0; j < nb; ++j) {
+#pragma unroll
+          for (int k = 0; k < 3; ++k) xs[j][k] = x[k];
+          if (inside) ins |= 1u << j;
+          inside = forward_step(g, ds, x, v, inside);
+        }
+        // reverse over the stretch; the next position is read from local memory
+        // one step ahead, so that its load overlaps this step's work
+        T xn[3] = {xs[nb - 1][0], xs[nb - 1][1], xs[nb - 1][2]};
+        for (int j = nb - 1; j >= 0; --j) {
+          const T xk[3] = {xn[0], xn[1], xn[2]};
+          if (j > 0) {
+#pragma unroll
+            for (int k = 0; k < 3; ++k) xn[k] = xs[j - 1][k];
+          }
+          const bool emask = (ins >> j) & 1u;
+          T nk = 0, grad[3] = {0, 0, 0}, hess[3] = {0, 0, 0};
+          Stencil<T> st;
+          if (emask) {
+            st = stencil(g, xk);
+            T cv[2][2][2];
+            fetch(g, st, true, cv);
+            value_grad(g, cv, st.w0, nk, grad);
+            hessian(g, cv, st.w0, hess);
+          }
+          adjoint_update(g, ds, st, nk, grad, hess, emask, la, mu, run, acc);
+        }
+      }
+    }
+    run.flush_if(acc, run.open);
+    counts[0] += run.flushes;
+    counts[1] += run.issued;
+  }
+};
+
+template <typename T>
+int launch_backtrace_exact(const void* rif, int W, int H, int D, double h, double ds,
+                           const void* ckpts, const int* order, const void* c,
+                           const void* code, const void* dx, const void* dv, void* grad_out,
+                           unsigned long long* tally, int n_slots, int nseg, int seg,
+                           int use_shared, cudaStream_t stream) {
+  const ExactRay<T> ray{make_grid<T>(rif, W, H, D, h), static_cast<T>(ds),
+                        static_cast<const T*>(ckpts), order, static_cast<const int*>(c),
+                        static_cast<const unsigned char*>(code), static_cast<const T*>(dx),
+                        static_cast<const T*>(dv), n_slots, nseg, seg};
+  return launch_adjoint<T>(ray, W * H * D, grad_out, tally, n_slots, use_shared, stream);
+}
+
+}  // namespace anrt
+
+// grad_out must be zero-filled (or hold a sum to add to) before the call.
+// order: n_slots ray indices (thread i takes ray order[i]); ckpts: (nseg,
+// n_slots, 7), row i thread i's, as K5 wrote them for the same order; c, code,
+// dx, dv at the rays' own indices.  use_shared and tally as for K3.
+extern "C" int anrt_backtrace_exact(int is_double, const void* rif, int W, int H, int D,
+                                    double h, double ds, const void* ckpts, const void* order,
+                                    const void* c, const void* code, const void* dx,
+                                    const void* dv, void* grad_out, void* tally, int n_slots,
+                                    int nseg, int seg, int use_shared, void* stream) {
+  auto s = static_cast<cudaStream_t>(stream);
+  auto o = static_cast<const int*>(order);
+  auto t = static_cast<unsigned long long*>(tally);
+  return is_double ? anrt::launch_backtrace_exact<double>(rif, W, H, D, h, ds, ckpts, o, c, code,
+                                                          dx, dv, grad_out, t, n_slots, nseg,
+                                                          seg, use_shared, s)
+                   : anrt::launch_backtrace_exact<float>(rif, W, H, D, h, ds, ckpts, o, c, code,
+                                                         dx, dv, grad_out, t, n_slots, nseg, seg,
+                                                         use_shared, s);
+}

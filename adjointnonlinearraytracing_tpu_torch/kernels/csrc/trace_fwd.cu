@@ -24,15 +24,28 @@
 // still under a tenth of the operation bound: each step's corner reads wait
 // on the position the step before computed, and that chain of cache hits a
 // ray is what is left (not measured apart).
+//
+// K5 trace_ckpt is the same loop compiled with kCkpt: the forward pass of the
+// exact gradient (tracer/checkpointed.py, replacing the segmented XLA
+// forward of the JAX package's tracer/checkpointed.py::_forward_with_ckpts).
+// It also writes, for each ray, (x, v, inside) at the start of every
+// segment of seg steps that it begins before it escapes (rows of later
+// segments are never read: the backward pass stops at the capture step),
+// the capture step c (max_steps if it never crossed out) and a code: 0 never
+// escaped, 1 captured, 2 escaped without ever being inside (nothing to
+// differentiate).  Checkpoint row i is thread i's, so the stores coalesce;
+// the exit state is K2's bit for bit.  The extra bytes are 28 a ray and
+// segment in f32, a few per cent of a step's work.
 #include "trilinear.cuh"
 
 namespace anrt {
 
-template <typename T>
+template <typename T, bool kCkpt>
 __global__ void trace_fwd_kernel(Grid<T> g, T ds, const T* __restrict__ x0,
                                  const T* __restrict__ v0, const int* __restrict__ order,
-                                 T* __restrict__ xt_out, T* __restrict__ vt_out, int n_rays,
-                                 int max_steps) {
+                                 T* __restrict__ xt_out, T* __restrict__ vt_out,
+                                 int* __restrict__ c_out, unsigned char* __restrict__ code_out,
+                                 T* __restrict__ ckpts, int n_rays, int max_steps, int seg) {
   const int t = blockIdx.x * blockDim.x + threadIdx.x;
   if (t >= n_rays) return;
   const int i = ray_of(order, t);
@@ -43,35 +56,45 @@ __global__ void trace_fwd_kernel(Grid<T> g, T ds, const T* __restrict__ x0,
   for (int k = 0; k < 3; ++k) { xt[k] = x[k]; vt[k] = v[k]; }
   bool inside = inbounds(g, x);
   bool esc = false;
+  int c = max_steps;
+  bool captured = false;
+  // this thread's row of the next segment's checkpoints, and the steps until it starts
+  T* ck = ckpts == nullptr ? nullptr : ckpts + static_cast<size_t>(t) * 7;
+  int until_ck = 0;
 
   for (int step = 0; step < max_steps && !esc; ++step) {
-    if (inside) {  // a masked lane has n = 0, grad = 0: v is unchanged
-      const Stencil<T> s = stencil(g, x);
-      T c[2][2][2], n, grad[3];
-      fetch(g, s, true, c);
-      value_grad(g, c, s.w0, n, grad);
-      const T dsn = ds * n;
+    if (kCkpt && ck != nullptr) {
+      if (until_ck == 0) {
+        const T row[7] = {x[0], x[1], x[2], v[0], v[1], v[2], static_cast<T>(inside ? 1 : 0)};
 #pragma unroll
-      for (int k = 0; k < 3; ++k) v[k] = v[k] + dsn * grad[k];
+        for (int k = 0; k < 7; ++k) ck[k] = row[k];
+        ck += static_cast<size_t>(n_rays) * 7;
+        until_ck = seg;
+      }
+      --until_ck;
     }
-#pragma unroll
-    for (int k = 0; k < 3; ++k) x[k] = x[k] + ds * v[k];
-
-    const bool cur_inside = inbounds(g, x);
+    const bool cur_inside = forward_step(g, ds, x, v, inside);
     const bool cross = inside && !cur_inside;
     esc = esc || cross || escaped(g, x, v, static_cast<T>(1));
     if (cross) {
 #pragma unroll
       for (int k = 0; k < 3; ++k) { xt[k] = x[k]; vt[k] = v[k]; }
+      c = step + 1;
+      captured = true;
     }
     inside = cur_inside;
   }
+  if (xt_out == nullptr) return;
 
   // rays that never escaped report their final position; vt is not fixed up
 #pragma unroll
   for (int k = 0; k < 3; ++k) xt[k] = esc ? xt[k] : x[k];
   store3(xt_out, i, xt);
   store3(vt_out, i, vt);
+  if (kCkpt) {
+    c_out[i] = c;
+    code_out[i] = !esc ? 0 : (captured ? 1 : 2);
+  }
 }
 
 template <typename T>
@@ -79,10 +102,25 @@ int launch_trace_fwd(const void* rif, int W, int H, int D, double h, double ds,
                      const void* x0, const void* v0, const int* order, void* xt, void* vt,
                      int n_rays, int max_steps, cudaStream_t stream) {
   if (n_rays > 0) {
-    trace_fwd_kernel<T><<<blocks_for(n_rays), kThreads, 0, stream>>>(
+    trace_fwd_kernel<T, false><<<blocks_for(n_rays), kThreads, 0, stream>>>(
         make_grid<T>(rif, W, H, D, h), static_cast<T>(ds), static_cast<const T*>(x0),
-        static_cast<const T*>(v0), order, static_cast<T*>(xt), static_cast<T*>(vt), n_rays,
-        max_steps);
+        static_cast<const T*>(v0), order, static_cast<T*>(xt), static_cast<T*>(vt), nullptr,
+        nullptr, nullptr, n_rays, max_steps, 1);
+  }
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <typename T>
+int launch_trace_ckpt(const void* rif, int W, int H, int D, double h, double ds,
+                      const void* x0, const void* v0, const int* order, void* xt, void* vt,
+                      void* c, void* code, void* ckpts, int n_rays, int max_steps, int seg,
+                      cudaStream_t stream) {
+  if (n_rays > 0) {
+    trace_fwd_kernel<T, true><<<blocks_for(n_rays), kThreads, 0, stream>>>(
+        make_grid<T>(rif, W, H, D, h), static_cast<T>(ds), static_cast<const T*>(x0),
+        static_cast<const T*>(v0), order, static_cast<T*>(xt), static_cast<T*>(vt),
+        static_cast<int*>(c), static_cast<unsigned char*>(code), static_cast<T*>(ckpts),
+        n_rays, max_steps, seg);
   }
   return static_cast<int>(cudaGetLastError());
 }
@@ -99,4 +137,20 @@ extern "C" int anrt_trace_fwd(int is_double, const void* rif, int W, int H, int 
                                                     n_rays, max_steps, s)
                    : anrt::launch_trace_fwd<float>(rif, W, H, D, h, ds, x0, v0, o, xt, vt,
                                                    n_rays, max_steps, s);
+}
+
+// K5.  order: n_rays ray indices (thread i takes ray order[i]; n_rays may be
+// a chunk of the rays).  xt, vt (3 per ray), c (int32) and code (uint8) are
+// written at the ray's own index; all four null to skip them.  ckpts: null,
+// or (ceil(max_steps/seg), n_rays, 7) with row i thread i's.
+extern "C" int anrt_trace_ckpt(int is_double, const void* rif, int W, int H, int D, double h,
+                               double ds, const void* x0, const void* v0, const void* order,
+                               void* xt, void* vt, void* c, void* code, void* ckpts,
+                               int n_rays, int max_steps, int seg, void* stream) {
+  auto s = static_cast<cudaStream_t>(stream);
+  auto o = static_cast<const int*>(order);
+  return is_double ? anrt::launch_trace_ckpt<double>(rif, W, H, D, h, ds, x0, v0, o, xt, vt, c,
+                                                     code, ckpts, n_rays, max_steps, seg, s)
+                   : anrt::launch_trace_ckpt<float>(rif, W, H, D, h, ds, x0, v0, o, xt, vt, c,
+                                                    code, ckpts, n_rays, max_steps, seg, s);
 }

@@ -1,7 +1,9 @@
-// Trilinear voxel-field routines shared by the three stepper kernels of the
-// port: clamped 8-corner fetch, value, gradient, off-diagonal Hessian, the
-// splat (transpose of value + gradient) and the per-ray run of splats that
-// the adjoint sums in registers before it adds them anywhere.
+// Trilinear voxel-field routines shared by the stepper kernels of the port:
+// clamped 8-corner fetch, value, gradient, off-diagonal Hessian, the splat
+// (transpose of value + gradient), the per-ray run of splats that the
+// adjoints sum in registers before they add them anywhere, and the two step
+// bodies: the forward step (K2, K5 and K6's replay) and the adjoint update
+// after an evaluation (K3 and K6).
 //
 // Semantics are those of fields/grid.py: data[z, y, x] with p = (x, y, z),
 // flat index (z*H + y)*W + x, pm = p / h as a true division, both corners
@@ -272,6 +274,53 @@ __device__ __forceinline__ bool escaped(const Grid<T>& g, const T p[3], const T 
     esc = esc || (p[k] < 0 && vk < 0) || (p[k] >= g.hi[k] && vk > 0);
   }
   return esc;
+}
+
+// One forward step from (x, v) with eval mask `inside`: v += ds*n*grad n
+// (a masked ray keeps v), x += ds*v; returns inbounds(x) at the new x.  The
+// one copy of the stepper: K2, K5 and the replay of K6 call it, so a replayed
+// trajectory is the forward's bit for bit.
+template <typename T>
+__device__ __forceinline__ bool forward_step(const Grid<T>& g, T ds, T x[3], T v[3],
+                                             bool inside) {
+  if (inside) {  // a masked lane has n = 0, grad = 0: v is unchanged
+    const Stencil<T> s = stencil(g, x);
+    T c[2][2][2], n, grad[3];
+    fetch(g, s, true, c);
+    value_grad(g, c, s.w0, n, grad);
+    const T dsn = ds * n;
+#pragma unroll
+    for (int k = 0; k < 3; ++k) v[k] = v[k] + dsn * grad[k];
+  }
+#pragma unroll
+  for (int k = 0; k < 3; ++k) x[k] = x[k] + ds * v[k];
+  return inbounds(g, x);
+}
+
+// The adjoint's update at one step, after the field was evaluated there
+// (stencil s, n, grad n, Hessian; zeros where the step does not evaluate):
+// the splat (dn*ds, n*mu*ds) with dn = mu . grad n joins the ray's run when
+// `splat` holds (every lane at this point calls it: the warp's lanes flush
+// together), then la += ds*(dn*grad n + n*H mu), mu += ds*la.  K3 and K6
+// call it; each evaluates the field itself, in its own branch.
+template <typename T>
+__device__ __forceinline__ void adjoint_update(const Grid<T>& g, T ds, const Stencil<T>& s, T n,
+                                               const T grad[3], const T hess[3], bool splat,
+                                               T la[3], T mu[3], SplatRun<T>& run, T* acc) {
+  const T dn = mu[0] * grad[0] + mu[1] * grad[1] + mu[2] * grad[2];
+  T terms[2][2][2];
+  if (splat) {
+    const T dnx[3] = {n * mu[0] * ds, n * mu[1] * ds, n * mu[2] * ds};
+    splat_terms(g, s, dn * ds, dnx, terms);
+  }
+  run.step(acc, splat, s, terms);
+  const T hmu[3] = {hess[0] * mu[1] + hess[1] * mu[2], hess[0] * mu[0] + hess[2] * mu[2],
+                    hess[1] * mu[0] + hess[2] * mu[1]};
+#pragma unroll
+  for (int k = 0; k < 3; ++k) {
+    la[k] = la[k] + ds * (dn * grad[k] + n * hmu[k]);
+    mu[k] = mu[k] + ds * la[k];
+  }
 }
 
 // Coordinates within tol cells of a node are moved onto it.

@@ -9,9 +9,11 @@ versions instead (``fields.grid.eval_grad_plain``, ``tracer.eikonal.trace`` /
 
 K1 ``eval_grad`` (csrc/eval_grad.cu)
     replaces ``benchmarks/probe_evalmath.py::_pl_eval_kernel`` of the JAX
-    package (fused n, grad n evaluation); bound by bytes (28 B per point plus
-    the grid once); one thread per point, corners read from the raw grid
-    through L1/L2, no window table to build or gather.
+    package (fused n, grad n evaluation); bound by bytes (29 B per point plus
+    the grid once), held back in fact by the corner gathers; one thread a
+    point, each x-pair of corners in one 16-byte load where it lies in one;
+    corners read from the raw grid through L1/L2, no window table to build or
+    gather.
 K2 ``trace_fwd`` (csrc/trace_fwd.cu)
     replaces the forward stepper loop ``tracer/paired.py::trace``; bound by
     operations (58 flops per ray-step at the least, grid resident in L2); the whole step
@@ -39,6 +41,19 @@ K4 ``gather_rows`` (csrc/gather_rows.cu)
     ``benchmarks/probe_dma_gather.py::_ring_kernel``; bound by bytes (each
     row read once and written once, plus the index); one warp per row, 16
     bytes per lane, bit-exact.
+K5 ``trace_ckpt`` (csrc/trace_fwd.cu, K2's loop compiled with checkpoints)
+    the forward pass of the exact gradient, replacing the segmented XLA
+    forward ``tracer/checkpointed.py::_forward_with_ckpts``: K2's stepper,
+    which also writes each ray's state ``(x, v, inside)`` every ``seg`` steps
+    (until it escapes), its capture step ``c`` and how it ended.  The exit
+    state is K2's, bit for bit.
+K6 ``backtrace_exact`` (csrc/backtrace_exact.cu)
+    the backward pass of the exact gradient, replacing
+    ``tracer/checkpointed.py::_backward_segments``: per ray, the segments
+    below its capture step from last to first, each replayed forward from
+    its checkpoint with K2's step, then the adjoint update and splat of K3
+    in reverse over the replayed positions; K3's run sums, warp sums and
+    shared/global path rule (:func:`backtrace_path`).
 """
 
 from __future__ import annotations
@@ -55,18 +70,26 @@ from . import build
 LAUNCHES = {name: 0 for name in build.KERNELS}
 #: K3's launches by path (:func:`backtrace_path`), counted with ``LAUNCHES``
 BACKTRACE_PATHS = {"shared": 0, "global": 0}
+#: K6's, likewise
+BACKTRACE_EXACT_PATHS = {"shared": 0, "global": 0}
 #: the dynamic shared memory one block may opt in to on sm_90 (227 KB);
 #: ``kSharedMax`` in csrc/backtrace.cu
 SHARED_BYTES_MAX = 232448
 
 _VP, _I, _D, _LL = ctypes.c_void_p, ctypes.c_int, ctypes.c_double, ctypes.c_longlong
 _ARGTYPES = {
-    "eval_grad": [_I, _VP, _I, _I, _I, _D, _VP, _VP, _VP, _VP, _I, _VP],
+    "eval_grad": [_I, _VP, _I, _I, _I, _D, _VP, _VP, _VP, _VP, _I, _I, _VP],
     "trace_fwd": [_I, _VP, _I, _I, _I, _D, _D, _VP, _VP, _VP, _VP, _VP, _I, _I, _VP],
     "backtrace": [_I, _VP, _I, _I, _I, _D, _D, _D, _VP, _VP, _VP, _VP, _VP, _VP, _VP, _I, _I,
                   _I, _VP],
     "gather_rows": [_I, _VP, _VP, _VP, _LL, _I, _VP],
+    "trace_ckpt": [_I, _VP, _I, _I, _I, _D, _D, _VP, _VP, _VP, _VP, _VP, _VP, _VP, _VP, _I,
+                   _I, _I, _VP],
+    "backtrace_exact": [_I, _VP, _I, _I, _I, _D, _D, _VP, _VP, _VP, _VP, _VP, _VP, _VP, _VP,
+                        _I, _I, _I, _I, _VP],
 }
+#: the states a checkpoint holds: x, v, inside
+CKPT_WIDTH = 7
 _VEC_BYTES = 16  # K4 moves 128-bit vectors
 _INT_MAX = 2 ** 31 - 1
 
@@ -78,7 +101,7 @@ _events: Optional[List[Tuple[str, "torch.cuda.Event", "torch.cuda.Event"]]] = No
 
 
 def reset_launches() -> None:
-    for counts in (LAUNCHES, BACKTRACE_PATHS):
+    for counts in (LAUNCHES, BACKTRACE_PATHS, BACKTRACE_EXACT_PATHS):
         for name in counts:
             counts[name] = 0
 
@@ -151,6 +174,13 @@ def _check_order(order: Optional[torch.Tensor], data: torch.Tensor, n: int, name
                          f"{data.device}, got {order.dtype} {tuple(order.shape)} on {order.device}")
 
 
+def _check_tally(tally: Optional[torch.Tensor], data: torch.Tensor, name: str) -> None:
+    if tally is not None and (tally.device != data.device or tally.dtype != torch.int64
+                              or tally.shape != (3,) or not tally.is_contiguous()):
+        raise ValueError(f"{name}: tally must be a contiguous int64 (3,) tensor on "
+                         f"{data.device}, got {tally.dtype} {tuple(tally.shape)} on {tally.device}")
+
+
 def _ptr(t: Optional[torch.Tensor]) -> Optional[int]:
     return None if t is None else t.data_ptr()
 
@@ -163,8 +193,13 @@ def _launch_on_grid(name: str, data: torch.Tensor, *args) -> None:
 
 
 def eval_grad(data: torch.Tensor, h: float, p: torch.Tensor,
-              mask: Optional[torch.Tensor] = None) -> Tuple[torch.Tensor, torch.Tensor]:
-    """K1: ``(n (N,), grad (N, 3))`` of the grid ``data[z, y, x]`` at ``p`` (N, 3)."""
+              mask: Optional[torch.Tensor] = None,
+              pair_loads: bool = True) -> Tuple[torch.Tensor, torch.Tensor]:
+    """K1: ``(n (N,), grad (N, 3))`` of the grid ``data[z, y, x]`` at ``p`` (N, 3).
+
+    ``pair_loads=False`` runs the first design (the 8 corners one by one),
+    kept as a yardstick; the result is the same bit for bit.
+    """
     _check_grid(data, "eval_grad")
     n_pts = _check_rays(data, "eval_grad", p=p)
     if mask is not None and (mask.device != data.device or mask.dtype != torch.bool
@@ -176,7 +211,7 @@ def eval_grad(data: torch.Tensor, h: float, p: torch.Tensor,
     if n_pts:  # nothing to launch for an empty batch
         _launch_on_grid("eval_grad", data, float(h), p.data_ptr(),
                         None if mask is None else mask.data_ptr(), n.data_ptr(),
-                        grad.data_ptr(), n_pts)
+                        grad.data_ptr(), n_pts, int(pair_loads))
     return n, grad
 
 
@@ -223,10 +258,7 @@ def backtrace(data: torch.Tensor, h: float, xt: torch.Tensor, vt: torch.Tensor,
     _check_grid(data, "backtrace")
     n_rays = _check_rays(data, "backtrace", xt=xt, vt=vt, dx=dx, dv=dv)
     _check_order(order, data, n_rays, "backtrace")
-    if tally is not None and (tally.device != data.device or tally.dtype != torch.int64
-                              or tally.shape != (3,) or not tally.is_contiguous()):
-        raise ValueError(f"backtrace: tally must be a contiguous int64 (3,) tensor on "
-                         f"{data.device}, got {tally.dtype} {tuple(tally.shape)} on {tally.device}")
+    _check_tally(tally, data, "backtrace")
     g = torch.zeros((data.numel(),), dtype=data.dtype, device=data.device)
     if n_rays:
         path = backtrace_path(data.numel(), data.dtype)
@@ -236,6 +268,92 @@ def backtrace(data: torch.Tensor, h: float, xt: torch.Tensor, vt: torch.Tensor,
                         int(path == "shared"))
         BACKTRACE_PATHS[path] += 1
     return g
+
+
+def _check_slots(order: torch.Tensor, data: torch.Tensor, n_rays: int, name: str) -> int:
+    """An order that picks the rays of one launch (all of them, or a chunk)."""
+    if (order.device != data.device or order.dtype != torch.int32 or order.ndim != 1
+            or order.shape[0] > n_rays or not order.is_contiguous()):
+        raise ValueError(f"{name}: order must be a contiguous int32 (n,) tensor on "
+                         f"{data.device} with n <= {n_rays}, got {order.dtype} "
+                         f"{tuple(order.shape)} on {order.device}")
+    return order.shape[0]
+
+
+def trace_ckpt(data: torch.Tensor, h: float, x0: torch.Tensor, v0: torch.Tensor, ds: float,
+               max_steps: int, seg: int, order: torch.Tensor, store_ckpts: bool = True,
+               exit_state: bool = True):
+    """K5: the exact path's forward pass over the rays ``order`` of ``(x0, v0)``.
+
+    Returns ``(xt, vt, c, code, ckpts)``.  ``xt, vt`` (the exit state, K2's),
+    ``c`` (int32 capture step, ``max_steps`` if none) and ``code`` (uint8: 0
+    never escaped, 1 captured, 2 escaped without ever being inside) are in the
+    rays' own order, for all ``N`` rays, ``None`` unless ``exit_state``;
+    ``ckpts`` is the ``(ceil(max_steps/seg), n, 7)`` stack of ``(x, v,
+    inside)`` of the ray ``order[i]`` in row ``i``, at each segment start
+    before its escape (later rows are not written), ``None`` unless
+    ``store_ckpts``.  ``order`` may pick a chunk of the rays (``n <= N``).
+    """
+    _check_grid(data, "trace_ckpt")
+    n_rays = _check_rays(data, "trace_ckpt", x0=x0, v0=v0)
+    n = _check_slots(order, data, n_rays, "trace_ckpt")
+    if int(seg) < 1 or int(max_steps) < 0:
+        raise ValueError(f"trace_ckpt: seg {seg} and max_steps {max_steps} must be positive")
+    nseg = -(-int(max_steps) // int(seg))
+    out = [None] * 5
+    if exit_state:
+        out[:4] = (torch.empty_like(x0), torch.empty_like(v0),
+                   torch.empty((n_rays,), dtype=torch.int32, device=data.device),
+                   torch.empty((n_rays,), dtype=torch.uint8, device=data.device))
+    if store_ckpts:
+        out[4] = torch.empty((nseg, n, CKPT_WIDTH), dtype=data.dtype, device=data.device)
+    if n:
+        _launch_on_grid("trace_ckpt", data, float(h), float(ds), x0.data_ptr(), v0.data_ptr(),
+                        order.data_ptr(), *(_ptr(t) for t in out), n, int(max_steps),
+                        int(seg))
+    return tuple(out)
+
+
+def backtrace_exact(data: torch.Tensor, h: float, ckpts: torch.Tensor, c: torch.Tensor,
+                    code: torch.Tensor, dx: torch.Tensor, dv: torch.Tensor, ds: float,
+                    seg: int, order: torch.Tensor, out: Optional[torch.Tensor] = None,
+                    tally: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """K6: the exact path's flat ``(D*H*W,)`` voxel gradient, added into ``out``.
+
+    ``ckpts``, ``c``, ``code`` as :func:`trace_ckpt` returned them for the
+    same ``order``; ``dx, dv`` the cotangents of all ``N`` rays in their own
+    order (``dv`` already zeroed for rays that never escaped).  ``out`` (made
+    zero when not given) takes the sum; ``tally`` as for :func:`backtrace`.
+    """
+    _check_grid(data, "backtrace_exact")
+    n_rays = _check_rays(data, "backtrace_exact", dx=dx, dv=dv)
+    n = _check_slots(order, data, n_rays, "backtrace_exact")
+    if (ckpts.device != data.device or ckpts.dtype != data.dtype or ckpts.ndim != 3
+            or ckpts.shape[1:] != (n, CKPT_WIDTH) or not ckpts.is_contiguous()):
+        raise ValueError(f"backtrace_exact: ckpts must be a contiguous (nseg, {n}, "
+                         f"{CKPT_WIDTH}) {data.dtype} tensor on {data.device}, got "
+                         f"{ckpts.dtype} {tuple(ckpts.shape)} on {ckpts.device}")
+    for label, t, dtype in (("c", c, torch.int32), ("code", code, torch.uint8)):
+        if t.device != data.device or t.dtype != dtype or t.shape != (n_rays,) \
+                or not t.is_contiguous():
+            raise ValueError(f"backtrace_exact: {label} must be a contiguous {dtype} "
+                             f"({n_rays},) tensor on {data.device}, got {t.dtype} "
+                             f"{tuple(t.shape)} on {t.device}")
+    if out is None:
+        out = torch.zeros((data.numel(),), dtype=data.dtype, device=data.device)
+    elif (out.device != data.device or out.dtype != data.dtype
+          or out.shape != (data.numel(),) or not out.is_contiguous()):
+        raise ValueError(f"backtrace_exact: out must be a contiguous ({data.numel()},) "
+                         f"{data.dtype} tensor on {data.device}")
+    _check_tally(tally, data, "backtrace_exact")
+    if n:
+        path = backtrace_path(data.numel(), data.dtype)
+        _launch_on_grid("backtrace_exact", data, float(h), float(ds), ckpts.data_ptr(),
+                        order.data_ptr(), c.data_ptr(), code.data_ptr(), dx.data_ptr(),
+                        dv.data_ptr(), out.data_ptr(), _ptr(tally), n, ckpts.shape[0],
+                        int(seg), int(path == "shared"))
+        BACKTRACE_EXACT_PATHS[path] += 1
+    return out
 
 
 def gather_rows(table: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:

@@ -2,3 +2,4 @@
 
 from . import eikonal  # noqa: F401
 from .api import trace, trace_ad  # noqa: F401
+from .checkpointed import trace_exact  # noqa: F401

@@ -5,20 +5,25 @@ one CUDA device and ``nvcc``; without a GPU it exits non-zero and prints no
 result.  Phases (any failure is an uncaught exception):
 
 1. device  - require CUDA, print the card's name and power limit.
-2. build   - compile the four kernels from ``kernels/csrc`` and load them.
-3. kernels - hold K1 ``eval_grad``, K2 ``trace_fwd``, K3 ``backtrace`` against
-   their plain PyTorch versions on the card: at a small size in f64 and at the
-   bench scene's full width (128^3 grid, 2^18 rays) in f32, K2 and K3 with
-   and without the ray order (``tracer/order.py``) that ``api.trace`` gives
-   them; hold K4 ``gather_rows`` against its plain version at the gather
-   probe's full size (66^3 rows of 128, 2^18 indices; f32 and f64, int32 and
-   int64); time kernel, plain version and, where one exists, a library call,
-   and the order's own set-up time; compute each kernel's bound.  Then K2 and
-   K3 at every stage resolution of the fuel trainer (3^3 .. 65^3) with the
-   run's own rays, f64 and f32: K2 bitwise with and without the order, K3
-   against its plain version, the K3 path each stage takes (shared or
-   global), and the runs K3 flushed (counted in the kernel) against the
-   plain version's ``flushes``.
+2. build   - compile the kernels from ``kernels/csrc`` (one ``nvcc`` a source,
+   all at once) and load them.
+3. kernels - hold K1 ``eval_grad`` (and its first design), K2 ``trace_fwd``, K3
+   ``backtrace`` and the exact gradient's K5 ``trace_ckpt`` and K6
+   ``backtrace_exact`` against their plain PyTorch versions on the card: at a
+   small size in f64 and at the bench scene's full width (128^3 grid, 2^18
+   rays) in f32, K2 and K3 with and without the ray order
+   (``tracer/order.py``) that ``api.trace`` gives them; the exact gradient
+   through ``tracer.trace_exact`` against the taped plain stepper
+   (``api.trace_ad``) in f64, chunked and not; hold K4 ``gather_rows``
+   against its plain version at the gather probe's full size (66^3 rows of
+   128, 2^18 indices; f32 and f64, int32 and int64); time kernel, plain
+   version and, where one exists, a library call, and the order's own set-up
+   time; compute each kernel's bound.  Then K2, K3, K5 and K6 at every stage
+   resolution of the fuel trainer (3^3 .. 65^3) with the run's own rays, f64
+   and f32 (K5, K6 in f32): K2 and K5's exit state bitwise with and without
+   the order, K3 and K6 against their plain versions, the path each stage
+   takes (shared or global), and the runs K3 and K6 flushed (counted in the
+   kernel) against the plain versions' ``flushes``.
 4. main paths - each through the entry points a user calls, with the launch
    counters zeroed just before and read just after:
    a. the bench scene: ``bench.run`` and ``api.trace`` forward + adjoint (K2
@@ -29,15 +34,22 @@ result.  Phases (any failure is an uncaught exception):
       ``experiments.fuel_injection.run_opt`` with the shipped configuration
       (six stages 3^3 .. 65^3, 16 views of 128x128 = 262,144 rays, the real
       volume, f32), ``optim_iters`` cut from 300 to 10 (210 Adam steps), with
-      the spot check and the stage escalation on; K2 and K3 are asserted at
-      exactly the launches the code implies, K3 on each path too, K1 and K4
-      at none.  Then the same trainer in f64 at a small size on the card
-      against the CPU, and, when the short run predicts that it fits, the
-      full 300-iteration run (6,300 steps).
+      the spot check and the stage escalation on as a user runs it: the
+      stages before the escalation run K2 and K3, the others the exact
+      gradient, K5 and K6; every kernel is asserted at exactly the launches
+      the code implies for the stage the escalation fired at, K3 and K6 on
+      each path too, K1 and K4 at none.  Then the same trainer in f64 at a
+      small size on the card against the CPU, and the full 300-iteration run
+      (6,300 steps).
 5. report  - one JSON line of the kernels, then the result line.
 
 Bounds use the published peaks of one H100 SXM: 3.35 TB/s of device memory,
-67 TFLOP/s in f32 outside the tensor cores.
+67 TFLOP/s in f32 outside the tensor cores.  Kernel times are CUDA events
+around a launch after a 256 MB buffer was read (the L2 then holds clean lines
+of it, which a launch's misses evict for nothing); the earlier yardstick
+wrote the buffer instead, which leaves up to 50 MB of dirty lines that the
+timed launch's misses must write back, and is printed once beside it for K1,
+``grid_sample`` and K4.
 """
 
 import json
@@ -59,7 +71,9 @@ from adjointnonlinearraytracing_tpu_torch.experiments import fuel_injection, vox
 from adjointnonlinearraytracing_tpu_torch.fields import grid as G
 from adjointnonlinearraytracing_tpu_torch.kernels import build
 from adjointnonlinearraytracing_tpu_torch.kernels import wrappers as K
+from adjointnonlinearraytracing_tpu_torch import tracer
 from adjointnonlinearraytracing_tpu_torch.tracer import api
+from adjointnonlinearraytracing_tpu_torch.tracer import checkpointed as CK
 from adjointnonlinearraytracing_tpu_torch.tracer import eikonal as E
 from adjointnonlinearraytracing_tpu_torch.tracer import order as O
 from adjointnonlinearraytracing_tpu_torch.utils.metrics import MetricsLogger
@@ -70,8 +84,10 @@ GATHER_ROWS, GATHER_N, GATHER_REPS = 66 ** 3, 1 << 18, 8
 # the fuel trainer: iterations per stage are FUEL_ITERS * (stage + 1); the
 # shipped configuration has 300
 FUEL_ITERS, FUEL_ITERS_SHIPPED = 10, 300
-# the full-length run is made when 30 x the short run's time is below this
-FULL_RUN_BUDGET_S = 400.0
+# the exact gradient's checkpoint interval: trace_exact's and make_trace's default
+SEG = 32
+# ~0.1 ms of the card's clock: longer than the host takes to launch a kernel
+BUSY_CYCLES = 200_000
 PEAK_BYTES_PER_S = 3.35e12
 PEAK_F32_FLOPS = 67e12
 
@@ -114,6 +130,15 @@ FLOPS_FWD_EVAL = FLOPS_STENCIL + FLOPS_VALUE_GRAD + 7                  # 52
 FLOPS_BWD_STEP = 24
 FLOPS_BWD_EVAL = 6 + FLOPS_VALUE_GRAD + FLOPS_HESSIAN + 7 + 5 + 9 + 15  # 89
 FLOPS_BWD_SPLAT = 5 + FLOPS_SPLAT                                      # 48
+# K5 per step as K2.  K6, per gated-on step of a ray: the replayed forward
+# step (FLOPS_FWD_STEP, and FLOPS_FWD_EVAL where inside) and mu += ds*la (6);
+# per step inside, on top of the n and grad n the replay evaluated at the
+# same x_k: Hessian, dn = mu . grad (5), H mu (9), la += ds*(dn*grad +
+# n*Hmu) (15); each of those splats (FLOPS_BWD_SPLAT).  (K6 evaluates n and
+# grad n a second time in the backward step; that is its design's cost, not
+# the function's.)
+FLOPS_EXACT_STEP = FLOPS_FWD_STEP + 6                                  # 12
+FLOPS_EXACT_EVAL = FLOPS_FWD_EVAL + FLOPS_HESSIAN + 29                 # 92
 
 # Tolerances, relative to the plain version's largest magnitude.
 # f64: both sides do the same operations in the same order without FMA
@@ -158,21 +183,38 @@ def rel_err(got, want):
     return err / max(1.0, float(want.abs().max())), err
 
 
-def time_ms(fn, reps, flush=None):
-    """Mean CUDA-event time of ``fn`` over ``reps`` calls after one warm-up."""
-    fn()
-    total = 0.0
+def time_ms(fn, reps, flush=None, dirty=False, warm=True):
+    """Median CUDA-event time of ``fn`` over ``reps`` calls after one warm-up.
+
+    ``flush``: a 256 MB buffer, read before each call so that the 50 MB L2
+    holds none of the call's data, only clean lines; with ``dirty`` it is
+    written instead (the earlier yardstick), leaving dirty lines that the
+    call's misses must write back first.  Before each call the card is kept
+    busy for ~0.1 ms (``BUSY_CYCLES``), so that the host's own work before
+    the launch (Python, argument checks, allocations) does not show as idle
+    time between the two events: without it a call of 0.02 ms on the card
+    read up to twice that."""
+    if warm:
+        fn()
+        if flush is not None:  # the flush's and the wait's own kernels load at first use
+            flush.sum()
+        torch.cuda._sleep(BUSY_CYCLES)
+    times = []
     for _ in range(reps):
         if flush is not None:
-            flush.add_(1.0)  # 256 MB written: evicts the 50 MB L2
+            if dirty:
+                flush.add_(1.0)
+            else:
+                flush.sum()
+        torch.cuda._sleep(BUSY_CYCLES)
         start = torch.cuda.Event(enable_timing=True)
         stop = torch.cuda.Event(enable_timing=True)
         start.record()
         fn()
         stop.record()
         torch.cuda.synchronize()
-        total += start.elapsed_time(stop)
-    return total / reps
+        times.append(start.elapsed_time(stop))
+    return sorted(times)[len(times) // 2]
 
 
 def set_bound(rec):
@@ -214,6 +256,16 @@ def compare_kernels(s, tol_state, tol_grad, label):
     n_p2, g_p2 = G.eval_grad_plain(f, s["p"])
     e1 = max(e1, rel_err(n_k2, n_p2)[0], rel_err(g_k2, g_p2)[0])
     a1 = max(a1, rel_err(n_k2, n_p2)[1], rel_err(g_k2, g_p2)[1])
+    # K1's first design (the 8 corners one by one), kept as its yardstick, and
+    # a grid one word off a 16-byte boundary, where no x-pair comes in one load
+    buf = torch.empty(rif.numel() + 1, dtype=rif.dtype, device="cuda")
+    buf[1:] = rif.reshape(-1)
+    shifted = buf[1:].view(rif.shape)
+    k1_equal = {}
+    for label_k, (grid, pairs) in {"pair loads": (rif, True), "first design": (rif, False),
+                                   "grid off 16 B": (shifted, True)}.items():
+        got = K.eval_grad(grid, h, s["p"], mask, pair_loads=pairs)
+        k1_equal[label_k] = bool(torch.equal(got[0], n_p) and torch.equal(got[1], g_p))
 
     fstats, bstats = {}, {}
     order = O.ray_order(s["x0"], s["v0"], rif.shape, h)  # as api.trace makes it
@@ -243,7 +295,8 @@ def compare_kernels(s, tol_state, tol_grad, label):
     step_err = rel_err(got[mask], want[mask])[0]  # a ray that starts outside keeps x0
     torch.cuda.synchronize()
 
-    print(f"kernels[{label}] eval_grad rel_err {e1:.3e} (tol {tol_state:g}); "
+    print(f"kernels[{label}] eval_grad rel_err {e1:.3e} (tol {tol_state:g}), bitwise equal to "
+          f"the plain version: {k1_equal}; "
           f"trace_fwd rel_err {e2:.3e} (tol {tol_state:g}), rays of {s['x0'].shape[0]} not "
           f"bitwise equal: {differ['ordered']} ordered, {differ['unordered']} unordered; "
           f"backtrace ({K.backtrace_path(rif.numel(), rif.dtype)} path) rel_err {e3:.3e} "
@@ -253,6 +306,8 @@ def compare_kernels(s, tol_state, tol_grad, label):
           f"a step built on K1 rel_err {step_err:.3e} (tol {tol_state:g})", flush=True)
     if not (e1 <= tol_state and e2 <= tol_state and e3 <= tol_grad and step_err <= tol_state):
         raise AssertionError(f"a kernel disagrees with its plain version at {label}")
+    if not all(k1_equal.values()):
+        raise AssertionError(f"K1 is not bitwise equal to its plain version: {k1_equal}")
     if not float(g_p.abs().max()) > 0:
         raise AssertionError("the plain gradient is all zero: the comparison is empty")
     if runs != bstats["flushes"]:
@@ -300,6 +355,151 @@ def api_small_check():
         raise AssertionError("api.trace on strided inputs disagrees with contiguous ones")
 
 
+def exact_check(rif, h, ds, x0, v0, cot, label, tol, times=False):
+    """K5 and K6 against the plain exact path (``tracer/checkpointed.py``) on the card.
+
+    K5's exit state must equal the plain version's and K2's bit for bit, its
+    capture steps and exit codes the plain version's exactly, and the
+    checkpoint rows the backward pass reads the plain version's bit for bit;
+    K6 (with the order, as ``trace_exact`` runs it) within ``tol`` of the
+    largest entry of the plain gradient, which in f32 is summed in f64 from
+    the same f32 terms (``acc_dtype``), and K6's runs (counted in the kernel)
+    equal the plain version's ``flushes``.  ``cot(xt, vt)`` gives the
+    cotangents.  Returns the row of the report and a list of failures."""
+    steps = E.max_steps_fwd(max(rif.shape), h, ds)
+    order = O.ray_order(x0, v0, rif.shape, h)
+    fw, bw = {}, {}
+    xt_p, vt_p, esc_p, c_p, cap_p, ck_p = CK._forward_with_ckpts(
+        G.GridField(rif, h), x0, v0, ds, steps, SEG, stats=fw)
+    xt_k, vt_k, c_k, code_k, ck_k = K.trace_ckpt(rif, h, x0, v0, ds, steps, SEG, order)
+    xt_2, vt_2 = K.trace_fwd(rif, h, x0, v0, ds, steps, order)
+    code_p = torch.where(esc_p, torch.where(cap_p, 1, 2), 0).to(torch.uint8)
+    # the rows the backward pass reads: segments that start before the ray's last gated-on step
+    live_steps = torch.where(code_p == 2, 0, c_p)[order.long()]
+    need = (torch.arange(ck_p.shape[0], device="cuda")[:, None] * SEG) < live_steps[None, :]
+    state = dict(
+        exit_state=bool(torch.equal(xt_k, xt_p) and torch.equal(vt_k, vt_p)),
+        exit_state_k2=bool(torch.equal(xt_k, xt_2) and torch.equal(vt_k, vt_2)),
+        capture_steps=bool(torch.equal(c_k, c_p) and torch.equal(code_k, code_p)),
+        checkpoints=bool(torch.equal(ck_k[need], ck_p[:, order.long()][need])))
+    dx, dv = cot(xt_p, vt_p)
+    dv_k = torch.where(esc_p[:, None], dv, torch.zeros_like(dv))
+    bw["captured"] = cap_p
+    f32 = rif.dtype == torch.float32
+    g_ref = CK.backtrace_plain(rif, x0, v0, esc_p, c_p, ck_p, dx, dv, h, ds, SEG,
+                               acc_dtype=torch.float64 if f32 else None, stats=bw)
+    tally = torch.zeros(3, dtype=torch.int64, device="cuda")
+    g_k = K.backtrace_exact(rif, h, ck_k, c_k, code_k, dx, dv_k, ds, SEG, order, tally=tally)
+    torch.cuda.synchronize()
+    err, abs_err = rel_err(g_k.double(), g_ref.double())
+    path = K.backtrace_path(rif.numel(), rif.dtype)
+    row = dict(label=label, path=path, rel_err=err, abs_err=abs_err, tol=tol,
+               max_abs_g=float(g_ref.abs().max()), bitwise=state, runs=int(tally[0]),
+               issued=int(tally[1]), block_adds=int(tally[2]), fwd=fw,
+               bwd={k: bw[k] for k in ("ray_steps", "evals", "splats", "flushes")},
+               ckpt_rows=int(need.sum()), ckpt_mb=ck_k.numel() * ck_k.element_size() / 1e6,
+               rays_code=[int((code_k == k).sum()) for k in range(3)])
+    # what this run's data needs: each input read once, each output and each
+    # checkpoint row the backward pass reads written once; the ray-steps,
+    # evaluations and splats the plain versions counted
+    n, item = x0.shape[0], rif.element_size()
+    rows_bytes = row["ckpt_rows"] * 7 * item
+    row["k5"] = set_bound(dict(
+        bytes=12 * n * item + 5 * n + rows_bytes + rif.numel() * item,
+        flops=fw["ray_steps"] * FLOPS_FWD_STEP + fw["evals"] * FLOPS_FWD_EVAL))
+    row["k6"] = set_bound(dict(
+        bytes=rows_bytes + 5 * n + 6 * n * item + 2 * rif.numel() * item,
+        flops=(bw["ray_steps"] * FLOPS_EXACT_STEP + bw["evals"] * FLOPS_EXACT_EVAL
+               + bw["splats"] * FLOPS_BWD_SPLAT)))
+    if times:
+        row["k5"]["ms"] = time_ms(lambda: K.trace_ckpt(rif, h, x0, v0, ds, steps, SEG, order), 3)
+        row["k6"]["ms"] = time_ms(lambda: K.backtrace_exact(rif, h, ck_k, c_k, code_k, dx, dv_k,
+                                                            ds, SEG, order), 3)
+        row["k5_ms"], row["k6_ms"] = row["k5"]["ms"], row["k6"]["ms"]
+    print(f"exact[{label}, {x0.shape[0]} rays] K5 bitwise equal {state}; K6 {path} path: "
+          f"rel_err {err:.3e} against the plain version"
+          + (" summed in f64 from the same f32 terms" if f32 else "")
+          + f" (tol {tol:g}), max |g| {row['max_abs_g']:.4g}; runs flushed {row['runs']} "
+          f"(plain flushes {bw['flushes']}, splats {bw['splats']}), issued {row['issued']}; "
+          f"rays never escaped / captured / never inside {row['rays_code']}; checkpoints "
+          f"{row['ckpt_mb']:.1f} MB, rows read {row['ckpt_rows']}"
+          + (f"; K5 {row['k5_ms']:.4f} ms (bound {row['k5']['bound_ms']:.4f}, "
+             f"{row['k5']['bound_by']}), K6 {row['k6_ms']:.4f} ms (bound "
+             f"{row['k6']['bound_ms']:.4f}, {row['k6']['bound_by']})" if times else ""),
+          flush=True)
+    failures = []
+    if not all(state.values()):
+        failures.append(f"K5 is not bitwise equal to its plain version at {label}: {state}")
+    if not (err <= tol and row["max_abs_g"] > 0):
+        failures.append(f"K6 disagrees with its plain version at {label}: {err:.3e}")
+    if row["runs"] != bw["flushes"]:
+        failures.append(f"K6 flushed {row['runs']} runs at {label}, the plain version counts "
+                        f"{bw['flushes']}")
+    return row, failures
+
+
+def exact_plain_ms(rif, h, ds, x0, v0, cot):
+    """One run of each plain version of the exact path on the card, host clock
+    after a synchronise (they are Python loops of small launches): K5's
+    (the segmented forward) and K6's (the segment replay and reverse sweep)."""
+    field = G.GridField(rif, h)
+    steps = E.max_steps_fwd(max(rif.shape), h, ds)
+    torch.cuda.synchronize()
+    t0 = time.time()
+    xt, vt, esc, c, _, ck = CK._forward_with_ckpts(field, x0, v0, ds, steps, SEG)
+    torch.cuda.synchronize()
+    t1 = time.time()
+    dx, dv = cot(xt, vt)
+    CK.backtrace_plain(rif, x0, v0, esc, c, ck, dx, dv, h, ds, SEG)
+    torch.cuda.synchronize()
+    return 1e3 * (t1 - t0), 1e3 * (time.time() - t1)
+
+
+def exact_api_check():
+    """``tracer.trace_exact`` on the card (K5, K6) against the taped plain stepper
+    (``api.trace_ad``, the exact discrete gradient by definition) in f64, with
+    the batch whole and cut into chunks (``ANRT_EXACT_CHUNK``)."""
+    rif, x0, v0, span = build_case(res=17, nrays=512, dtype="float64", device="cuda")
+    gen = torch.Generator(device="cuda").manual_seed(2)
+    rif = rif + 0.05 * torch.rand(rif.shape, generator=gen, device="cuda", dtype=rif.dtype)
+    h = span / 16
+    target = torch.tensor([span / 2, span * 1.1, span / 2], dtype=rif.dtype, device="cuda")
+
+    def grad(fn):
+        r = rif.clone().requires_grad_(True)
+        xt, vt = fn(r, x0, v0, h, h / 2)
+        (((xt - target) ** 2).sum() + vt.sum()).backward()
+        return xt.detach(), r.grad
+
+    saved = os.environ.get("ANRT_EXACT_CHUNK")
+    K.reset_launches()
+    try:
+        xt_e, g_e = grad(CK.trace_exact)
+        os.environ["ANRT_EXACT_CHUNK"] = "100"  # 6 chunks, the last one short
+        xt_c, g_c = grad(CK.trace_exact)
+    finally:
+        if saved is None:
+            os.environ.pop("ANRT_EXACT_CHUNK", None)
+        else:
+            os.environ["ANRT_EXACT_CHUNK"] = saved
+    launches = dict(K.LAUNCHES)
+    xt_a, g_a = grad(api.trace_ad)
+    xt_d, g_d = grad(api.trace)
+    e_tape, e_chunk = rel_err(g_e, g_a)[0], rel_err(g_c, g_e)[0]
+    print(f"exact[f64 17^3 x 512, api] trace_exact against trace_ad: exit state equal "
+          f"{bool(torch.equal(xt_e, xt_a))}, gradient rel_err {e_tape:.3e} (tol {TOL_F64:g}); "
+          f"chunked by 100 against whole {e_chunk:.3e}; the adjoint (api.trace) against "
+          f"trace_ad {rel_err(g_d, g_a)[0]:.3e}; launches {launches}", flush=True)
+    want = {"eval_grad": 0, "trace_fwd": 0, "backtrace": 0, "gather_rows": 0,
+            "trace_ckpt": 1 + 1 + 6, "backtrace_exact": 1 + 6}
+    if launches != want:
+        raise AssertionError(f"trace_exact must launch {want}, counted {launches}")
+    if not (torch.equal(xt_e, xt_a) and torch.equal(xt_c, xt_a)):
+        raise AssertionError("trace_exact's exit state differs from the plain stepper's")
+    if not (e_tape <= TOL_F64 and e_chunk <= TOL_F64 and float(g_a.abs().max()) > 0):
+        raise AssertionError("trace_exact on the card is not the exact gradient")
+
+
 def time_kernels(s, cmp):
     """Times (ms) of kernel, plain version and library call at full width, and bounds."""
     f, rif, h, ds = s["field"], s["rif"], s["h"], s["ds"]
@@ -324,11 +524,27 @@ def time_kernels(s, cmp):
     print(f"library grid_sample vs plain value on in-grid points: max abs {lib_err:.3e}")
 
     t = {}
+
+    def k1(pairs):
+        return lambda: K.eval_grad(rif, h, s["p"], mask, pair_loads=pairs)
+
     t["eval_grad"] = dict(
-        ms=time_ms(lambda: K.eval_grad(rif, h, s["p"], mask), 10, flush),
+        ms=time_ms(k1(True), 10, flush),
         plain_ms=time_ms(lambda: G.eval_grad_plain(f, s["p"], mask), 5, flush),
         library_ms=time_ms(sample, 10, flush),
         bytes=n * (12 + 16) // 4 * item + n + grid_bytes, flops=n * FLOPS_EVAL_POINT)
+    # the first design (the 8 corners one by one, built with the shipped one)
+    # under the same yardstick, and both designs and grid_sample under the
+    # earlier yardstick (the buffer written)
+    before = dict(ms=time_ms(k1(False), 10, flush),
+                  ms_dirty_flush=time_ms(k1(False), 10, flush, True))
+    t["eval_grad"].update(before=before, ms_dirty_flush=time_ms(k1(True), 10, flush, True),
+                          library_ms_dirty_flush=time_ms(sample, 10, flush, True))
+    e = t["eval_grad"]
+    print(f"eval_grad[f32, {n} points] ms, buffer read / written before each launch: "
+          f"pair loads {e['ms']:.4f} / {e['ms_dirty_flush']:.4f}; first design, corners one "
+          f"by one (before) {before['ms']:.4f} / {before['ms_dirty_flush']:.4f}; grid_sample "
+          f"{e['library_ms']:.4f} / {e['library_ms_dirty_flush']:.4f}", flush=True)
     # K2 and K3 as api.trace launches them (with the ray order), and without it
     order = cmp["order"]
     t["trace_fwd"] = dict(
@@ -358,6 +574,7 @@ def time_kernels(s, cmp):
           f"{t['backtrace']['ms_unordered']:.4f} ms unordered", flush=True)
     for name in ("eval_grad", "trace_fwd", "backtrace"):
         set_bound(t[name])
+    t["eval_grad"]["before"]["share_of_bound"] = t["eval_grad"]["bound_ms"] / before["ms"]
     return t
 
 
@@ -389,6 +606,9 @@ def gather_check_and_time():
         plain_ms=time_ms(lambda: probe_dma_gather.gather_rows_plain(table, idx), 10, flush),
         # the one library call that computes the same function; used nowhere in the port
         library_ms=time_ms(lambda: torch.index_select(table, 0, idx), 10, flush),
+        ms_dirty_flush=time_ms(lambda: K.gather_rows(table, idx), 10, flush, True),
+        library_ms_dirty_flush=time_ms(lambda: torch.index_select(table, 0, idx), 10, flush,
+                                       True),
         # what this run's data needs: each gathered row read once and written
         # once, each index read once (the table as a whole is not an input
         # that must move: only the rows picked are)
@@ -397,7 +617,10 @@ def gather_check_and_time():
     set_bound(rec)
     print(f"gather_rows[f32, int32] {rec['ms']:.4f} ms = {100 * rec['bound_ms'] / rec['ms']:.1f} % "
           f"of the byte bound {rec['bound_ms']:.4f} ms ({rec['bytes'] / 1e6:.1f} MB); plain "
-          f"{rec['plain_ms']:.4f} ms; torch.index_select {rec['library_ms']:.4f} ms", flush=True)
+          f"{rec['plain_ms']:.4f} ms; torch.index_select {rec['library_ms']:.4f} ms; with the "
+          f"buffer written before each launch (the earlier yardstick): K4 "
+          f"{rec['ms_dirty_flush']:.4f} ms, index_select {rec['library_ms_dirty_flush']:.4f} ms",
+          flush=True)
     return rec
 
 
@@ -407,7 +630,7 @@ def gather_probe_path():
     rec = probe_dma_gather.run(R=GATHER_ROWS, N=GATHER_N, reps=GATHER_REPS)
     launches = dict(K.LAUNCHES)
     print(f"gather probe: {json.dumps(rec)}", flush=True)
-    want = {"eval_grad": 0, "trace_fwd": 0, "backtrace": 0, "gather_rows": 2 + GATHER_REPS}
+    want = {**{name: 0 for name in build.KERNELS}, "gather_rows": 2 + GATHER_REPS}
     if launches != want:
         raise AssertionError(f"probe_dma_gather.run must launch {want}, counted {launches}")
     if rec["max_abs_err"] != 0.0 or not rec["kernel"]["ms_per_dispatch"] > 0:
@@ -421,51 +644,78 @@ def fuel_params():
     return dict(fuel_injection.default_params(), nviews=16)
 
 
-def fuel_launches(params):
-    """K2 and K3 launches that ``run_opt(params)`` implies, from the code:
-    one K2 for the ground truth; per Adam step one K2 (loss) and one K3 (its
+def escalation_stage(metrics):
+    """The stage at which the run's spot check switched to the exact gradient, or None."""
+    stages = [row["gradient_escalated_stage"] for row in metrics.history
+              if "gradient_escalated_stage" in row]
+    if len(stages) > 1:
+        raise AssertionError(f"the run escalated more than once: {stages}")
+    return int(stages[0]) if stages else None  # the logger keeps numbers as floats
+
+
+def fuel_launches(params, escalated):
+    """The launches that ``run_opt(params)`` implies, from the code, when the
+    stage escalation fired at stage ``escalated`` (None: never): one K2 for
+    the ground truth; per Adam step of a stage before it one K2 (loss) and one
+    K3 (its gradient), of a stage from it on one K5 and one K6 (the exact
     gradient); per spot check (one at start-up, one at the start of every
-    stage but the first) one K2 and one K3 through ``tracer.trace`` (the exact
-    side is the taped plain version and launches nothing).  Every K3 launch
-    of stage s runs on that stage's grid, so its path is that grid's
-    (``wrappers.backtrace_path``)."""
-    stages = len(params["res_list"])
-    steps = sum(params["optim_iters"] * (s + 1) for s in range(stages))
-    checks = (1 if params.get("grad_spotcheck", True) else 0) + (
-        stages - 1 if params.get("auto_exact", True) else 0)
+    stage up to the one that escalates, after which the escalator checks no
+    more) one K2 and one K3 through ``tracer.trace`` (the exact side is the
+    taped plain version and launches nothing).  Every K3 and K6 launch of
+    stage s runs on that stage's grid, so its path is that grid's
+    (``wrappers.backtrace_path``).  Returns the steps, the launches and the
+    K3 and K6 launches by path."""
+    res_list, iters = params["res_list"], params["optim_iters"]
+    stages = len(res_list)
+    first_exact = stages if escalated is None else escalated
+    last_check = stages - 1 if escalated is None else escalated
+    checked = ([0] if params.get("grad_spotcheck", True) else []) + (
+        list(range(1, last_check + 1)) if params.get("auto_exact", True) else [])
     dtype = {"float32": torch.float32, "float64": torch.float64}[params.get("dtype", "float32")]
-    paths = {"shared": 0, "global": 0}
-    for s, res in enumerate(params["res_list"]):
-        check = 1 if (s == 0 and params.get("grad_spotcheck", True)) or (
-            s > 0 and params.get("auto_exact", True)) else 0
-        paths[K.backtrace_path(res ** 3, dtype)] += params["optim_iters"] * (s + 1) + check
-    return steps, {"eval_grad": 0, "trace_fwd": 1 + steps + checks,
-                   "backtrace": steps + checks, "gather_rows": 0}, paths
+    paths = {"backtrace": {"shared": 0, "global": 0}, "backtrace_exact": {"shared": 0, "global": 0}}
+    adjoint = exact = 0
+    for s, res in enumerate(res_list):
+        path = K.backtrace_path(res ** 3, dtype)
+        n = iters * (s + 1)
+        if s < first_exact:
+            adjoint += n
+        else:
+            exact += n
+            paths["backtrace_exact"][path] += n
+        paths["backtrace"][path] += (n if s < first_exact else 0) + (s in checked)
+    return adjoint + exact, {"eval_grad": 0, "trace_fwd": 1 + adjoint + len(checked),
+                             "backtrace": adjoint + len(checked), "gather_rows": 0,
+                             "trace_ckpt": exact, "backtrace_exact": exact}, paths
+
+
+def kernel_paths():
+    return {"backtrace": dict(K.BACKTRACE_PATHS), "backtrace_exact": dict(K.BACKTRACE_EXACT_PATHS)}
 
 
 def fuel_path(iters, label, work):
     """The fuel-injection trainer at full width for ``iters`` iterations a stage.
 
-    In f32 the constant-memory adjoint drifts on this scene (rays of a view
-    run along a grid axis and ``ds`` divides ``h``, so every few steps a
-    position sits on a node plane, where forward and reverse can pick
-    different cells), and the stage spot check would escalate to the exact
-    gradient, which the port does not have yet and raises for.  The run keeps
-    the spot checks and the escalator on, prints what they measure, and lifts
-    the escalation tolerance (``ANRT_EXACT_TOL``) for its duration.
+    As a user runs it: the spot checks and the stage escalation are on, with
+    the escalation tolerance (``ANRT_EXACT_TOL``) at its default.  In f32 the
+    constant-memory adjoint drifts on this scene (rays of a view run along a
+    grid axis and ``ds`` divides ``h``, so every few steps a position sits on
+    a node plane, where forward and reverse can pick different cells), so the
+    escalation fires and the remaining stages run the exact gradient (K5, K6).
+    The stage it fires at is read from the run's metrics, the run fails if it
+    never fires (the exact kernels would then be off the trainer's path), and
+    the launches are held to what the code implies for that stage.
     """
     params = dict(fuel_params(), optim_iters=iters, grad_spotcheck=True, auto_exact=True)
     res_list = params["res_list"]
     nrays = params["nviews"] * params["nbins"] ** 2 * params["spp"]
-    steps, want, want_paths = fuel_launches(params)
     step_rows, events = [], []
 
     def stat(it, loss, secs):
         step_rows.append((it, loss, secs, len(events)))
 
     metrics = MetricsLogger()
-    saved_tol = os.environ.get("ANRT_EXACT_TOL")
-    os.environ["ANRT_EXACT_TOL"] = "1e30"
+    if "ANRT_EXACT_TOL" in os.environ:
+        raise AssertionError("ANRT_EXACT_TOL is set: the run would not be a user's run")
     K.reset_launches()
     K.record_events(events)
     t0 = time.time()
@@ -474,27 +724,29 @@ def fuel_path(iters, label, work):
         torch.cuda.synchronize()
     finally:
         K.record_events(None)
-        if saved_tol is None:
-            del os.environ["ANRT_EXACT_TOL"]
-        else:
-            os.environ["ANRT_EXACT_TOL"] = saved_tol
     seconds = time.time() - t0
     launches = dict(K.LAUNCHES)
-    paths = dict(K.BACKTRACE_PATHS)
+    paths = kernel_paths()
+    escalated = escalation_stage(metrics)
+    steps, want, want_paths = fuel_launches(params, escalated)
     checks = {k: v for row in metrics.history for k, v in row.items()
               if k.startswith("grad_spotcheck")}
-    for name in ["grad_spotcheck"] + [f"grad_spotcheck_stage{s}" for s in range(1, 6)]:
+    for name in sorted(k for k in checks if not k.endswith(("_rel_l2", "_cos"))):
         print(f"fuel[{label}] {name} (adjoint against the taped plain version, 2048 rays): "
               f"max-rel {checks[name]:.3e}, rel-L2 {checks[name + '_rel_l2']:.3e}, cosine "
-              f"{checks[name + '_cos']:.5f}; the escalation tolerance is 0.01 by default",
-              flush=True)
+              f"{checks[name + '_cos']:.5f}; the escalation tolerance is 0.01", flush=True)
+    print(f"fuel[{label}] escalation to the exact gradient fired at stage {escalated}"
+          + (f" ({res_list[escalated]}^3)" if escalated is not None else ""), flush=True)
+    if escalated is None:
+        raise AssertionError("the f32 run at full width never escalated to the exact gradient: "
+                             "K5 and K6 are not on the trainer's path")
     print(f"fuel[{label}] {params['nviews']} views x {params['nbins']}^2 = {nrays} rays, "
           f"stages {res_list}, optim_iters {iters} (shipped {FUEL_ITERS_SHIPPED}), "
-          f"{steps} Adam steps in {seconds:.2f} s; launches {launches}; K3 by path {paths} "
+          f"{steps} Adam steps in {seconds:.2f} s; launches {launches}; by path {paths} "
           f"(stages {[f'{r}^3: ' + K.backtrace_path(r ** 3, torch.float32) for r in res_list]})",
           flush=True)
     if launches != want or paths != want_paths:
-        raise AssertionError(f"run_opt must launch {want}, K3 by path {want_paths}, counted "
+        raise AssertionError(f"run_opt must launch {want}, by path {want_paths}, counted "
                              f"{launches}, {paths}")
     if nrays != 262144 or len(hist) != steps or len(step_rows) != steps:
         raise AssertionError("the fuel run is not at full width or lost steps")
@@ -520,51 +772,69 @@ def fuel_path(iters, label, work):
         raise AssertionError(f"boundary shell moved by {shell_dev} or interior stayed ({moved})")
 
     # per stage: step time on the host clock (each step ends with the loss
-    # read back, so the device has finished), and K2 + K3 of that step from
-    # the events recorded around the launches
+    # read back, so the device has finished), and the step's forward and
+    # backward kernel (K2 + K3, or K5 + K6 once escalated) from the events
+    # recorded around the launches
     per_stage, first = [], 0
+    first_exact = escalated
     for s, res in enumerate(res_list):
         rows = step_rows[first:first + iters * (s + 1)]
         first += len(rows)
         step_ms = sorted(1e3 * r[2] for r in rows)
+        names = ("trace_ckpt", "backtrace_exact") if s >= first_exact else ("trace_fwd",
+                                                                           "backtrace")
         kern = []
         for r in rows:
             (n2, a2, b2), (n3, a3, b3) = events[r[3] - 2:r[3]]  # the step's own two launches
-            if (n2, n3) != ("trace_fwd", "backtrace"):
-                raise AssertionError("a step's launches are not K2 then K3")
+            if (n2, n3) != names:
+                raise AssertionError(f"a step's launches at stage {s} are not {names}")
             kern.append((a2.elapsed_time(b2), a3.elapsed_time(b3)))
-        k2 = sorted(k[0] for k in kern)[len(kern) // 2]
-        k3 = sorted(k[1] for k in kern)[len(kern) // 2]
+        kf = sorted(k[0] for k in kern)[len(kern) // 2]
+        kb = sorted(k[1] for k in kern)[len(kern) // 2]
         med = step_ms[len(step_ms) // 2]
-        per_stage.append(dict(res=res, steps=len(rows), step_ms_median=med,
-                              step_ms_mean=sum(step_ms) / len(step_ms),
-                              rays_per_s=nrays / (1e-3 * med), k2_ms_median=k2, k3_ms_median=k3,
-                              kernel_share=(k2 + k3) / med, loss_last=rows[-1][1]))
-        print(f"fuel[{label}] stage {s} res {res}^3: {len(rows)} steps, median "
-              f"{med:.3f} ms/step = {nrays / (1e-3 * med):.4g} rays/s; K2 {k2:.3f} ms + K3 "
-              f"{k3:.3f} ms = {100 * (k2 + k3) / med:.1f} % of the step, the rest "
-              f"{med - k2 - k3:.3f} ms is host work and small kernels; loss {rows[-1][1]:.6g}",
-              flush=True)
+        per_stage.append(dict(res=res, steps=len(rows), gradient=("exact" if s >= first_exact
+                                                                  else "adjoint"),
+                              step_ms_median=med, step_ms_mean=sum(step_ms) / len(step_ms),
+                              rays_per_s=nrays / (1e-3 * med), fwd_ms_median=kf,
+                              bwd_ms_median=kb, kernel_share=(kf + kb) / med,
+                              loss_last=rows[-1][1]))
+        print(f"fuel[{label}] stage {s} res {res}^3 ({per_stage[-1]['gradient']}): {len(rows)} "
+              f"steps, median {med:.3f} ms/step = {nrays / (1e-3 * med):.4g} rays/s; "
+              f"{'K5' if s >= first_exact else 'K2'} {kf:.3f} ms + "
+              f"{'K6' if s >= first_exact else 'K3'} {kb:.3f} ms = "
+              f"{100 * (kf + kb) / med:.1f} % of the step, the rest {med - kf - kb:.3f} ms is "
+              f"host work and small kernels; loss {rows[-1][1]:.6g}", flush=True)
     # the work of a pass at each stage as the plain versions counted it on the
     # run's own rays (stage_checks), and the rates the stage's kernel times give
     for st, w in zip(per_stage, work):
-        print(f"fuel[{label}] work of a pass at {st['res']}^3: forward {w['ray_steps_fwd']} "
-              f"ray-steps, K2 at {w['ray_steps_fwd'] / (1e-3 * st['k2_ms_median']):.4g} "
-              f"ray-steps/s; backward {w['ray_steps']} ray-steps, {w['splats']} splats "
-              f"({8 * w['splats']} adds a splat each would issue), {w['flushes']} runs, "
-              f"issued as {w['issued']} flushes = {8 * w['issued']} adds into K3's "
-              f"{w['path']} accumulator"
-              + (f" + {w['block_adds']} adds of the block-private gradients"
-                 if w["path"] == "shared" else "")
-              + f"; K3 at {w['ray_steps'] / (1e-3 * st['k3_ms_median']):.4g} ray-steps/s",
-              flush=True)
+        if st["gradient"] == "adjoint":
+            print(f"fuel[{label}] work of a pass at {st['res']}^3: forward {w['ray_steps_fwd']} "
+                  f"ray-steps, K2 at {w['ray_steps_fwd'] / (1e-3 * st['fwd_ms_median']):.4g} "
+                  f"ray-steps/s; backward {w['ray_steps']} ray-steps, {w['splats']} splats "
+                  f"({8 * w['splats']} adds a splat each would issue), {w['flushes']} runs, "
+                  f"issued as {w['issued']} flushes = {8 * w['issued']} adds into K3's "
+                  f"{w['path']} accumulator"
+                  + (f" + {w['block_adds']} adds of the block-private gradients"
+                     if w["path"] == "shared" else "")
+                  + f"; K3 at {w['ray_steps'] / (1e-3 * st['bwd_ms_median']):.4g} ray-steps/s",
+                  flush=True)
+        else:
+            ex = w["exact"]
+            print(f"fuel[{label}] work of an exact pass at {st['res']}^3: forward "
+                  f"{ex['fwd']['ray_steps']} ray-steps, K5 at "
+                  f"{ex['fwd']['ray_steps'] / (1e-3 * st['fwd_ms_median']):.4g} ray-steps/s; "
+                  f"backward {ex['bwd']['ray_steps']} gated-on ray-steps (each replayed), "
+                  f"{ex['bwd']['splats']} splats, {ex['bwd']['flushes']} runs, issued as "
+                  f"{ex['issued']} flushes into K6's {ex['path']} accumulator; K6 at "
+                  f"{ex['bwd']['ray_steps'] / (1e-3 * st['bwd_ms_median']):.4g} ray-steps/s; "
+                  f"checkpoints {ex['ckpt_mb']:.1f} MB", flush=True)
     err = fuel_injection.reconstruction_error(eta, gtruth,
                                               background=1.0 + params["fuel_val"])
     print(f"fuel[{label}] loss {hist[0]:.6g} -> {hist[-1]:.6g}; shell deviation {shell_dev:.2e}; "
           f"reconstruction_error (background 1 + fuel_val) {json.dumps(err)}", flush=True)
-    return dict(seconds=seconds, steps=steps, launches=launches, k3_paths=paths,
-                per_stage=per_stage, loss_first=hist[0], loss_last=hist[-1], spot_checks=checks,
-                **err)
+    return dict(seconds=seconds, steps=steps, launches=launches, paths=paths,
+                escalated=escalated, per_stage=per_stage, loss_first=hist[0],
+                loss_last=hist[-1], spot_checks=checks, **err)
 
 
 def stage_checks(params):
@@ -574,8 +844,9 @@ def stage_checks(params):
     finest grid), in f64 and f32.  K2 must be bitwise equal with and without
     the order; K3 (with the order, as api.trace runs it) within the limits
     above; the runs K3 flushed, counted in the kernel, must equal the plain
-    version's ``flushes``.  Returns the f32 work per stage, the rows of the
-    report and a list of failures (raised at the end of the script)."""
+    version's ``flushes``.  In f32 also K5 and K6 (:func:`exact_check`).
+    Returns the f32 work per stage, the rows of the report and a list of
+    failures (raised at the end of the script)."""
     res_list, span = params["res_list"], params["vol_span"]
     ds = span / (res_list[-1] - 1) / params["step_res"]
     gt = voxel_scenes.fuel_injection_rif(params["fuel_val"], torch.float64, "cuda")
@@ -636,10 +907,15 @@ def stage_checks(params):
                 row.update(k2_ms_ordered=k2o, k2_ms_unordered=k2u, k3_ms_ordered=k3o,
                            k3_ms_unordered=k3u,
                            order_ms=time_ms(lambda: O.ray_order(x0, v0, rif.shape, h), 5))
+                ex, ex_failures = exact_check(
+                    rif, h, ds, x0, v0, lambda xt_, vt_: (2.0 * (xt_ - 0.5), torch.ones_like(vt_)),
+                    f"f32 {res}^3", TOL_F32_GRAD, times=True)
+                failures += ex_failures
+                row["exact"] = ex
                 work.append(dict(res=res, path=path, ray_steps_fwd=fw["ray_steps"],
                                  ray_steps=bw["ray_steps"], splats=bw["splats"],
                                  flushes=bw["flushes"], issued=int(tally[1]),
-                                 block_adds=int(tally[2])))
+                                 block_adds=int(tally[2]), exact=ex))
             row["tol"] = tol
             rows.append(row)
             print(f"stage[{row['dtype']} {res}^3, {x0.shape[0]} rays] K3 {path} path: rel_err "
@@ -682,22 +958,28 @@ def fuel_small_check():
     rays, _ = fuel_injection.gen_start_rays(params, torch.Generator().manual_seed(0),
                                             torch.float64)
     gtruth = voxel_scenes.fuel_injection_rif(params["fuel_val"], torch.float64, "cpu")
-    steps, want, want_paths = fuel_launches(params)
     K.reset_launches()
-    eta_gpu, hist_gpu, _ = fuel_injection.run_opt(params, None, gtruth, rays=rays)
-    launches = dict(K.LAUNCHES)
-    if dict(K.BACKTRACE_PATHS) != want_paths:
-        raise AssertionError(f"the small run must launch K3 by path {want_paths}, counted "
-                             f"{K.BACKTRACE_PATHS}")
-    eta_cpu, hist_cpu, _ = fuel_injection.run_opt(params, None, gtruth, rays=rays, device="cpu")
+    m_gpu, m_cpu = MetricsLogger(), MetricsLogger()
+    eta_gpu, hist_gpu, _ = fuel_injection.run_opt(params, None, gtruth, rays=rays, metrics=m_gpu)
+    launches, paths = dict(K.LAUNCHES), kernel_paths()
+    escalated = escalation_stage(m_gpu)
+    steps, want, want_paths = fuel_launches(params, escalated)
+    if paths != want_paths:
+        raise AssertionError(f"the small run must launch by path {want_paths}, counted {paths}")
+    eta_cpu, hist_cpu, _ = fuel_injection.run_opt(params, None, gtruth, rays=rays, device="cpu",
+                                                  metrics=m_cpu)
+    if escalation_stage(m_cpu) != escalated:
+        raise AssertionError(f"the card escalated at stage {escalated}, the CPU at "
+                             f"{escalation_stage(m_cpu)}")
     if launches != want or dict(K.LAUNCHES) != want:
         raise AssertionError(f"the small run must launch {want} on the card and nothing on "
                              f"the CPU, counted {launches} then {dict(K.LAUNCHES)}")
     hist_err = max(abs(a - b) / abs(b) for a, b in zip(hist_gpu, hist_cpu))
     scale = float((eta_cpu - 1.0).abs().max())
     eta_err = float((eta_gpu.cpu() - eta_cpu).abs().max()) / scale
-    print(f"fuel[f64 {params['res_list']}, {rays.x.shape[0]} rays, {steps} steps] card against "
-          f"CPU: loss history rel_err {hist_err:.3e}, final field err {eta_err:.3e} of its "
+    print(f"fuel[f64 {params['res_list']}, {rays.x.shape[0]} rays, {steps} steps, escalated at "
+          f"stage {escalated}] card against CPU: loss history rel_err {hist_err:.3e}, final "
+          f"field err {eta_err:.3e} of its "
           f"largest deviation from 1 ({scale:.3e}) (tol {TOL_F64:g}); loss "
           f"{hist_cpu[0]:.6g} -> {hist_cpu[-1]:.6g}", flush=True)
     if len(hist_gpu) != steps or not eta_gpu.is_cuda or eta_cpu.is_cuda:
@@ -716,8 +998,9 @@ def main_path():
     """The bench scene through the entry points a user calls.
 
     ``bench.run`` and ``api.trace`` + ``backward`` launch K2 and K3 once per
-    pass and never K1; ``fields.grid.eval_grad``, the port's field evaluation
-    for callers outside the steppers, launches K1 once.
+    pass and never K1; ``tracer.trace_exact`` + ``backward`` launches K5 and
+    K6 once; ``fields.grid.eval_grad``, the port's field evaluation for
+    callers outside the steppers, launches K1 once.
     """
     events = []
     K.record_events(events)  # K2 and K3 of each pass, from events around the launches
@@ -746,6 +1029,25 @@ def main_path():
         raise AssertionError("the voxel gradient is all zero or the loss is not finite")
     if x0.grad is not None or v0.grad is not None:
         raise AssertionError("x and v must receive no gradient")
+
+    # the same loss through the exact gradient, as the trainer runs it once
+    # the adjoint drifts: one K5 and one K6 launch
+    h = span / (RES - 1)
+    r_ex = rif.detach().clone().requires_grad_(True)
+    target = torch.tensor([span / 2, span * 1.1, span / 2], dtype=rif.dtype, device="cuda")
+    torch.cuda.synchronize()
+    t0 = time.time()
+    xt_ex, vt_ex = tracer.trace_exact(r_ex, x0.detach(), v0.detach(), h, h / 2)
+    loss_ex = ((xt_ex - target) ** 2).sum() + vt_ex.sum()
+    loss_ex.backward()
+    torch.cuda.synchronize()
+    rec["exact_ms"] = 1e3 * (time.time() - t0)
+    g_ex = r_ex.grad
+    if g_ex is None or not bool(torch.isfinite(g_ex).all()) or not float(g_ex.abs().max()) > 0:
+        raise AssertionError("trace_exact: the voxel gradient is missing, not finite or zero")
+    if float(loss_ex.detach()) != float(loss.detach()):
+        raise AssertionError("trace_exact's loss differs from api.trace's: the exit states differ")
+    rec["exact_vs_adjoint_rel_l2"] = float(torch.linalg.norm(g_ex - g) / torch.linalg.norm(g_ex))
 
     after_trace = dict(K.LAUNCHES)
 
@@ -785,11 +1087,27 @@ def main():
             if any(w in line for w in ("registers", "spill", "Compiling entry", "arning")):
                 print(f"  nvcc[{name}] {line.strip()}")
 
-    compare_kernels(scene(17, 512, "float64", noise=0.02), TOL_F64, TOL_F64, "f64 17^3 x 512")
+    small = scene(17, 512, "float64", noise=0.02)
+    compare_kernels(small, TOL_F64, TOL_F64, "f64 17^3 x 512")
+
+    def bench_cot(s):
+        return lambda xt, vt: (2.0 * (xt - s["target"]), torch.ones_like(vt))
+
+    _, failures = exact_check(small["rif"], small["h"], small["ds"], small["x0"], small["v0"],
+                              bench_cot(small), "f64 17^3", TOL_F64)
     api_small_check()
+    exact_api_check()
     full = scene(RES, NRAYS, "float32")
     cmp = compare_kernels(full, TOL_F32_STATE, TOL_F32_GRAD, f"f32 {RES}^3 x {NRAYS}")
     times = time_kernels(full, cmp)
+    ex_bench, ex_failures = exact_check(full["rif"], full["h"], full["ds"], full["x0"],
+                                        full["v0"], bench_cot(full), f"f32 {RES}^3",
+                                        TOL_F32_GRAD, times=True)
+    failures += ex_failures
+    plain_fwd_ms, plain_bwd_ms = exact_plain_ms(full["rif"], full["h"], full["ds"], full["x0"],
+                                                full["v0"], bench_cot(full))
+    times["trace_ckpt"] = dict(ex_bench["k5"], plain_ms=plain_fwd_ms, library_ms=None)
+    times["backtrace_exact"] = dict(ex_bench["k6"], plain_ms=plain_bwd_ms, library_ms=None)
     print(f"work[f32 full width] forward ray-steps {cmp['fstats']['ray_steps']} "
           f"(evaluating {cmp['fstats']['evals']}), backward ray-steps "
           f"{cmp['bstats']['ray_steps']} (evaluating {cmp['bstats']['evals']}), "
@@ -797,7 +1115,8 @@ def main():
           f"would issue), runs {cmp['bstats']['flushes']} ({8 * cmp['bstats']['flushes']} adds "
           f"one a run would issue), issued after the warp sums {cmp['issued']} "
           f"({8 * cmp['issued']} atomic adds)", flush=True)
-    work, stage_rows, failures = stage_checks(fuel_params())
+    work, stage_rows, stage_failures = stage_checks(fuel_params())
+    failures += stage_failures
 
     gather = gather_check_and_time()
     times["gather_rows"] = gather
@@ -805,43 +1124,43 @@ def main():
     K.reset_launches()
     rec, after_trace = main_path()
     bench_launches = dict(K.LAUNCHES)
-    bench_k3_paths = dict(K.BACKTRACE_PATHS)
+    bench_paths = kernel_paths()
     print(f"main path: {json.dumps(rec)}", flush=True)
     k2, k3 = rec["trace_fwd_ms_median"], rec["backtrace_ms_median"]
     print(f"bench split: {rec['ms_per_iter']:.3f} ms an iteration = K2 {k2:.3f} + K3 {k3:.3f} "
           f"+ {rec['ms_per_iter'] - k2 - k3:.3f} ms of the rest, of which the ray order takes "
           f"about {times['order_ms']:.3f} ms (timed alone above)", flush=True)
-    print(f"launches after bench.run and api.trace: {after_trace}; "
+    print(f"exact on the bench scene: tracer.trace_exact forward + backward "
+          f"{rec['exact_ms']:.3f} ms on the host clock; its gradient against the adjoint's: "
+          f"rel-L2 {rec['exact_vs_adjoint_rel_l2']:.3e}", flush=True)
+    print(f"launches after bench.run, api.trace and trace_exact: {after_trace}; "
           f"after fields.grid.eval_grad as well: {bench_launches}", flush=True)
     want = {"eval_grad": 0, "trace_fwd": MAIN_PATH_PASSES, "backtrace": MAIN_PATH_PASSES,
-            "gather_rows": 0}
+            "gather_rows": 0, "trace_ckpt": 1, "backtrace_exact": 1}
     if after_trace != want:
-        raise AssertionError(f"{MAIN_PATH_PASSES} forward + adjoint passes must launch "
-                             f"{want}, counted {after_trace}")
+        raise AssertionError(f"{MAIN_PATH_PASSES} forward + adjoint passes and one exact pass "
+                             f"must launch {want}, counted {after_trace}")
     if bench_launches != {**want, "eval_grad": 1}:
         raise AssertionError(f"fields.grid.eval_grad must launch K1 once, counted "
                              f"{bench_launches}")
-    want_paths = {"shared": 0, "global": 0}
-    want_paths[K.backtrace_path(RES ** 3, torch.float32)] = MAIN_PATH_PASSES
-    if bench_k3_paths != want_paths:
-        raise AssertionError(f"K3 on the bench scene must take {want_paths}, counted "
-                             f"{bench_k3_paths}")
+    bench_path = K.backtrace_path(RES ** 3, torch.float32)
+    want_paths = {"backtrace": {"shared": 0, "global": 0},
+                  "backtrace_exact": {"shared": 0, "global": 0}}
+    want_paths["backtrace"][bench_path] = MAIN_PATH_PASSES
+    want_paths["backtrace_exact"][bench_path] = 1
+    if bench_paths != want_paths:
+        raise AssertionError(f"K3 and K6 on the bench scene must take {want_paths}, counted "
+                             f"{bench_paths}")
 
     probe_launches = gather_probe_path()
     fuel = fuel_path(FUEL_ITERS, f"f32 full width, optim_iters cut to {FUEL_ITERS}", work)
     fuel_small_check()
-    predicted = fuel["seconds"] * FUEL_ITERS_SHIPPED / FUEL_ITERS
-    if predicted <= FULL_RUN_BUDGET_S:
-        print(f"fuel: the {fuel['steps']}-step run took {fuel['seconds']:.1f} s, so the shipped "
-              f"{FUEL_ITERS_SHIPPED} iterations a stage are predicted at {predicted:.0f} s: "
-              "running them", flush=True)
-        full_run = fuel_path(FUEL_ITERS_SHIPPED, "f32 full width, shipped optim_iters", work)
-        print(f"fuel[shipped] {full_run['steps']} steps in {full_run['seconds']:.1f} s, "
-              f"rel_norm {full_run['rel_norm']:.4f}", flush=True)
-    else:
-        print(f"fuel: the {fuel['steps']}-step run took {fuel['seconds']:.1f} s; the shipped "
-              f"{FUEL_ITERS_SHIPPED} iterations a stage are predicted at {predicted:.0f} s, over "
-              f"the {FULL_RUN_BUDGET_S:.0f} s kept for them: not run", flush=True)
+    print(f"fuel: the {fuel['steps']}-step run took {fuel['seconds']:.1f} s, so the shipped "
+          f"{FUEL_ITERS_SHIPPED} iterations a stage are predicted at "
+          f"{fuel['seconds'] * FUEL_ITERS_SHIPPED / FUEL_ITERS:.0f} s", flush=True)
+    full_run = fuel_path(FUEL_ITERS_SHIPPED, "f32 full width, shipped optim_iters", work)
+    print(f"fuel[shipped] {full_run['steps']} steps in {full_run['seconds']:.1f} s, escalated "
+          f"at stage {full_run['escalated']}, rel_norm {full_run['rel_norm']:.4f}", flush=True)
 
     paths = {"bench": bench_launches, "probe": probe_launches, "fuel": fuel["launches"]}
     replaces = {
@@ -849,17 +1168,28 @@ def main():
         "trace_fwd": "adjointnonlinearraytracing_tpu/tracer/paired.py:64",
         "backtrace": "adjointnonlinearraytracing_tpu/tracer/paired.py:260",
         "gather_rows": "adjointnonlinearraytracing_tpu/benchmarks/probe_dma_gather.py:47",
+        "trace_ckpt": "adjointnonlinearraytracing_tpu/tracer/checkpointed.py:107",
+        "backtrace_exact": "adjointnonlinearraytracing_tpu/tracer/checkpointed.py:209",
     }
     errs = dict(zip(("eval_grad", "trace_fwd", "backtrace"), zip(cmp["abs_err"], cmp["rel_err"])))
     errs["gather_rows"] = (gather["max_abs_err"], gather["max_abs_err"])
-    fuel_stage_ms = {
-        "trace_fwd": {f"{st['res']}^3": st["k2_ms_median"] for st in fuel["per_stage"]},
-        "backtrace": {f"{st['res']}^3": st["k3_ms_median"] for st in fuel["per_stage"]},
-    }
+    errs["trace_ckpt"] = (0.0, 0.0)  # bitwise, asserted
+    errs["backtrace_exact"] = (ex_bench["abs_err"], ex_bench["rel_err"])
+    exact_rows = [row.pop("exact") for row in stage_rows if "exact" in row]
+    fuel_stage_ms = {}
+    for kf, kb, grad in (("trace_fwd", "backtrace", "adjoint"),
+                         ("trace_ckpt", "backtrace_exact", "exact")):
+        fuel_stage_ms[kf] = {f"{st['res']}^3": st["fwd_ms_median"]
+                             for st in fuel["per_stage"] if st["gradient"] == grad}
+        fuel_stage_ms[kb] = {f"{st['res']}^3": st["bwd_ms_median"]
+                             for st in fuel["per_stage"] if st["gradient"] == grad}
     # tolerance on the error relative to the plain version's largest magnitude,
     # and the data-dependent work this run's inputs needed
     extra = {
         "eval_grad": {"rel_tol": TOL_F32_STATE, "points": NRAYS,
+                      "before": times["eval_grad"]["before"],
+                      "ms_dirty_flush": times["eval_grad"]["ms_dirty_flush"],
+                      "library_ms_dirty_flush": times["eval_grad"]["library_ms_dirty_flush"],
                       "launched_by": "fields.grid.eval_grad"},
         "trace_fwd": {"rel_tol": 0.0, **cmp["fstats"],
                       "ms_unordered": times["trace_fwd"]["ms_unordered"],
@@ -871,12 +1201,31 @@ def main():
                       "atomic_adds": 8 * cmp["issued"],
                       "ms_unordered": times["backtrace"]["ms_unordered"],
                       "fuel_ms_by_stage": fuel_stage_ms["backtrace"],
-                      "launches_by_k3_path": {"bench": bench_k3_paths,
-                                              "fuel": fuel["k3_paths"]},
+                      "launches_by_k3_path": {"bench": bench_paths["backtrace"],
+                                              "fuel": fuel["paths"]["backtrace"]},
                       "stage_checks": stage_rows,
                       "launched_by": "bench.run, tracer.api.trace, "
                                      "experiments.fuel_injection.run_opt"},
+        "trace_ckpt": {"rel_tol": 0.0, **ex_bench["fwd"],
+                       "fuel_ms_by_stage": fuel_stage_ms["trace_ckpt"],
+                       "fuel_ms_by_stage_alone": {r["label"]: r["k5_ms"] for r in exact_rows},
+                       "checkpoint_mb": ex_bench["ckpt_mb"],
+                       "launched_by": "tracer.trace_exact, experiments.fuel_injection.run_opt "
+                                      "(after the stage escalation)"},
+        "backtrace_exact": {"rel_tol": TOL_F32_GRAD, **ex_bench["bwd"],
+                            "fuel_ms_by_stage": fuel_stage_ms["backtrace_exact"],
+                            "launches_by_k6_path": {"bench": bench_paths["backtrace_exact"],
+                                                    "fuel": fuel["paths"]["backtrace_exact"]},
+                            "stage_checks": [
+                                {k: r[k] for k in ("label", "path", "rel_err", "tol", "runs",
+                                                   "issued", "k6_ms", "bitwise")}
+                                for r in exact_rows],
+                            "launched_by": "tracer.trace_exact, "
+                                           "experiments.fuel_injection.run_opt (after the "
+                                           "stage escalation)"},
         "gather_rows": {"rel_tol": 0.0, "rows": GATHER_N, "table_rows": GATHER_ROWS,
+                        "ms_dirty_flush": gather["ms_dirty_flush"],
+                        "library_ms_dirty_flush": gather["library_ms_dirty_flush"],
                         "launched_by": "benchmarks.probe_dma_gather.run"},
     }
     kernels = []
@@ -887,7 +1236,7 @@ def main():
             raise AssertionError(f"{name} was launched by none of the main paths")
         kernels.append({
             "name": name, "route": "cuda",
-            "source": f"adjointnonlinearraytracing_tpu_torch/kernels/csrc/{name}.cu",
+            "source": f"adjointnonlinearraytracing_tpu_torch/kernels/csrc/{build.SOURCE[name]}.cu",
             "replaces": replaces[name], "launches": sum(by_path.values()),
             "launches_by_path": by_path,
             "launches_by_api_trace": after_trace[name],
@@ -898,7 +1247,7 @@ def main():
             **extra[name],
         })
     if failures:
-        raise AssertionError("stage checks failed:\n" + "\n".join(failures))
+        raise AssertionError("checks failed:\n" + "\n".join(failures))
     print(f"elapsed: {time.time() - t_start:.1f} s")
     print(smi_line())
     print(json.dumps({"kernels": kernels}))

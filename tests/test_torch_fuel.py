@@ -26,6 +26,7 @@ from adjointnonlinearraytracing_tpu.experiments import config as JCFG
 from adjointnonlinearraytracing_tpu.experiments import fuel_injection as JF
 from adjointnonlinearraytracing_tpu.experiments import voxel_scenes as JV
 from adjointnonlinearraytracing_tpu.sources import sources as JS
+from adjointnonlinearraytracing_tpu_torch import tracer as TT
 from adjointnonlinearraytracing_tpu_torch.experiments import common as TC
 from adjointnonlinearraytracing_tpu_torch.experiments import config as TCFG
 from adjointnonlinearraytracing_tpu_torch.experiments import fuel_injection as TF
@@ -136,7 +137,7 @@ def test_make_trace_modes_match_jax(probe_scene, monkeypatch):
         (trace(n, torch.from_numpy(x), torch.from_numpy(v))[0] ** 2).sum().backward()
         return n.grad
 
-    want = {mode: np.asarray(jgrad(mode)) for mode in ("adjoint", "ad")}
+    want = {mode: np.asarray(jgrad(mode)) for mode in ("adjoint", "ad", "exact")}
     assert np.abs(want["ad"]).max() > 0
     _close(tgrad(TC.make_trace(SPAN, ds)), want["adjoint"], 1e-10)
     _close(tgrad(TC.make_trace(SPAN, ds, autodiff=True)), want["ad"], 1e-10)
@@ -147,8 +148,7 @@ def test_make_trace_modes_match_jax(probe_scene, monkeypatch):
     holder["mode"] = "ad"  # read at trace time
     _close(tgrad(trace), want["ad"], 1e-10)
     holder["mode"] = "exact"
-    with pytest.raises(NotImplementedError, match="A7"):
-        tgrad(trace)
+    _close(tgrad(trace), want["exact"], 1e-10)
     with pytest.raises(ValueError, match="unknown gradient mode"):
         tgrad(TC.make_trace(SPAN, ds, gradient="tape"))
     with pytest.raises(NotImplementedError, match="A15"):
@@ -181,7 +181,7 @@ def test_gradient_spotcheck_matches_jax(probe_scene, monkeypatch):
         sorted(k for k in row if k != "time") for row in jm.history]
 
 
-def test_stage_escalator_flips_the_mode_and_the_trace_then_raises(probe_scene):
+def test_stage_escalator_flips_the_mode_and_the_next_trace_runs_exact(probe_scene):
     eta, x, v, mask, ds = probe_scene
     tensors = tuple(map(torch.from_numpy, (x, v, mask)))
     holder, metrics = {"mode": None}, MetricsLogger()
@@ -198,8 +198,14 @@ def test_stage_escalator_flips_the_mode_and_the_trace_then_raises(probe_scene):
     n_rows = len(metrics.history)
     strict(3, torch.from_numpy(eta))  # already escalated: nothing more to do
     assert len(metrics.history) == n_rows
-    with pytest.raises(NotImplementedError, match="A7"):
-        TC.make_trace(SPAN, ds, gradient=holder)(torch.from_numpy(eta), tensors[0], tensors[1])
+    n = torch.from_numpy(eta).requires_grad_(True)
+    xt, vt = TC.make_trace(SPAN, ds, gradient=holder)(n, tensors[0], tensors[1])
+    (xt ** 2 + xt * vt).sum().backward()
+    ref = torch.from_numpy(eta).requires_grad_(True)
+    xt_e, vt_e = TT.trace_exact(ref, tensors[0], tensors[1], SPAN / 4, ds)
+    (xt_e ** 2 + xt_e * vt_e).sum().backward()
+    assert torch.equal(xt, xt_e) and torch.equal(n.grad, ref.grad)
+    assert float(n.grad.abs().max()) > 0
 
 
 SLICE = dict(res_list=[3, 5], vol_span=SPAN, spp=1, nviews=2, nbins=8, optim_iters=2,

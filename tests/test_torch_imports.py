@@ -14,7 +14,7 @@ import torch
 import adjointnonlinearraytracing_tpu_torch as port
 from adjointnonlinearraytracing_tpu_torch import convert
 from adjointnonlinearraytracing_tpu_torch.benchmarks.scenes import build_case
-from adjointnonlinearraytracing_tpu_torch.kernels import wrappers
+from adjointnonlinearraytracing_tpu_torch.kernels import build, wrappers
 
 ROOT = Path(__file__).resolve().parent.parent
 FORBIDDEN = re.compile(
@@ -107,7 +107,16 @@ def test_kernel_wrappers_refuse_cpu_tensors():
         wrappers.backtrace(rif, 1.0, x0, v0, x0, v0, 0.5, 4, 1e-3)
     with pytest.raises(ValueError, match="CUDA tensors"):
         wrappers.gather_rows(torch.zeros(4, 128), torch.zeros(2, dtype=torch.int32))
+    order = torch.arange(4, dtype=torch.int32)
+    with pytest.raises(ValueError, match="CUDA tensors"):
+        wrappers.trace_ckpt(rif, 1.0, x0, v0, 0.5, 4, 2, order)
+    with pytest.raises(ValueError, match="CUDA tensors"):
+        wrappers.backtrace_exact(rif, 1.0, torch.zeros(2, 4, 7), torch.zeros(4, dtype=torch.int32),
+                                 torch.zeros(4, dtype=torch.uint8), x0, v0, 0.5, 2, order)
     assert set(wrappers.LAUNCHES.values()) == {0}
+    assert set(wrappers.LAUNCHES) == set(build.KERNELS) == set(build.SOURCE)
+    # every kernel's source is in the checkout, and every source builds a kernel
+    assert {p.stem for p in build.CSRC.glob("*.cu")} == set(build.SOURCE.values())
 
 
 def test_chip_smoke_fails_without_a_gpu():
