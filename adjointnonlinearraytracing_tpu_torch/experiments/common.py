@@ -157,7 +157,7 @@ def gradient_spotcheck(eta, x, v, vol_span, ds, mask=None, n_rays=2048,
 
 def exact_mem_bytes(n_rays, res, vol_span, ds, seg=32):
     """Checkpoint + replay footprint of ``trace_exact`` for one batch, as the
-    JAX package bounds it: ``(nseg, N, 7)`` checkpoints plus ``seg * N * 10``
+    JAX package bounds it: ``nseg * N * 7`` checkpoint values plus ``seg * N * 10``
     of replay, 4 bytes each, with ``N`` capped at ``ANRT_EXACT_CHUNK`` (larger
     batches run the backward pass chunk by chunk).  On the card the replay
     lives in each thread's local memory, so the checkpoints are what is

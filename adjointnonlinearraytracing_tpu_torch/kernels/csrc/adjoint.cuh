@@ -13,8 +13,9 @@
 //     block-private gradient with shared-memory atomics, then add its nonzero
 //     words to device memory once.
 //
-// Which path runs is the caller's choice (kernels/wrappers.py decides it from
-// the grid's size and type alone); a refused launch is an error, not a retry.
+// Which path runs is the caller's choice (kernels/wrappers.py decides K3's
+// from the grid's size and type alone; K6 takes the global path at every
+// size); a refused launch is an error, not a retry.
 #pragma once
 
 #include "trilinear.cuh"

@@ -27,7 +27,7 @@
 //     time at 65^3 and on the bench scene;
 //   * where the D*H*W gradient fits a block's shared memory, persistent
 //     blocks flush runs into a block-private gradient and add it to device
-//     memory once (adjoint.cuh: the shell K3 shares with K6);
+//     memory once (adjoint.cuh, K3's kernel shell);
 //   * the caller may give the rays in a coherent order (thread i takes ray
 //     order[i], tracer/order.py), so the lanes of a warp flush into the same
 //     or neighbouring words.

@@ -33,9 +33,14 @@
 // segments are never read: the backward pass stops at the capture step),
 // the capture step c (max_steps if it never crossed out) and a code: 0 never
 // escaped, 1 captured, 2 escaped without ever being inside (nothing to
-// differentiate).  Checkpoint row i is thread i's, so the stores coalesce;
+// differentiate).  The checkpoints are laid out (nseg, 7, n_rays), field k of
+// thread i at [s][k][i], so a warp's store of one field is one 128-byte line;
 // the exit state is K2's bit for bit.  The extra bytes are 28 a ray and
-// segment in f32, a few per cent of a step's work.
+// segment in f32, a few per cent of a step's work.  A cache of the current
+// cell's 8 corner values (read once a cell, not once a step) took 2-3 % off
+// at the fuel trainer's coarse stages and added as much at the fine ones and
+// on the bench scene (8 more registers), so K5 reads them at every step, as
+// K2 does (tools/k6_designs.py, PERF.md).
 #include "trilinear.cuh"
 
 namespace anrt {
@@ -58,8 +63,10 @@ __global__ void trace_fwd_kernel(Grid<T> g, T ds, const T* __restrict__ x0,
   bool esc = false;
   int c = max_steps;
   bool captured = false;
-  // this thread's row of the next segment's checkpoints, and the steps until it starts
-  T* ck = ckpts == nullptr ? nullptr : ckpts + static_cast<size_t>(t) * 7;
+  // this thread's column of the next segment's checkpoints (field k at
+  // ck[k * n_rays]), and the steps until it starts
+  T* ck = ckpts == nullptr ? nullptr : ckpts + t;
+  const size_t field = static_cast<size_t>(n_rays);
   int until_ck = 0;
 
   for (int step = 0; step < max_steps && !esc; ++step) {
@@ -67,8 +74,8 @@ __global__ void trace_fwd_kernel(Grid<T> g, T ds, const T* __restrict__ x0,
       if (until_ck == 0) {
         const T row[7] = {x[0], x[1], x[2], v[0], v[1], v[2], static_cast<T>(inside ? 1 : 0)};
 #pragma unroll
-        for (int k = 0; k < 7; ++k) ck[k] = row[k];
-        ck += static_cast<size_t>(n_rays) * 7;
+        for (int k = 0; k < 7; ++k) ck[k * field] = row[k];
+        ck += 7 * field;
         until_ck = seg;
       }
       --until_ck;
@@ -142,7 +149,7 @@ extern "C" int anrt_trace_fwd(int is_double, const void* rif, int W, int H, int 
 // K5.  order: n_rays ray indices (thread i takes ray order[i]; n_rays may be
 // a chunk of the rays).  xt, vt (3 per ray), c (int32) and code (uint8) are
 // written at the ray's own index; all four null to skip them.  ckpts: null,
-// or (ceil(max_steps/seg), n_rays, 7) with row i thread i's.
+// or (ceil(max_steps/seg), 7, n_rays) with column i thread i's.
 extern "C" int anrt_trace_ckpt(int is_double, const void* rif, int W, int H, int D, double h,
                                double ds, const void* x0, const void* v0, const void* order,
                                void* xt, void* vt, void* c, void* code, void* ckpts,

@@ -45,15 +45,19 @@ K5 ``trace_ckpt`` (csrc/trace_fwd.cu, K2's loop compiled with checkpoints)
     the forward pass of the exact gradient, replacing the segmented XLA
     forward ``tracer/checkpointed.py::_forward_with_ckpts``: K2's stepper,
     which also writes each ray's state ``(x, v, inside)`` every ``seg`` steps
-    (until it escapes), its capture step ``c`` and how it ended.  The exit
-    state is K2's, bit for bit.
+    (until it escapes), its capture step ``c`` and how it ended; the
+    checkpoints are one field of all the rays to a row.  The exit state is
+    K2's, bit for bit.
 K6 ``backtrace_exact`` (csrc/backtrace_exact.cu)
     the backward pass of the exact gradient, replacing
     ``tracer/checkpointed.py::_backward_segments``: per ray, the segments
     below its capture step from last to first, each replayed forward from
     its checkpoint with K2's step, then the adjoint update and splat of K3
-    in reverse over the replayed positions; K3's run sums, warp sums and
-    shared/global path rule (:func:`backtrace_path`).
+    in reverse over the replayed positions; the lanes of a warp walk the
+    segments and steps in step, so neighbouring rays of the order stay at
+    neighbouring positions; K3's run sums and warp sums, on the global path
+    at every grid size (an H100 ran K6's first design 1.6-1.7 times slower
+    on the shared path, at every fuel stage where K3 takes it).
 """
 
 from __future__ import annotations
@@ -70,8 +74,6 @@ from . import build
 LAUNCHES = {name: 0 for name in build.KERNELS}
 #: K3's launches by path (:func:`backtrace_path`), counted with ``LAUNCHES``
 BACKTRACE_PATHS = {"shared": 0, "global": 0}
-#: K6's, likewise
-BACKTRACE_EXACT_PATHS = {"shared": 0, "global": 0}
 #: the dynamic shared memory one block may opt in to on sm_90 (227 KB);
 #: ``kSharedMax`` in csrc/backtrace.cu
 SHARED_BYTES_MAX = 232448
@@ -86,7 +88,7 @@ _ARGTYPES = {
     "trace_ckpt": [_I, _VP, _I, _I, _I, _D, _D, _VP, _VP, _VP, _VP, _VP, _VP, _VP, _VP, _I,
                    _I, _I, _VP],
     "backtrace_exact": [_I, _VP, _I, _I, _I, _D, _D, _VP, _VP, _VP, _VP, _VP, _VP, _VP, _VP,
-                        _I, _I, _I, _I, _VP],
+                        _I, _I, _I, _VP],
 }
 #: the states a checkpoint holds: x, v, inside
 CKPT_WIDTH = 7
@@ -101,7 +103,7 @@ _events: Optional[List[Tuple[str, "torch.cuda.Event", "torch.cuda.Event"]]] = No
 
 
 def reset_launches() -> None:
-    for counts in (LAUNCHES, BACKTRACE_PATHS, BACKTRACE_EXACT_PATHS):
+    for counts in (LAUNCHES, BACKTRACE_PATHS):
         for name in counts:
             counts[name] = 0
 
@@ -289,10 +291,12 @@ def trace_ckpt(data: torch.Tensor, h: float, x0: torch.Tensor, v0: torch.Tensor,
     ``c`` (int32 capture step, ``max_steps`` if none) and ``code`` (uint8: 0
     never escaped, 1 captured, 2 escaped without ever being inside) are in the
     rays' own order, for all ``N`` rays, ``None`` unless ``exit_state``;
-    ``ckpts`` is the ``(ceil(max_steps/seg), n, 7)`` stack of ``(x, v,
-    inside)`` of the ray ``order[i]`` in row ``i``, at each segment start
-    before its escape (later rows are not written), ``None`` unless
-    ``store_ckpts``.  ``order`` may pick a chunk of the rays (``n <= N``).
+    ``ckpts`` is the ``(ceil(max_steps/seg), 7, n)`` stack of ``(x, v,
+    inside)`` of the ray ``order[i]`` in column ``i``, at each segment start
+    before its escape (later entries are not written), ``None`` unless
+    ``store_ckpts``: one field of the ``n`` rays to a row, so that a warp's
+    store or load of a field is 32 neighbouring words.  ``order`` may pick a
+    chunk of the rays (``n <= N``).
     """
     _check_grid(data, "trace_ckpt")
     n_rays = _check_rays(data, "trace_ckpt", x0=x0, v0=v0)
@@ -306,7 +310,7 @@ def trace_ckpt(data: torch.Tensor, h: float, x0: torch.Tensor, v0: torch.Tensor,
                    torch.empty((n_rays,), dtype=torch.int32, device=data.device),
                    torch.empty((n_rays,), dtype=torch.uint8, device=data.device))
     if store_ckpts:
-        out[4] = torch.empty((nseg, n, CKPT_WIDTH), dtype=data.dtype, device=data.device)
+        out[4] = torch.empty((nseg, CKPT_WIDTH, n), dtype=data.dtype, device=data.device)
     if n:
         _launch_on_grid("trace_ckpt", data, float(h), float(ds), x0.data_ptr(), v0.data_ptr(),
                         order.data_ptr(), *(_ptr(t) for t in out), n, int(max_steps),
@@ -323,15 +327,16 @@ def backtrace_exact(data: torch.Tensor, h: float, ckpts: torch.Tensor, c: torch.
     ``ckpts``, ``c``, ``code`` as :func:`trace_ckpt` returned them for the
     same ``order``; ``dx, dv`` the cotangents of all ``N`` rays in their own
     order (``dv`` already zeroed for rays that never escaped).  ``out`` (made
-    zero when not given) takes the sum; ``tally`` as for :func:`backtrace`.
+    zero when not given) takes the sum; ``tally`` as for :func:`backtrace`
+    (K6 takes the global path at every grid size: no block-private adds).
     """
     _check_grid(data, "backtrace_exact")
     n_rays = _check_rays(data, "backtrace_exact", dx=dx, dv=dv)
     n = _check_slots(order, data, n_rays, "backtrace_exact")
     if (ckpts.device != data.device or ckpts.dtype != data.dtype or ckpts.ndim != 3
-            or ckpts.shape[1:] != (n, CKPT_WIDTH) or not ckpts.is_contiguous()):
-        raise ValueError(f"backtrace_exact: ckpts must be a contiguous (nseg, {n}, "
-                         f"{CKPT_WIDTH}) {data.dtype} tensor on {data.device}, got "
+            or ckpts.shape[1:] != (CKPT_WIDTH, n) or not ckpts.is_contiguous()):
+        raise ValueError(f"backtrace_exact: ckpts must be a contiguous (nseg, {CKPT_WIDTH}, "
+                         f"{n}) {data.dtype} tensor on {data.device}, got "
                          f"{ckpts.dtype} {tuple(ckpts.shape)} on {ckpts.device}")
     for label, t, dtype in (("c", c, torch.int32), ("code", code, torch.uint8)):
         if t.device != data.device or t.dtype != dtype or t.shape != (n_rays,) \
@@ -347,12 +352,10 @@ def backtrace_exact(data: torch.Tensor, h: float, ckpts: torch.Tensor, c: torch.
                          f"{data.dtype} tensor on {data.device}")
     _check_tally(tally, data, "backtrace_exact")
     if n:
-        path = backtrace_path(data.numel(), data.dtype)
         _launch_on_grid("backtrace_exact", data, float(h), float(ds), ckpts.data_ptr(),
                         order.data_ptr(), c.data_ptr(), code.data_ptr(), dx.data_ptr(),
                         dv.data_ptr(), out.data_ptr(), _ptr(tally), n, ckpts.shape[0],
-                        int(seg), int(path == "shared"))
-        BACKTRACE_EXACT_PATHS[path] += 1
+                        int(seg))
     return out
 
 

@@ -67,8 +67,9 @@ def _forward_with_ckpts(field: G.GridField, x0, v0, ds: float, max_steps: int, s
                         store_ckpts: bool = True, stats: Optional[dict] = None):
     """Segmented forward; returns ``(xt, vt, esc, c, captured, ckpts)``.
 
-    ``ckpts`` is the ``(nseg, N, 7)`` stack of ``(x, v, inside)`` at each
-    segment start (``None`` when ``store_ckpts`` is false); ``c`` (int32) the
+    ``ckpts`` is the ``(nseg, 7, N)`` stack of ``(x, v, inside)`` at each
+    segment start, one field of all the rays to a row, as K5 writes it
+    (``None`` when ``store_ckpts`` is false); ``c`` (int32) the
     capture step; ``captured`` whether the ray crossed out of the grid.  A ray
     that escaped without being captured was never inside (a ray that was
     inside leaves only by crossing), so its gradient is zero.  ``stats`` as
@@ -87,7 +88,7 @@ def _forward_with_ckpts(field: G.GridField, x0, v0, ds: float, max_steps: int, s
     ray_steps = evals = 0
     for s in range(nseg):
         if store_ckpts:
-            ckpts.append(torch.cat([x, v, inside.to(x.dtype)[:, None]], dim=-1))
+            ckpts.append(torch.cat([x.T, v.T, inside.to(x.dtype)[None]]))
         if bool(esc.all()):
             continue
         for j in range(min(seg, max_steps - s * seg)):
@@ -137,7 +138,7 @@ def _backward_segments(field: G.GridField, ckpts, c, dx, dv, ds: float, seg: int
     for s in range(nseg - 1, -1, -1):
         if s * seg >= max_c:
             continue  # past every ray's capture step
-        x, v, inside = ckpts[s, :, :3], ckpts[s, :, 3:6], ckpts[s, :, 6] > 0.5
+        x, v, inside = ckpts[s, :3].T.contiguous(), ckpts[s, 3:6].T.contiguous(), ckpts[s, 6] > 0.5
         xs, ins = [], []
         for _ in range(seg):  # the forward positions and masks of the segment
             xs.append(x)

@@ -21,9 +21,11 @@ result.  Phases (any failure is an uncaught exception):
    time; compute each kernel's bound.  Then K2, K3, K5 and K6 at every stage
    resolution of the fuel trainer (3^3 .. 65^3) with the run's own rays, f64
    and f32 (K5, K6 in f32): K2 and K5's exit state bitwise with and without
-   the order, K3 and K6 against their plain versions, the path each stage
-   takes (shared or global), and the runs K3 and K6 flushed (counted in the
-   kernel) against the plain versions' ``flushes``.
+   the order, K3 and K6 against their plain versions, the path K3 takes at
+   each stage (shared or global; K6 takes the global path at every size),
+   the runs K3 and K6 flushed (counted in the kernel) against the plain
+   versions' ``flushes``, and K5's and K6's times and shares of their bounds
+   (from the plain versions' counts of this stage's work).
 4. main paths - each through the entry points a user calls, with the launch
    counters zeroed just before and read just after:
    a. the bench scene: ``bench.run`` and ``api.trace`` forward + adjoint (K2
@@ -86,8 +88,10 @@ GATHER_ROWS, GATHER_N, GATHER_REPS = 66 ** 3, 1 << 18, 8
 FUEL_ITERS, FUEL_ITERS_SHIPPED = 10, 300
 # the exact gradient's checkpoint interval: trace_exact's and make_trace's default
 SEG = 32
-# ~0.1 ms of the card's clock: longer than the host takes to launch a kernel
-BUSY_CYCLES = 200_000
+# ~0.5 ms of the card's clock: longer than the host takes to launch a kernel,
+# K6's wrapper included (its checks, allocation and launch took more than the
+# 0.1 ms allowed before, and the gap showed as kernel time)
+BUSY_CYCLES = 1_000_000
 PEAK_BYTES_PER_S = 3.35e12
 PEAK_F32_FLOPS = 67e12
 
@@ -190,7 +194,7 @@ def time_ms(fn, reps, flush=None, dirty=False, warm=True):
     holds none of the call's data, only clean lines; with ``dirty`` it is
     written instead (the earlier yardstick), leaving dirty lines that the
     call's misses must write back first.  Before each call the card is kept
-    busy for ~0.1 ms (``BUSY_CYCLES``), so that the host's own work before
+    busy for ~0.5 ms (``BUSY_CYCLES``), so that the host's own work before
     the launch (Python, argument checks, allocations) does not show as idle
     time between the two events: without it a call of 0.02 ms on the card
     read up to twice that."""
@@ -381,7 +385,8 @@ def exact_check(rif, h, ds, x0, v0, cot, label, tol, times=False):
         exit_state=bool(torch.equal(xt_k, xt_p) and torch.equal(vt_k, vt_p)),
         exit_state_k2=bool(torch.equal(xt_k, xt_2) and torch.equal(vt_k, vt_2)),
         capture_steps=bool(torch.equal(c_k, c_p) and torch.equal(code_k, code_p)),
-        checkpoints=bool(torch.equal(ck_k[need], ck_p[:, order.long()][need])))
+        checkpoints=bool(torch.equal(ck_k.transpose(1, 2)[need],
+                                     ck_p[:, :, order.long()].transpose(1, 2)[need])))
     dx, dv = cot(xt_p, vt_p)
     dv_k = torch.where(esc_p[:, None], dv, torch.zeros_like(dv))
     bw["captured"] = cap_p
@@ -392,7 +397,7 @@ def exact_check(rif, h, ds, x0, v0, cot, label, tol, times=False):
     g_k = K.backtrace_exact(rif, h, ck_k, c_k, code_k, dx, dv_k, ds, SEG, order, tally=tally)
     torch.cuda.synchronize()
     err, abs_err = rel_err(g_k.double(), g_ref.double())
-    path = K.backtrace_path(rif.numel(), rif.dtype)
+    path = "global"  # K6's one path
     row = dict(label=label, path=path, rel_err=err, abs_err=abs_err, tol=tol,
                max_abs_g=float(g_ref.abs().max()), bitwise=state, runs=int(tally[0]),
                issued=int(tally[1]), block_adds=int(tally[2]), fwd=fw,
@@ -416,6 +421,8 @@ def exact_check(rif, h, ds, x0, v0, cot, label, tol, times=False):
         row["k6"]["ms"] = time_ms(lambda: K.backtrace_exact(rif, h, ck_k, c_k, code_k, dx, dv_k,
                                                             ds, SEG, order), 3)
         row["k5_ms"], row["k6_ms"] = row["k5"]["ms"], row["k6"]["ms"]
+        for k in ("k5", "k6"):
+            row[k]["share_of_bound"] = row[k]["bound_ms"] / row[k]["ms"]
     print(f"exact[{label}, {x0.shape[0]} rays] K5 bitwise equal {state}; K6 {path} path: "
           f"rel_err {err:.3e} against the plain version"
           + (" summed in f64 from the same f32 terms" if f32 else "")
@@ -424,8 +431,10 @@ def exact_check(rif, h, ds, x0, v0, cot, label, tol, times=False):
           f"rays never escaped / captured / never inside {row['rays_code']}; checkpoints "
           f"{row['ckpt_mb']:.1f} MB, rows read {row['ckpt_rows']}"
           + (f"; K5 {row['k5_ms']:.4f} ms (bound {row['k5']['bound_ms']:.4f}, "
-             f"{row['k5']['bound_by']}), K6 {row['k6_ms']:.4f} ms (bound "
-             f"{row['k6']['bound_ms']:.4f}, {row['k6']['bound_by']})" if times else ""),
+             f"{row['k5']['bound_by']}: {100 * row['k5']['share_of_bound']:.1f} % of it), K6 "
+             f"{row['k6_ms']:.4f} ms (bound {row['k6']['bound_ms']:.4f}, "
+             f"{row['k6']['bound_by']}: {100 * row['k6']['share_of_bound']:.1f} % of it)"
+             if times else ""),
           flush=True)
     failures = []
     if not all(state.values()):
@@ -661,10 +670,10 @@ def fuel_launches(params, escalated):
     gradient); per spot check (one at start-up, one at the start of every
     stage up to the one that escalates, after which the escalator checks no
     more) one K2 and one K3 through ``tracer.trace`` (the exact side is the
-    taped plain version and launches nothing).  Every K3 and K6 launch of
-    stage s runs on that stage's grid, so its path is that grid's
-    (``wrappers.backtrace_path``).  Returns the steps, the launches and the
-    K3 and K6 launches by path."""
+    taped plain version and launches nothing).  Every K3 launch of stage s
+    runs on that stage's grid, so its path is that grid's
+    (``wrappers.backtrace_path``; K6 has one path).  Returns the steps, the
+    launches and the K3 launches by path."""
     res_list, iters = params["res_list"], params["optim_iters"]
     stages = len(res_list)
     first_exact = stages if escalated is None else escalated
@@ -672,7 +681,7 @@ def fuel_launches(params, escalated):
     checked = ([0] if params.get("grad_spotcheck", True) else []) + (
         list(range(1, last_check + 1)) if params.get("auto_exact", True) else [])
     dtype = {"float32": torch.float32, "float64": torch.float64}[params.get("dtype", "float32")]
-    paths = {"backtrace": {"shared": 0, "global": 0}, "backtrace_exact": {"shared": 0, "global": 0}}
+    paths = {"backtrace": {"shared": 0, "global": 0}}
     adjoint = exact = 0
     for s, res in enumerate(res_list):
         path = K.backtrace_path(res ** 3, dtype)
@@ -681,7 +690,6 @@ def fuel_launches(params, escalated):
             adjoint += n
         else:
             exact += n
-            paths["backtrace_exact"][path] += n
         paths["backtrace"][path] += (n if s < first_exact else 0) + (s in checked)
     return adjoint + exact, {"eval_grad": 0, "trace_fwd": 1 + adjoint + len(checked),
                              "backtrace": adjoint + len(checked), "gather_rows": 0,
@@ -689,7 +697,7 @@ def fuel_launches(params, escalated):
 
 
 def kernel_paths():
-    return {"backtrace": dict(K.BACKTRACE_PATHS), "backtrace_exact": dict(K.BACKTRACE_EXACT_PATHS)}
+    return {"backtrace": dict(K.BACKTRACE_PATHS)}
 
 
 def fuel_path(iters, label, work):
@@ -1144,12 +1152,10 @@ def main():
         raise AssertionError(f"fields.grid.eval_grad must launch K1 once, counted "
                              f"{bench_launches}")
     bench_path = K.backtrace_path(RES ** 3, torch.float32)
-    want_paths = {"backtrace": {"shared": 0, "global": 0},
-                  "backtrace_exact": {"shared": 0, "global": 0}}
+    want_paths = {"backtrace": {"shared": 0, "global": 0}}
     want_paths["backtrace"][bench_path] = MAIN_PATH_PASSES
-    want_paths["backtrace_exact"][bench_path] = 1
     if bench_paths != want_paths:
-        raise AssertionError(f"K3 and K6 on the bench scene must take {want_paths}, counted "
+        raise AssertionError(f"K3 on the bench scene must take {want_paths}, counted "
                              f"{bench_paths}")
 
     probe_launches = gather_probe_path()
@@ -1209,16 +1215,18 @@ def main():
         "trace_ckpt": {"rel_tol": 0.0, **ex_bench["fwd"],
                        "fuel_ms_by_stage": fuel_stage_ms["trace_ckpt"],
                        "fuel_ms_by_stage_alone": {r["label"]: r["k5_ms"] for r in exact_rows},
+                       "fuel_share_of_bound_by_stage": {r["label"]: r["k5"]["share_of_bound"]
+                                                        for r in exact_rows},
                        "checkpoint_mb": ex_bench["ckpt_mb"],
                        "launched_by": "tracer.trace_exact, experiments.fuel_injection.run_opt "
                                       "(after the stage escalation)"},
         "backtrace_exact": {"rel_tol": TOL_F32_GRAD, **ex_bench["bwd"],
                             "fuel_ms_by_stage": fuel_stage_ms["backtrace_exact"],
-                            "launches_by_k6_path": {"bench": bench_paths["backtrace_exact"],
-                                                    "fuel": fuel["paths"]["backtrace_exact"]},
                             "stage_checks": [
-                                {k: r[k] for k in ("label", "path", "rel_err", "tol", "runs",
-                                                   "issued", "k6_ms", "bitwise")}
+                                {**{k: r[k] for k in ("label", "path", "rel_err", "tol", "runs",
+                                                      "issued", "k6_ms", "bitwise")},
+                                 "bound_ms": r["k6"]["bound_ms"],
+                                 "share_of_bound": r["k6"]["share_of_bound"]}
                                 for r in exact_rows],
                             "launched_by": "tracer.trace_exact, "
                                            "experiments.fuel_injection.run_opt (after the "

@@ -112,12 +112,30 @@ def test_the_scene_has_every_kind_of_ray(scene):
     field = TG.GridField(torch.from_numpy(rif), H)
     _, _, esc, c, captured, ckpts = TCK._forward_with_ckpts(
         field, torch.from_numpy(x), torch.from_numpy(v), DS, STEPS, SEG)
-    assert ckpts.shape == (-(-STEPS // SEG), 200, 7)
+    assert ckpts.shape == (-(-STEPS // SEG), 7, 200)
     assert bool(captured[:150].all()) and int(c[:150].max()) < STEPS
     assert not bool(captured[150:180].any()) and bool(esc[150:180].all())
     assert not bool(esc[180:].any()) and bool((c[180:] == STEPS).all())
     # the segments a ray's gradient needs start before its capture step
     assert int(c[:150].min()) > SEG
+
+
+def test_checkpoint_rows_are_fields(scene):
+    """The checkpoint stack is ``(nseg, 7, N)``, one field of all the rays to a
+    row (K5 writes it so, K6 reads it so): row 0 of segment 0 is every ray's
+    start x, rows 3-5 its start v, row 6 whether it starts inside; segment s
+    holds the state after s * SEG steps of the plain stepper."""
+    rif, x, v = scene
+    field = TG.GridField(torch.from_numpy(rif), H)
+    xs, vs = torch.from_numpy(x), torch.from_numpy(v)
+    _, _, esc, c, captured, ckpts = TCK._forward_with_ckpts(field, xs, vs, DS, STEPS, SEG)
+    assert torch.equal(ckpts[0, :3], xs.T) and torch.equal(ckpts[0, 3:6], vs.T)
+    assert torch.equal(ckpts[0, 6], TG.inbounds(field, xs).to(xs.dtype))
+    # after one segment, for the rays not yet out (the stepper reports the
+    # final position of a ray that never escapes), x is the stepper's own
+    live = (captured & (c > SEG)) | ~esc
+    x1, _ = TE.trace(field, xs[live], vs[live], DS, SEG)
+    assert torch.equal(ckpts[1, :3].T[live], x1)
 
 
 @pytest.mark.parametrize("chunk", ["0", CHUNK])

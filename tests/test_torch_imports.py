@@ -111,7 +111,7 @@ def test_kernel_wrappers_refuse_cpu_tensors():
     with pytest.raises(ValueError, match="CUDA tensors"):
         wrappers.trace_ckpt(rif, 1.0, x0, v0, 0.5, 4, 2, order)
     with pytest.raises(ValueError, match="CUDA tensors"):
-        wrappers.backtrace_exact(rif, 1.0, torch.zeros(2, 4, 7), torch.zeros(4, dtype=torch.int32),
+        wrappers.backtrace_exact(rif, 1.0, torch.zeros(2, 7, 4), torch.zeros(4, dtype=torch.int32),
                                  torch.zeros(4, dtype=torch.uint8), x0, v0, 0.5, 2, order)
     assert set(wrappers.LAUNCHES.values()) == {0}
     assert set(wrappers.LAUNCHES) == set(build.KERNELS) == set(build.SOURCE)
