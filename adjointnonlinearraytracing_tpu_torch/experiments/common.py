@@ -29,6 +29,15 @@ from ..tracer import checkpointed
 from ..tracer import eikonal
 
 
+_DTYPES = {"float32": torch.float32, "float64": torch.float64}
+
+
+def param_dtype(params, default=torch.float32) -> torch.dtype:
+    """``params['dtype']`` (a torch dtype or its name) as a torch dtype."""
+    dtype = params.get("dtype", default)
+    return _DTYPES.get(dtype, dtype)
+
+
 def _per_ray(mask, diff):
     m = mask.to(diff.dtype)
     return m[:, None] if diff.ndim == 2 else m
@@ -106,11 +115,10 @@ def gradient_spotcheck(eta, x, v, vol_span, ds, mask=None, n_rays=2048,
     float32 its gradient drifts on rough fields (``tracer/api.py`` precision
     note).  Every experiment run calls this once at startup on a subsample of
     its real rays so drift on a *given* scene is measured, not assumed.  The
-    exact gradient is autograd through the plain stepper
-    (``tracer.trace_ad``), which the JAX package's tests hold equal to its
-    checkpointed-exact gradient to machine precision.  Returns the max
-    relative deviation, the relative L2 deviation and the cosine, and logs
-    them.
+    yardstick is the checkpointed-exact gradient
+    (``tracer.checkpointed.trace_exact``: K5 and K6 on the card), as in the
+    JAX package.  Returns the max relative deviation, the relative L2
+    deviation and the cosine, and logs them.
 
     ``perturb`` adds a smooth gaussian bump of amplitude ``perturb_amp``
     (default 5%) so the check exercises curvature even when the initial field
@@ -138,7 +146,7 @@ def gradient_spotcheck(eta, x, v, vol_span, ds, mask=None, n_rays=2048,
         return g.reshape(-1)
 
     g_adj = probe_grad(api.trace)
-    g_ex = probe_grad(api.trace_ad)
+    g_ex = probe_grad(checkpointed.trace_exact)
     tiny = 1e-30
     diff = g_adj - g_ex
     rel = float(diff.abs().max() / torch.clamp(g_ex.abs().max(), min=tiny))
@@ -150,8 +158,9 @@ def gradient_spotcheck(eta, x, v, vol_span, ds, mask=None, n_rays=2048,
     if rel > 1e-2:
         warnings.warn(
             f"adjoint gradient deviates {rel:.2e} (rel, max-norm; rel-L2 "
-            f"{l2:.2e}, cosine {cos:.4f}) from the exact gradient on this "
-            "scene; consider float64 (tracer/api.py precision note)")
+            f"{l2:.2e}, cosine {cos:.4f}) from the checkpointed-exact "
+            "gradient on this scene; consider gradient='exact' or float64 "
+            "(tracer/api.py precision note)")
     return dict(max_rel=rel, rel_l2=l2, cos=cos)
 
 

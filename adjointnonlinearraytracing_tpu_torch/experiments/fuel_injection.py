@@ -25,9 +25,6 @@ from ..sources import sources as S
 from ..utils.metrics import MetricsLogger
 from . import common, voxel_scenes
 
-_DTYPES = {"float32": torch.float32, "float64": torch.float64}
-
-
 def default_params() -> Dict:
     return dict(
         res_list=[3, 5, 9, 17, 33, 65],
@@ -93,8 +90,7 @@ def run_opt(params: Dict, result_dir: Optional[str] = None, gtruth=None, *,
     fuel_val = params.get("fuel_val", 0.0003)
     defl_weight = params.get("defl_weight", 1.0)
     seed = params.get("seed", 0)
-    dtype = params.get("dtype", torch.float32)
-    dtype = _DTYPES.get(dtype, dtype)
+    dtype = common.param_dtype(params)
 
     h = vol_span / max(res_list[-1] - 1, 1)
     ds = h / step_res

@@ -1,4 +1,4 @@
-"""Ray-bundle generators (sources): the ones the fuel-injection trainer reaches.
+"""Ray-bundle generators (sources): the ones the experiment drivers reach.
 
 Twin of ``adjointnonlinearraytracing_tpu/sources/sources.py``.  Every
 generator returns initial conditions ``(x, v, planes)`` where ``planes`` is
@@ -12,8 +12,10 @@ package's key, and the tensors are made on the generator's device.  Where the
 JAX package splits its key into one key per view, the multi-view rigs here
 draw from the one generator in view order.  Each random source is a draw
 (:func:`_uniform`, the only place a random number is made) followed by a
-deterministic body (``*_from_samples``) that takes the drawn uniforms as
-tensors, so that the same samples can be fed to both packages.
+deterministic body (``*_from_samples``) that takes the drawn uniforms (and,
+for :func:`random_rotmat`, normals: :func:`_normal`) as tensors, so that the
+same samples can be fed to both packages.  Where the JAX package splits a key
+for two draws, the port draws them from the one generator in the same order.
 
 Angles are degrees.  ``pixels`` is an ``(H, W)`` tuple and ``spp`` the samples
 per pixel; the batch size is ``H * W * spp``.
@@ -21,6 +23,7 @@ per pixel; the batch size is ``H * W * spp``.
 
 from __future__ import annotations
 
+import math
 from typing import NamedTuple, Sequence
 
 import numpy as np
@@ -48,6 +51,11 @@ def _uniform(gen: torch.Generator, shape, dtype) -> torch.Tensor:
     return torch.rand(shape, generator=gen, dtype=dtype, device=gen.device)
 
 
+def _normal(gen: torch.Generator, shape, dtype) -> torch.Tensor:
+    """Standard normal samples of ``shape`` on the generator's device."""
+    return torch.randn(shape, generator=gen, dtype=dtype, device=gen.device)
+
+
 def _axis(values, like: torch.Tensor) -> torch.Tensor:
     """``values`` (a unit vector) tiled to ``like``'s ``(N, 3)``, dtype and device."""
     return torch.tensor([values], dtype=like.dtype, device=like.device).repeat(like.shape[0], 1)
@@ -64,6 +72,78 @@ def rotate_ray3(x: torch.Tensor, angle, vert: bool = False) -> torch.Tensor:
         rows = [[c, -s, zero], [s, c, zero], [zero, zero, one]]
     rot = torch.stack([torch.stack(r) for r in rows])
     return x @ rot.T
+
+
+def random_rotmat_from_samples(q: torch.Tensor) -> torch.Tensor:
+    """Body of :func:`random_rotmat`: the rotation of the quaternion ``q`` (4,)
+    after normalising it."""
+    q = q / torch.linalg.norm(q)
+    w, x, y, z = q
+    return torch.stack([
+        torch.stack([1 - 2 * (y * y + z * z), 2 * (x * y - z * w), 2 * (x * z + y * w)]),
+        torch.stack([2 * (x * y + z * w), 1 - 2 * (x * x + z * z), 2 * (y * z - x * w)]),
+        torch.stack([2 * (x * z - y * w), 2 * (y * z + x * w), 1 - 2 * (x * x + y * y)]),
+    ])
+
+
+def random_rotmat(gen, dtype=torch.float32) -> torch.Tensor:
+    """Uniform random SO(3) matrix (quaternion method): four normals drawn."""
+    return random_rotmat_from_samples(_normal(gen, (4,), dtype))
+
+
+def _rotate_about_centre(R, x, v, planes, span):
+    c = span / 2
+    xn = (x - c) @ R.T + c
+    vn = v @ R.T
+    sp = (planes[:, 0, :] - c) @ R.T + c
+    sn = planes[:, 1, :] @ R.T
+    st = planes[:, 2, :] @ R.T
+    return xn, vn, torch.stack([sp, sn, st], dim=1)
+
+
+def random_rotate_ic_from_samples(q, x, v, planes, span):
+    """Body of :func:`random_rotate_ic`; ``q`` is its four normals."""
+    return _rotate_about_centre(random_rotmat_from_samples(q).to(x.dtype), x, v, planes, span)
+
+
+def random_rotate_ic(gen, x, v, planes, span):
+    """Rotate rays and planes by a random rotation about the volume centre."""
+    return random_rotate_ic_from_samples(_normal(gen, (4,), x.dtype), x, v, planes, span)
+
+
+def rotate_ic(x, v, planes, angle, span, vert=False):
+    """Rotate rays and planes by a fixed angle (degrees), then shift by ``span / 2``."""
+    xr = rotate_ray3(x, angle, vert=vert) + span / 2
+    vr = rotate_ray3(v, angle, vert=vert)
+    spr = rotate_ray3(planes[:, 0, :], angle, vert=vert) + span / 2.0
+    snr = rotate_ray3(planes[:, 1, :], angle, vert=vert)
+    strr = rotate_ray3(planes[:, 2, :], angle, vert=vert)
+    return xr, vr, torch.stack([spr, snr, strr], dim=1)
+
+
+def hatbox_from_samples(uz, ut, v: torch.Tensor, angle) -> torch.Tensor:
+    """Body of :func:`hatbox_sample`; ``uz`` and ``ut`` ``(N,)`` are its two
+    uniform draws in ``[0, 1)``."""
+    basis = torch.tensor([[0.0, 0.0, 1.0]], dtype=v.dtype, device=v.device)
+    rang = torch.deg2rad(torch.as_tensor(angle, dtype=v.dtype, device=v.device)) / 2
+    dist = torch.cos(rang)
+    z = uz * (1 - dist) + dist
+    theta = 2 * math.pi * ut
+    scale = torch.sqrt(1 - z ** 2)
+    x = torch.cos(theta) * scale
+    y = torch.sin(theta) * scale
+    t1 = torch.linalg.cross(torch.broadcast_to(basis, v.shape), v, dim=-1)
+    t2 = torch.linalg.cross(t1, v, dim=-1)
+    return x[:, None] * t1 + y[:, None] * t2 + z[:, None] * v
+
+
+def hatbox_sample(gen, v: torch.Tensor, angle) -> torch.Tensor:
+    """Uniform directions in a cone of ``angle`` degrees around each ``v``
+    (Archimedes' hat-box)."""
+    n = v.shape[0]
+    uz = _uniform(gen, (n,), v.dtype)
+    ut = _uniform(gen, (n,), v.dtype)
+    return hatbox_from_samples(uz, ut, v, angle)
 
 
 def _standard_planes(v_template, angle, width, sensor_dist, xaxis):
@@ -230,6 +310,92 @@ def area_source3_rand_bias(gen, angle, pixels, spp: int, width, circle=False, xa
                                           circle=circle, xaxis=xaxis, sensor_dist=sensor_dist)
 
 
+def point_source3(angle, pixels, spp: int, width, cone_angle=90, xaxis=False, sensor_dist=0.0,
+                  circle=False, dtype=torch.float32, device="cuda") -> Rays:
+    """Deterministic point source with a cone fan of ``(p * floor(sqrt(spp)))``
+    rays along each pixel axis; ``circle`` is accepted and, as in the JAX
+    package, masks nothing."""
+    dev = require_device(device)
+    ang_rad = np.radians(cone_angle / 2)
+    spp_side = max(int(np.floor(np.sqrt(spp))), 1)
+    axes = [torch.linspace(-ang_rad, ang_rad, p * spp_side, dtype=dtype, device=dev)
+            for p in pixels]
+    theta, phi = (a.reshape(-1) for a in torch.meshgrid(*axes, indexing="ij"))
+    vel = torch.stack([torch.cos(theta) * torch.sin(phi), torch.cos(theta) * torch.cos(phi),
+                       torch.sin(theta)], dim=-1)
+    n = vel.shape[0]
+    pos = torch.tensor([[0.0, -width / 2, 0.0]], dtype=dtype, device=dev).repeat(n, 1)
+    vel = vel / torch.linalg.norm(vel, dim=-1, keepdim=True)
+
+    x = rotate_ray3(pos, angle, vert=xaxis) + width / 2
+    v = rotate_ray3(vel, angle, vert=xaxis)
+    planes = _standard_planes(v, angle, width, sensor_dist, xaxis)
+    return Rays(x, v, planes, _full_mask(n, dev))
+
+
+def area_source3_cone_from_samples(offset, uz, ut, angle, pixels, spp: int, width, circle=False,
+                                   xaxis=False, sensor_dist=1.0, cone_angle=90):
+    """Body of :func:`area_source3_cone`; ``offset`` ``(2*spp, ph, pw)`` and the
+    hat-box's ``uz``, ``ut`` ``(N,)`` are its uniform draws in ``[0, 1)``."""
+    ph, _ = pixels
+    offset = (offset - 0.5) * (width / ph)
+    g0, g1 = _pixel_grid(pixels, width, offset, centred=True)
+    pts = [g0[None] + offset[:spp], torch.full_like(offset[:spp], -width / 2),
+           g1[None] + offset[spp:]]
+    pos = torch.stack([p.reshape(-1) for p in pts], dim=-1)
+    n = pos.shape[0]
+    # as in the JAX package, the circle test includes the source plane's
+    # offset |y| = width / 2, so it masks every ray
+    mask = torch.linalg.norm(pos, dim=-1) < width / 2 if circle else _full_mask(n, pos.device)
+
+    forward = _axis([0.0, 1.0, 0.0], pos)
+    vel = hatbox_from_samples(uz, ut, forward, cone_angle)
+    tpv = sensor_dist / vel[:, 1]
+
+    x = rotate_ray3(pos, angle, vert=xaxis) + width / 2
+    v = rotate_ray3(vel, angle, vert=xaxis)
+    planes = _standard_planes(v, angle, width, sensor_dist, xaxis)
+    return Rays(x, v, planes, mask), tpv
+
+
+def area_source3_cone(gen, angle, pixels, spp: int, width, circle=False, xaxis=False,
+                      sensor_dist=1.0, cone_angle=90, dtype=torch.float32):
+    """Area source emitting into a cone of ``cone_angle`` degrees.  Returns
+    ``(Rays, tpv)``."""
+    ph, pw = pixels
+    offset = _uniform(gen, (2 * spp, ph, pw), dtype)
+    n = spp * ph * pw
+    uz = _uniform(gen, (n,), dtype)
+    ut = _uniform(gen, (n,), dtype)
+    return area_source3_cone_from_samples(offset, uz, ut, angle, pixels, spp, width,
+                                          circle=circle, xaxis=xaxis, sensor_dist=sensor_dist,
+                                          cone_angle=cone_angle)
+
+
+def cone_source3_from_samples(uz, ut, angle, pixels, spp: int, width, circle=False, xaxis=False,
+                              sensor_dist=1.0, cone_angle=100.0) -> Rays:
+    """Body of :func:`cone_source3_rand`; ``uz``, ``ut`` ``(N,)`` are the
+    hat-box's uniform draws."""
+    pos = torch.tensor([[0.0, -width / 2, 0.0]], dtype=uz.dtype,
+                       device=uz.device).repeat(uz.shape[0], 1)
+    vel = hatbox_from_samples(uz, ut, _axis([0.0, 1.0, 0.0], pos), cone_angle)
+
+    x = rotate_ray3(pos, angle, vert=xaxis) + width / 2
+    v = rotate_ray3(vel, angle, vert=xaxis)
+    planes = _standard_planes(v, angle, width, sensor_dist, xaxis)
+    return Rays(x, v, planes, _full_mask(pos.shape[0], pos.device))
+
+
+def cone_source3_rand(gen, angle, pixels, spp: int, width, circle=False, xaxis=False,
+                      sensor_dist=1.0, cone_angle=100.0, dtype=torch.float32) -> Rays:
+    """Point source with random directions in a cone."""
+    n = pixels[0] * pixels[1] * spp
+    uz = _uniform(gen, (n,), dtype)
+    ut = _uniform(gen, (n,), dtype)
+    return cone_source3_from_samples(uz, ut, angle, pixels, spp, width, circle=circle,
+                                     xaxis=xaxis, sensor_dist=sensor_dist, cone_angle=cone_angle)
+
+
 # ---------------------------------------------------------------------------
 # multi-view rigs
 # ---------------------------------------------------------------------------
@@ -274,3 +440,65 @@ def rand_area_in_sphere(gen, nviews, im_res, spp, width, angle_span=360, circle=
     views, targets, dists = zip(*out)
     rays, nrays = _cat_rays(views)
     return rays, torch.cat(targets), torch.cat(dists), nrays
+
+
+def rand_cone_in_sphere(gen, nviews, im_res, spp, width, angle_span=360, circle=False,
+                        xaxis=False, sensor_dist=1.0, cone_angle=90.0, dtype=torch.float32):
+    out = [area_source3_cone(gen, a, im_res, spp, width, circle=circle, xaxis=xaxis,
+                             sensor_dist=sensor_dist, cone_angle=cone_angle, dtype=dtype)
+           for a in _view_angles(nviews, angle_span)]
+    views, dists = zip(*out)
+    rays, nrays = _cat_rays(views)
+    return rays, torch.cat(dists), nrays
+
+
+def rand_ptcone_in_sphere(gen, nviews, im_res, spp, width, angle_span=360, circle=False,
+                          xaxis=False, sensor_dist=1.0, cone_angle=90.0, dtype=torch.float32):
+    views = [cone_source3_rand(gen, a, im_res, spp, width, circle=circle, xaxis=xaxis,
+                               sensor_dist=sensor_dist, cone_angle=cone_angle, dtype=dtype)
+             for a in _view_angles(nviews, angle_span)]
+    rays, nrays = _cat_rays(views)
+    return rays, torch.zeros((nviews,), dtype=dtype, device=gen.device), nrays
+
+
+def rand_rays_cube(gen, im_res, spp, width, circle=False, src_type="plane", cone_ang=90,
+                   dtype=torch.float32):
+    """Six-face cube coverage: the four side angles about z, then +-90 degrees
+    about x, drawn in that order."""
+    views = [_cube_view(gen, a, im_res, spp, width, circle, src_type, cone_ang, False, dtype)
+             for a in np.linspace(0, 360, 5)[:-1]]
+    views += [_cube_view(gen, a, im_res, spp, width, circle, src_type, cone_ang, True, dtype)
+              for a in (90.0, -90.0)]
+    return _cat_rays(views)
+
+
+def _cube_view(gen, angle, im_res, spp, width, circle, src_type, cone_ang, xaxis, dtype):
+    if src_type == "plane":
+        return plane_source3_rand(gen, angle, im_res, spp, width, circle=circle, xaxis=xaxis,
+                                  sensor_dist=0.0, dtype=dtype)
+    if src_type == "point":
+        return point_source3(angle, im_res, spp, width, cone_angle=cone_ang, xaxis=xaxis,
+                             sensor_dist=0.0, circle=circle, dtype=dtype, device=gen.device)
+    return cone_source3_rand(gen, angle, im_res, spp, width, circle=circle, xaxis=xaxis,
+                             sensor_dist=0.0, cone_angle=cone_ang, dtype=dtype)
+
+
+# ---------------------------------------------------------------------------
+# image norms
+# ---------------------------------------------------------------------------
+
+def sum_norm(im, scale=False):
+    """Scale the image to a mean of 1; with ``scale`` also return the factor."""
+    scalar = im.numel() / im.sum()
+    return (scalar * im, scalar) if scale else scalar * im
+
+
+def sum_norm2(im, scale=False):
+    scalar = im.numel() / torch.linalg.norm(im.reshape(-1))
+    return (scalar * im, scalar) if scale else scalar * im
+
+
+def norm_image(im):
+    """The image mapped onto [0, 1]; a constant image is returned as it is."""
+    rng = im.max() - im.min()
+    return torch.where(torch.isclose(rng, torch.zeros_like(rng)), im, (im - im.min()) / rng)

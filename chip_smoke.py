@@ -38,11 +38,26 @@ result.  Phases (any failure is an uncaught exception):
       volume, f32), ``optim_iters`` cut from 300 to 10 (210 Adam steps), with
       the spot check and the stage escalation on as a user runs it: the
       stages before the escalation run K2 and K3, the others the exact
-      gradient, K5 and K6; every kernel is asserted at exactly the launches
-      the code implies for the stage the escalation fired at, K3 and K6 on
-      each path too, K1 and K4 at none.  Then the same trainer in f64 at a
-      small size on the card against the CPU, and the full 300-iteration run
-      (6,300 steps).
+      gradient, K5 and K6 (each spot check runs K2, K3 and K5, K6: the
+      adjoint against ``trace_exact``); every kernel is asserted at exactly
+      the launches the code implies for the stage the escalation fired at,
+      per stage and in all, K3 on each path too, K1 and K4 at none.  Then the
+      same trainer in f64 at a small size on the card against the CPU; the
+      full 300-iteration run (6,300 steps) comes last.
+   d-g. the Luneburg, image (einstein-turing), sdf and focal-stack drivers,
+      each through ``experiments.runner.run`` on its shipped section at full
+      width (up to 129^3; 983,040 / 327,680 / 327,680 / 1,310,720 rays a step,
+      above ``ANRT_EXACT_CHUNK`` for Luneburg, image and focal stack, so the
+      exact gradient runs chunk by chunk), spot checks and escalation on:
+      every kernel's launches asserted per stage and in all, for the stage the
+      escalation fired at; per stage the step time, the kernels' times and
+      shares of their bounds (the work counted by the plain versions on 2^15
+      of the path's rays), the host's share, the spot checks and the
+      checkpoint size; the sensor splat's forward and backward time (image,
+      focal stack); :func:`stage_check` at 129^3 on the Luneburg run's field
+      with 2^16 of its rays (K2, K5 bitwise, K3, K6 against the f64 sum of the
+      same terms, K3's path); and each driver in f64 at a small size on the
+      card against the CPU.
 5. report  - one JSON line of the kernels, then the result line.
 
 Bounds use the published peaks of one H100 SXM: 3.35 TB/s of device memory,
@@ -69,7 +84,9 @@ if not torch.cuda.is_available():
 from adjointnonlinearraytracing_tpu_torch import bench
 from adjointnonlinearraytracing_tpu_torch.benchmarks import probe_dma_gather
 from adjointnonlinearraytracing_tpu_torch.benchmarks.scenes import build_case
+from adjointnonlinearraytracing_tpu_torch import sensors
 from adjointnonlinearraytracing_tpu_torch.experiments import fuel_injection, voxel_scenes
+from adjointnonlinearraytracing_tpu_torch.experiments import focalstack, image, luneburg, runner
 from adjointnonlinearraytracing_tpu_torch.fields import grid as G
 from adjointnonlinearraytracing_tpu_torch.kernels import build
 from adjointnonlinearraytracing_tpu_torch.kernels import wrappers as K
@@ -662,18 +679,24 @@ def escalation_stage(metrics):
     return int(stages[0]) if stages else None  # the logger keeps numbers as floats
 
 
-def fuel_launches(params, escalated):
-    """The launches that ``run_opt(params)`` implies, from the code, when the
-    stage escalation fired at stage ``escalated`` (None: never): one K2 for
-    the ground truth; per Adam step of a stage before it one K2 (loss) and one
-    K3 (its gradient), of a stage from it on one K5 and one K6 (the exact
-    gradient); per spot check (one at start-up, one at the start of every
-    stage up to the one that escalates, after which the escalator checks no
-    more) one K2 and one K3 through ``tracer.trace`` (the exact side is the
-    taped plain version and launches nothing).  Every K3 launch of stage s
-    runs on that stage's grid, so its path is that grid's
+def expected_launches(params, escalated, nrays, extra_fwd=0):
+    """The launches that a driver's run of ``params`` implies, from the code,
+    when its stage escalation fired at stage ``escalated`` (None: never), with
+    ``nrays`` rays a step.
+
+    Per Adam step of a stage before the escalation one K2 (the loss) and one
+    K3 (its gradient); from it on the exact gradient (``trace_exact``): one
+    K5 and one K6 where the batch fits one chunk of ``ANRT_EXACT_CHUNK`` rays,
+    else one K5 for the forward pass and, for each chunk of the backward pass,
+    one K5 (its checkpoints) and one K6 (``checkpointed._TraceExact``).  Per
+    spot check (one at start-up, one at the start of every stage up to the one
+    that escalates, after which the escalator checks no more) one K2 and one
+    K3 (``tracer.trace``) and one K5 and one K6 (``trace_exact`` on at most
+    2048 rays, one chunk).  ``extra_fwd`` forward passes without a gradient
+    (one K2 each) come before the first stage.  Every K3 launch of stage s runs
+    on that stage's grid, so its path is that grid's
     (``wrappers.backtrace_path``; K6 has one path).  Returns the steps, the
-    launches and the K3 launches by path."""
+    launches in all, the K3 launches by path and the launches of each stage."""
     res_list, iters = params["res_list"], params["optim_iters"]
     stages = len(res_list)
     first_exact = stages if escalated is None else escalated
@@ -681,19 +704,41 @@ def fuel_launches(params, escalated):
     checked = ([0] if params.get("grad_spotcheck", True) else []) + (
         list(range(1, last_check + 1)) if params.get("auto_exact", True) else [])
     dtype = {"float32": torch.float32, "float64": torch.float64}[params.get("dtype", "float32")]
+    chunks = len(CK._chunks(nrays, CK.exact_chunk_rays()))
     paths = {"backtrace": {"shared": 0, "global": 0}}
-    adjoint = exact = 0
+    total = {name: 0 for name in build.KERNELS}
+    per_stage = []
     for s, res in enumerate(res_list):
-        path = K.backtrace_path(res ** 3, dtype)
-        n = iters * (s + 1)
-        if s < first_exact:
-            adjoint += n
-        else:
-            exact += n
-        paths["backtrace"][path] += (n if s < first_exact else 0) + (s in checked)
-    return adjoint + exact, {"eval_grad": 0, "trace_fwd": 1 + adjoint + len(checked),
-                             "backtrace": adjoint + len(checked), "gather_rows": 0,
-                             "trace_ckpt": exact, "backtrace_exact": exact}, paths
+        n, check = iters * (s + 1), int(s in checked)
+        adjoint, exact = (0, n) if s >= first_exact else (n, 0)
+        k = {name: 0 for name in build.KERNELS}
+        k["trace_fwd"] = adjoint + check + (extra_fwd if s == 0 else 0)
+        k["backtrace"] = adjoint + check
+        k["trace_ckpt"] = exact * (chunks + (chunks > 1)) + check
+        k["backtrace_exact"] = exact * chunks + check
+        paths["backtrace"][K.backtrace_path(res ** 3, dtype)] += k["backtrace"]
+        per_stage.append(k)
+        for name in total:
+            total[name] += k[name]
+    return iters * stages * (stages + 1) // 2, total, paths, per_stage
+
+
+def stage_launches(events, step_rows, params):
+    """The launches of each stage as the events around every launch recorded
+    them: a stage's are those after the previous stage's last step up to its
+    own last step (its spot check runs before its first step).  Also returns
+    the launches after the last step."""
+    res_list, iters = params["res_list"], params["optim_iters"]
+    out, first, start = [], 0, 0
+    for s in range(len(res_list)):
+        end = step_rows[first + iters * (s + 1) - 1][3]
+        first += iters * (s + 1)
+        counts = {name: 0 for name in build.KERNELS}
+        for name, _, _ in events[start:end]:
+            counts[name] += 1
+        out.append(counts)
+        start = end
+    return out, events[start:]
 
 
 def kernel_paths():
@@ -736,11 +781,13 @@ def fuel_path(iters, label, work):
     launches = dict(K.LAUNCHES)
     paths = kernel_paths()
     escalated = escalation_stage(metrics)
-    steps, want, want_paths = fuel_launches(params, escalated)
+    # one forward pass before the first stage: the ground truth's exit rays
+    steps, want, want_paths, want_stages = expected_launches(params, escalated, nrays, 1)
+    got_stages, after = stage_launches(events, step_rows, params)
     checks = {k: v for row in metrics.history for k, v in row.items()
               if k.startswith("grad_spotcheck")}
     for name in sorted(k for k in checks if not k.endswith(("_rel_l2", "_cos"))):
-        print(f"fuel[{label}] {name} (adjoint against the taped plain version, 2048 rays): "
+        print(f"fuel[{label}] {name} (adjoint against trace_exact, 2048 rays): "
               f"max-rel {checks[name]:.3e}, rel-L2 {checks[name + '_rel_l2']:.3e}, cosine "
               f"{checks[name + '_cos']:.5f}; the escalation tolerance is 0.01", flush=True)
     print(f"fuel[{label}] escalation to the exact gradient fired at stage {escalated}"
@@ -753,9 +800,10 @@ def fuel_path(iters, label, work):
           f"{steps} Adam steps in {seconds:.2f} s; launches {launches}; by path {paths} "
           f"(stages {[f'{r}^3: ' + K.backtrace_path(r ** 3, torch.float32) for r in res_list]})",
           flush=True)
-    if launches != want or paths != want_paths:
-        raise AssertionError(f"run_opt must launch {want}, by path {want_paths}, counted "
-                             f"{launches}, {paths}")
+    if launches != want or paths != want_paths or got_stages != want_stages or after:
+        raise AssertionError(f"run_opt must launch {want}, by path {want_paths}, by stage "
+                             f"{want_stages}, counted {launches}, {paths}, {got_stages} and "
+                             f"{len(after)} after the last step")
     if nrays != 262144 or len(hist) != steps or len(step_rows) != steps:
         raise AssertionError("the fuel run is not at full width or lost steps")
     if not all(map(math.isfinite, hist)):
@@ -845,16 +893,109 @@ def fuel_path(iters, label, work):
                 loss_last=hist[-1], spot_checks=checks, **err)
 
 
+def stage_check(rif, h, ds, x0, v0, failures, label=None):
+    """K2 and K3 against their plain versions on the grid ``rif`` with the rays
+    ``(x0, v0)``: K2 bitwise equal with and without the order; K3 (with the
+    order, as api.trace runs it) within the limits above; the runs K3 flushed,
+    counted in the kernel, equal to the plain version's ``flushes``.  In f32
+    also K5 and K6 (:func:`exact_check`) and the kernels' times.  Appends to
+    ``failures``; returns the row of the report and, in f32, the work of a
+    pass as the plain versions counted it."""
+    dtype, res = rif.dtype, max(rif.shape)
+    label = label or f"{str(dtype)[6:]} {res}^3"
+    f = G.GridField(rif, h)
+    nf, nb, tol_snap = E.max_steps_fwd(res, h, ds), E.max_steps_bwd(res, h, ds), \
+        G.snap_tol(dtype)
+    order = O.ray_order(x0, v0, rif.shape, h)
+    fw, bw = {}, {}
+    xt, vt = E.trace(f, x0, v0, ds, nf, stats=fw)
+    differ = {}
+    for lab, o in (("ordered", order), ("unordered", None)):
+        xt_k, vt_k = K.trace_fwd(rif, h, x0, v0, ds, nf, o)
+        differ[lab] = int(((xt_k != xt) | (vt_k != vt)).any(dim=1).sum())
+    dx, dv = 2.0 * (xt - 0.5), torch.ones_like(vt)
+    g_p = E.backtrace(f, xt, vt, dx, dv, ds, nb, stats=bw)
+    g_p2 = E.backtrace(f, xt, vt, dx, dv, ds, nb)
+    tally = torch.zeros(3, dtype=torch.int64, device="cuda")
+    g_k = K.backtrace(rif, h, xt, vt, dx, dv, ds, nb, tol_snap, order, tally)
+    path = K.backtrace_path(rif.numel(), dtype)
+    err, spread = rel_err(g_k, g_p)[0], rel_err(g_p2, g_p)[0]
+    if dtype == torch.float32:
+        # every distance over the f64 sum's largest entry, so that the
+        # triangle inequality holds between the three
+        g_64 = E.backtrace(f, xt, vt, dx, dv, ds, nb, acc_dtype=torch.float64)
+        scale = max(1.0, float(g_64.abs().max()))
+        err_f = [float((g.double() - w).abs().max()) / scale
+                 for g, w in ((g_k, g_p.double()), (g_k, g_64), (g_p, g_64))]
+        if res <= COARSE_RES:
+            err = err_f[0]
+    row = dict(dtype=str(dtype)[6:], res=res, label=label, rays=x0.shape[0], path=path,
+               max_abs_g=float(g_p.abs().max()), rel_err=err, plain_spread=spread,
+               differ=differ, runs=int(tally[0]), issued=int(tally[1]),
+               block_adds=int(tally[2]), flushes=bw["flushes"], splats=bw["splats"])
+    work = None
+    if dtype == torch.float64:
+        tol = TOL_F64
+    else:
+        row.update(kernel_vs_f64_sum=err_f[1], plain_vs_f64_sum=err_f[2])
+        tol = TOL_F32_GRAD
+        if res <= COARSE_RES:
+            tol = row["plain_vs_f64_sum"] + TOL_F32_GRAD
+        if row["kernel_vs_f64_sum"] > TOL_F32_GRAD:
+            failures.append(f"K3 at {label} is {row['kernel_vs_f64_sum']:.3e} from "
+                            "the f64 sum of the same terms")
+        k2o = time_ms(lambda: K.trace_fwd(rif, h, x0, v0, ds, nf, order), 3)
+        k2u = time_ms(lambda: K.trace_fwd(rif, h, x0, v0, ds, nf), 3)
+        k3o = time_ms(lambda: K.backtrace(rif, h, xt, vt, dx, dv, ds, nb, tol_snap, order), 3)
+        k3u = time_ms(lambda: K.backtrace(rif, h, xt, vt, dx, dv, ds, nb, tol_snap), 3)
+        row.update(k2_ms_ordered=k2o, k2_ms_unordered=k2u, k3_ms_ordered=k3o,
+                   k3_ms_unordered=k3u,
+                   order_ms=time_ms(lambda: O.ray_order(x0, v0, rif.shape, h), 5))
+        ex, ex_failures = exact_check(
+            rif, h, ds, x0, v0, lambda xt_, vt_: (2.0 * (xt_ - 0.5), torch.ones_like(vt_)),
+            label.replace("float", "f"), TOL_F32_GRAD, times=True)
+        failures += ex_failures
+        row["exact"] = ex
+        work = dict(res=res, path=path, ray_steps_fwd=fw["ray_steps"],
+                    ray_steps=bw["ray_steps"], splats=bw["splats"],
+                    flushes=bw["flushes"], issued=int(tally[1]),
+                    block_adds=int(tally[2]), exact=ex)
+    row["tol"] = tol
+    print(f"stage[{label}, {x0.shape[0]} rays] K3 {path} path: rel_err "
+          f"{err:.3e} (tol {tol:g}); plain version's run-to-run spread {spread:.3e}"
+          + (f"; distance to the f64 sum of the same f32 terms: kernel "
+             f"{row['kernel_vs_f64_sum']:.3e} (tol {TOL_F32_GRAD:g}), plain "
+             f"{row['plain_vs_f64_sum']:.3e}"
+             if dtype == torch.float32 else "")
+          + f"; runs flushed {row['runs']} (plain flushes {row['flushes']}, splats "
+          f"{row['splats']}), issued after the warp sums {row['issued']}: "
+          f"{8 * row['issued']} atomic adds against {8 * row['splats']} a splat each "
+          f"would issue; block-private adds {row['block_adds']}; K2 rays not bitwise "
+          f"equal {differ}"
+          + (f"; K2 {row['k2_ms_ordered']:.4f} ms ordered / "
+             f"{row['k2_ms_unordered']:.4f} unordered, K3 {row['k3_ms_ordered']:.4f} "
+             f"ordered / {row['k3_ms_unordered']:.4f} unordered, the order "
+             f"{row['order_ms']:.4f}"
+             if dtype == torch.float32 else ""), flush=True)
+    if not (err <= tol and float(g_p.abs().max()) > 0):
+        failures.append(f"K3 disagrees with its plain version at {label}")
+    if any(differ.values()):
+        failures.append(f"K2 is not bitwise equal at {label}: {differ}")
+    if row["runs"] != row["flushes"]:
+        failures.append(f"K3 flushed {row['runs']} runs at {label}, the "
+                        f"plain version counts {row['flushes']}")
+    if (path == "shared") != (row["block_adds"] > 0):
+        failures.append(f"K3's block-private adds ({row['block_adds']}) do not fit "
+                        f"the {path} path at {label}")
+    return row, work
+
+
 def stage_checks(params):
-    """K2 and K3 against their plain versions at every stage resolution of the
-    fuel trainer, with the run's own rays (same seed, same generator), on the
-    ground truth resampled to the stage (``ds`` is the run's, fixed by the
-    finest grid), in f64 and f32.  K2 must be bitwise equal with and without
-    the order; K3 (with the order, as api.trace runs it) within the limits
-    above; the runs K3 flushed, counted in the kernel, must equal the plain
-    version's ``flushes``.  In f32 also K5 and K6 (:func:`exact_check`).
-    Returns the f32 work per stage, the rows of the report and a list of
-    failures (raised at the end of the script)."""
+    """:func:`stage_check` at every stage resolution of the fuel trainer, with
+    the run's own rays (same seed, same generator), on the ground truth
+    resampled to the stage (``ds`` is the run's, fixed by the finest grid), in
+    f64 and f32.  Returns the f32 work per stage, the rows of the report and a
+    list of failures (raised at the end of the script)."""
     res_list, span = params["res_list"], params["vol_span"]
     ds = span / (res_list[-1] - 1) / params["step_res"]
     gt = voxel_scenes.fuel_injection_rif(params["fuel_val"], torch.float64, "cuda")
@@ -865,102 +1006,18 @@ def stage_checks(params):
         x0, v0 = rays.x.contiguous(), rays.v.contiguous()
         for res in res_list:
             rif = G.upres_volume(gt, res).to(dtype).contiguous()
-            h = span / (res - 1)
-            f = G.GridField(rif, h)
-            nf, nb, tol_snap = E.max_steps_fwd(res, h, ds), E.max_steps_bwd(res, h, ds), \
-                G.snap_tol(dtype)
-            order = O.ray_order(x0, v0, rif.shape, h)
-            fw, bw = {}, {}
-            xt, vt = E.trace(f, x0, v0, ds, nf, stats=fw)
-            differ = {}
-            for lab, o in (("ordered", order), ("unordered", None)):
-                xt_k, vt_k = K.trace_fwd(rif, h, x0, v0, ds, nf, o)
-                differ[lab] = int(((xt_k != xt) | (vt_k != vt)).any(dim=1).sum())
-            dx, dv = 2.0 * (xt - 0.5), torch.ones_like(vt)
-            g_p = E.backtrace(f, xt, vt, dx, dv, ds, nb, stats=bw)
-            g_p2 = E.backtrace(f, xt, vt, dx, dv, ds, nb)
-            tally = torch.zeros(3, dtype=torch.int64, device="cuda")
-            g_k = K.backtrace(rif, h, xt, vt, dx, dv, ds, nb, tol_snap, order, tally)
-            path = K.backtrace_path(rif.numel(), dtype)
-            err, spread = rel_err(g_k, g_p)[0], rel_err(g_p2, g_p)[0]
-            if dtype == torch.float32:
-                # every distance over the f64 sum's largest entry, so that the
-                # triangle inequality holds between the three
-                g_64 = E.backtrace(f, xt, vt, dx, dv, ds, nb, acc_dtype=torch.float64)
-                scale = max(1.0, float(g_64.abs().max()))
-                err_f = [float((g.double() - w).abs().max()) / scale
-                         for g, w in ((g_k, g_p.double()), (g_k, g_64), (g_p, g_64))]
-                if res <= COARSE_RES:
-                    err = err_f[0]
-            row = dict(dtype=str(dtype)[6:], res=res, path=path, max_abs_g=float(g_p.abs().max()),
-                       rel_err=err, plain_spread=spread, differ=differ,
-                       runs=int(tally[0]), issued=int(tally[1]), block_adds=int(tally[2]),
-                       flushes=bw["flushes"],
-                       splats=bw["splats"])
-            if dtype == torch.float64:
-                tol = TOL_F64
-            else:
-                row.update(kernel_vs_f64_sum=err_f[1], plain_vs_f64_sum=err_f[2])
-                tol = TOL_F32_GRAD
-                if res <= COARSE_RES:
-                    tol = row["plain_vs_f64_sum"] + TOL_F32_GRAD
-                if row["kernel_vs_f64_sum"] > TOL_F32_GRAD:
-                    failures.append(f"K3 at f32 {res}^3 is {row['kernel_vs_f64_sum']:.3e} from "
-                                    "the f64 sum of the same terms")
-                k2o = time_ms(lambda: K.trace_fwd(rif, h, x0, v0, ds, nf, order), 3)
-                k2u = time_ms(lambda: K.trace_fwd(rif, h, x0, v0, ds, nf), 3)
-                k3o = time_ms(lambda: K.backtrace(rif, h, xt, vt, dx, dv, ds, nb, tol_snap,
-                                                  order), 3)
-                k3u = time_ms(lambda: K.backtrace(rif, h, xt, vt, dx, dv, ds, nb, tol_snap), 3)
-                row.update(k2_ms_ordered=k2o, k2_ms_unordered=k2u, k3_ms_ordered=k3o,
-                           k3_ms_unordered=k3u,
-                           order_ms=time_ms(lambda: O.ray_order(x0, v0, rif.shape, h), 5))
-                ex, ex_failures = exact_check(
-                    rif, h, ds, x0, v0, lambda xt_, vt_: (2.0 * (xt_ - 0.5), torch.ones_like(vt_)),
-                    f"f32 {res}^3", TOL_F32_GRAD, times=True)
-                failures += ex_failures
-                row["exact"] = ex
-                work.append(dict(res=res, path=path, ray_steps_fwd=fw["ray_steps"],
-                                 ray_steps=bw["ray_steps"], splats=bw["splats"],
-                                 flushes=bw["flushes"], issued=int(tally[1]),
-                                 block_adds=int(tally[2]), exact=ex))
-            row["tol"] = tol
+            row, w = stage_check(rif, span / (res - 1), ds, x0, v0, failures)
             rows.append(row)
-            print(f"stage[{row['dtype']} {res}^3, {x0.shape[0]} rays] K3 {path} path: rel_err "
-                  f"{err:.3e} (tol {tol:g}); plain version's run-to-run spread {spread:.3e}"
-                  + (f"; distance to the f64 sum of the same f32 terms: kernel "
-                     f"{row['kernel_vs_f64_sum']:.3e} (tol {TOL_F32_GRAD:g}), plain "
-                     f"{row['plain_vs_f64_sum']:.3e}"
-                     if dtype == torch.float32 else "")
-                  + f"; runs flushed {row['runs']} (plain flushes {row['flushes']}, splats "
-                  f"{row['splats']}), issued after the warp sums {row['issued']}: "
-                  f"{8 * row['issued']} atomic adds against {8 * row['splats']} a splat each "
-                  f"would issue; block-private adds {row['block_adds']}; K2 rays not bitwise "
-                  f"equal {differ}"
-                  + (f"; K2 {row['k2_ms_ordered']:.4f} ms ordered / "
-                     f"{row['k2_ms_unordered']:.4f} unordered, K3 {row['k3_ms_ordered']:.4f} "
-                     f"ordered / {row['k3_ms_unordered']:.4f} unordered, the order "
-                     f"{row['order_ms']:.4f}"
-                     if dtype == torch.float32 else ""), flush=True)
-            if not (err <= tol and float(g_p.abs().max()) > 0):
-                failures.append(f"K3 disagrees with its plain version at {row['dtype']} {res}^3")
-            if any(differ.values()):
-                failures.append(f"K2 is not bitwise equal at {row['dtype']} {res}^3: {differ}")
-            if row["runs"] != row["flushes"]:
-                failures.append(f"K3 flushed {row['runs']} runs at {row['dtype']} {res}^3, the "
-                                f"plain version counts {row['flushes']}")
-            if (path == "shared") != (row["block_adds"] > 0):
-                failures.append(f"K3's block-private adds ({row['block_adds']}) do not fit "
-                                f"the {path} path at {row['dtype']} {res}^3")
+            if w is not None:
+                work.append(w)
     return work, rows, failures
 
 
 def fuel_small_check():
     """The same trainer in f64 at a small size, on the card against the CPU.
 
-    The card runs the kernels (and, for the spot checks, the taped plain
-    version); the CPU runs the plain versions throughout: the whole slice,
-    kernels in, against plain versions."""
+    The card runs the kernels, the CPU the plain versions throughout: the
+    whole slice, kernels in, against plain versions."""
     params = dict(fuel_params(), res_list=[3, 5, 9], nviews=2, nbins=16, optim_iters=3,
                   dtype="float64", grad_spotcheck=True, auto_exact=True)
     rays, _ = fuel_injection.gen_start_rays(params, torch.Generator().manual_seed(0),
@@ -971,7 +1028,7 @@ def fuel_small_check():
     eta_gpu, hist_gpu, _ = fuel_injection.run_opt(params, None, gtruth, rays=rays, metrics=m_gpu)
     launches, paths = dict(K.LAUNCHES), kernel_paths()
     escalated = escalation_stage(m_gpu)
-    steps, want, want_paths = fuel_launches(params, escalated)
+    steps, want, want_paths, _ = expected_launches(params, escalated, rays.x.shape[0], 1)
     if paths != want_paths:
         raise AssertionError(f"the small run must launch by path {want_paths}, counted {paths}")
     eta_cpu, hist_cpu, _ = fuel_injection.run_opt(params, None, gtruth, rays=rays, device="cpu",
@@ -994,6 +1051,361 @@ def fuel_small_check():
         raise AssertionError("the small runs did not run where they were asked to")
     if not (hist_err <= TOL_F64 and eta_err <= TOL_F64 and hist_cpu[-1] < hist_cpu[0]):
         raise AssertionError("the fuel trainer on the card disagrees with the CPU")
+
+
+# ---------------------------------------------------------------------------
+# the drivers of the image family: Luneburg, image, sdf, focal stack
+# ---------------------------------------------------------------------------
+
+CONFIGS = os.path.join(os.path.dirname(os.path.abspath(__file__)), "configs")
+# each path runs its shipped section, uncut, through runner.run, as a user does
+DRIVERS = {
+    "luneburg": ("params-luneburg.yaml", None),
+    "image": ("params-image.yaml", "einstein-turing"),
+    "sdf": ("params-sdf.yaml", None),
+    "focalstack": ("params-focalstack.yaml", "lkfs10_3im_srciminfocus_cone1_dist2"),
+}
+# rays the plain versions count a stage's work on (for the bounds), drawn
+# from the path's own source and scaled to the batch
+WORK_RAYS = 1 << 15
+# rays of the stage check at 129^3, drawn from the Luneburg path's source
+BIG_STAGE_RAYS = 1 << 16
+
+
+def driver_params(name):
+    yaml_name, section = DRIVERS[name]
+    return runner.cfg.load_params(os.path.join(CONFIGS, yaml_name), section)
+
+
+def driver_draw(name, params, gen, samples=None, dtype=torch.float32):
+    """One step's rays of the path ``name``, drawn from ``gen`` as its driver draws them."""
+    samples = params["spp"] if samples is None else samples
+    if name == "luneburg":
+        return luneburg.gen_start_rays(params, gen, samples, dtype)[0]
+    if name in ("image", "sdf"):
+        nviews = len(params["images"]) if name == "image" else params.get("nviews", 1)
+        return image.gen_start_rays(params, gen, samples, nviews, dtype)[0]
+    return focalstack._gen_start_rays(gen, params["source_type"], params["nbins"], samples,
+                                      params["vol_span"], params.get("angle_span", 360),
+                                      params.get("source_angle", 1.0), dtype)[0]
+
+
+def plain_work(rif, h, ds, x0, v0, exact):
+    """The work of one pass over ``(x0, v0)`` as the plain versions count it:
+    the forward and adjoint steppers', or the exact path's and the
+    checkpoint rows its backward pass reads."""
+    f, res = G.GridField(rif, h), max(rif.shape)
+    fw, bw = {}, {}
+    if not exact:
+        xt, vt = E.trace(f, x0, v0, ds, E.max_steps_fwd(res, h, ds), stats=fw)
+        E.backtrace(f, xt, vt, torch.ones_like(xt), torch.ones_like(vt), ds,
+                    E.max_steps_bwd(res, h, ds), stats=bw)
+        return dict(fwd=fw, bwd=bw, rows=0, n=x0.shape[0])
+    xt, vt, esc, c, cap, ck = CK._forward_with_ckpts(f, x0, v0, ds, E.max_steps_fwd(res, h, ds),
+                                                     SEG, stats=fw)
+    bw["captured"] = cap
+    CK.backtrace_plain(rif, x0, v0, esc, c, ck, torch.ones_like(xt), torch.ones_like(vt), h, ds,
+                       SEG, stats=bw)
+    live = torch.where(esc & ~cap, torch.zeros_like(c), c)  # escaped uncaptured: never inside
+    return dict(fwd=fw, bwd=bw, rows=int(((live + SEG - 1) // SEG).sum()), n=x0.shape[0])
+
+
+def pass_bounds(work, n, rif):
+    """The bounds of the kernels of one pass over ``n`` rays on ``rif``, from
+    ``work`` counted on ``work['n']`` of them and scaled to ``n``: K2 and K3,
+    or K5 (the forward pass writing the checkpoint rows the backward pass
+    reads) and K6."""
+    item, grid = rif.element_size(), rif.numel() * rif.element_size()
+    fw, bw = work["fwd"], work["bwd"]
+
+    def sc(count):
+        return count * n / work["n"]
+
+    fwd_flops = sc(fw["ray_steps"]) * FLOPS_FWD_STEP + sc(fw["evals"]) * FLOPS_FWD_EVAL
+    if not work["rows"]:
+        return {"trace_fwd": set_bound(dict(bytes=4 * n * 3 * item + grid, flops=fwd_flops)),
+                "backtrace": set_bound(dict(
+                    bytes=4 * n * 3 * item + 2 * grid,
+                    flops=(sc(bw["ray_steps"]) * FLOPS_BWD_STEP + sc(bw["evals"]) * FLOPS_BWD_EVAL
+                           + sc(bw["splats"]) * FLOPS_BWD_SPLAT)))}
+    rows_bytes = sc(work["rows"]) * 7 * item
+    return {"trace_ckpt": set_bound(dict(bytes=12 * n * item + 5 * n + rows_bytes + grid,
+                                         flops=fwd_flops)),
+            "backtrace_exact": set_bound(dict(
+                bytes=rows_bytes + 5 * n + 6 * n * item + 2 * grid,
+                flops=(sc(bw["ray_steps"]) * FLOPS_EXACT_STEP + sc(bw["evals"]) * FLOPS_EXACT_EVAL
+                       + sc(bw["splats"]) * FLOPS_BWD_SPLAT)))}
+
+
+def median(values):
+    values = sorted(values)
+    return values[len(values) // 2]
+
+
+def driver_path(name):
+    """The driver ``name`` through ``runner.run`` on its shipped section, as a
+    user runs it: the spot checks and the stage escalation on, with the
+    escalation tolerance at its default.  The stage the escalation fired at
+    is read from the run's metrics and every kernel is held to the launches
+    the code implies for it, per stage and in all.  Per stage: step time on
+    the host clock (each step ends with the loss read back), the kernels'
+    times from the events around the launches, and their shares of the bounds
+    (work counted by the plain versions on rays of the path's source through
+    the run's final field resampled to the stage)."""
+    params = driver_params(name)
+    yaml_name, section = DRIVERS[name]
+    res_list, iters, span = params["res_list"], params["optim_iters"], params["vol_span"]
+    sample = driver_draw(name, params, torch.Generator(device="cuda").manual_seed(12345))
+    nrays = sample.x.shape[0]
+    # the focal stack renders its synthetic capture first when the lego-knight
+    # captures are absent (they are not in the repo): one forward pass
+    extra_fwd = 0
+    if name == "focalstack":
+        extra_fwd = int(any(not os.path.exists(p) and not os.path.exists(
+            voxel_scenes.data_path(os.path.basename(p))) for p in params["focal_list"]))
+    if "ANRT_EXACT_TOL" in os.environ:
+        raise AssertionError("ANRT_EXACT_TOL is set: the run would not be a user's run")
+    step_rows, events = [], []
+
+    def stat(it, loss, secs):
+        step_rows.append((it, loss, secs, len(events)))
+
+    metrics = MetricsLogger()
+    K.reset_launches()
+    K.record_events(events)
+    t0 = time.time()
+    try:
+        out = runner.run(os.path.join(CONFIGS, yaml_name), section, device="cuda", stat_fn=stat,
+                         metrics=metrics)
+        torch.cuda.synchronize()
+    finally:
+        K.record_events(None)
+    seconds = time.time() - t0
+    eta, hist = out[0], out[1]
+    launches, paths = dict(K.LAUNCHES), kernel_paths()
+    escalated = escalation_stage(metrics)
+    steps, want, want_paths, want_stages = expected_launches(params, escalated, nrays, extra_fwd)
+    got_stages, after = stage_launches(events, step_rows, params)
+    checks = {k: v for row in metrics.history for k, v in row.items()
+              if k.startswith("grad_spotcheck")}
+    chunks = len(CK._chunks(nrays, CK.exact_chunk_rays()))
+    print(f"{name}[{yaml_name} {section or 'default'}] {nrays} rays a step "
+          f"({int(sample.mask.sum())} live in the first draw), stages {res_list}, "
+          f"optim_iters {iters}: {steps} Adam steps in {seconds:.2f} s; escalation to the "
+          f"exact gradient fired at stage {escalated}"
+          + (f" ({res_list[escalated]}^3)" if escalated is not None else "")
+          + f"; the exact path's batch is {chunks} chunk(s) of at most "
+          f"{CK.exact_chunk_rays()} rays; launches {launches}; by path {paths}", flush=True)
+    if launches != want or paths != want_paths or got_stages != want_stages or after:
+        raise AssertionError(f"{name} must launch {want}, by path {want_paths}, by stage "
+                             f"{want_stages}, counted {launches}, {paths}, {got_stages} and "
+                             f"{len(after)} after the last step")
+    if len(hist) != steps or len(step_rows) != steps or not all(map(math.isfinite, hist)):
+        raise AssertionError(f"{name}: steps lost or a loss not finite")
+    res = res_list[-1]
+    clamp_max = float(params["step_res"])
+    if eta.shape != (res,) * 3 or eta.dtype != torch.float32 or not eta.is_cuda:
+        raise AssertionError(f"{name}: the field is not a {res}^3 f32 tensor on the card")
+    if not bool(torch.isfinite(eta).all()) or float(eta.min()) < 1.0 \
+            or float(eta.max()) > clamp_max:
+        raise AssertionError(f"{name}: the field leaves [1, clamp_max]")
+    interior = torch.zeros_like(eta, dtype=torch.bool)
+    interior[1:-1, 1:-1, 1:-1] = True
+    shell_dev = float((eta[~interior] - 1.0).abs().max())
+    moved = float((eta[interior] - 1.0).abs().max())
+    if shell_dev > 1e-6 or not moved > 1e-6:
+        raise AssertionError(f"{name}: boundary shell moved by {shell_dev} or interior "
+                             f"stayed ({moved})")
+
+    ds = span / (res - 1) / params["step_res"]
+    first_exact = len(res_list) if escalated is None else escalated
+    idx = torch.randperm(nrays, generator=torch.Generator(device="cuda").manual_seed(7),
+                         device="cuda")[:WORK_RAYS]
+    x_w, v_w = sample.x[idx].contiguous(), sample.v[idx].contiguous()
+    per_stage, first = [], 0
+    for s, r in enumerate(res_list):
+        rows = step_rows[first:first + iters * (s + 1)]
+        first += len(rows)
+        exact = s >= first_exact
+        names = (("trace_fwd", "backtrace") if not exact else ("trace_ckpt", "backtrace_exact")
+                 if chunks == 1 else ("trace_ckpt",) + ("trace_ckpt", "backtrace_exact") * chunks)
+        by_name, kern, sums = {}, [], {}
+        for row in rows:
+            own = events[row[3] - len(names):row[3]]  # the step's own launches
+            if tuple(n_ for n_, _, _ in own) != names:
+                raise AssertionError(f"{name}: a step's launches at stage {s} are not {names}")
+            step_sum = {}
+            for n_, a, b in own:
+                t = a.elapsed_time(b)
+                by_name.setdefault(n_, []).append(t)
+                step_sum[n_] = step_sum.get(n_, 0.0) + t
+            kern.append(sum(step_sum.values()))
+            for n_, t in step_sum.items():
+                sums.setdefault(n_, []).append(t)
+        med = median([1e3 * row[2] for row in rows])
+        h = span / (r - 1)
+        rif = G.upres_volume(eta, r).contiguous()
+        bounds = pass_bounds(plain_work(rif, h, ds, x_w, v_w, exact), nrays, rif)
+        key = "grad_spotcheck" if s == 0 else f"grad_spotcheck_stage{s}"
+        st = dict(res=r, steps=len(rows), gradient="exact" if exact else "adjoint",
+                  step_ms_median=med, rays_per_s=nrays / (1e-3 * med),
+                  kernel_ms_median=median(kern), host_ms=med - median(kern),
+                  ms_per_launch={n_: median(t) for n_, t in by_name.items()},
+                  ms_per_step={n_: median(t) for n_, t in sums.items()},
+                  launches_per_step={n_: names.count(n_) for n_ in set(names)},
+                  bound_ms={n_: b["bound_ms"] for n_, b in bounds.items()},
+                  bound_by={n_: b["bound_by"] for n_, b in bounds.items()},
+                  share_of_bound={n_: bounds[n_]["bound_ms"] / median(sums[n_]) for n_ in bounds},
+                  spot_check_rel_l2=checks.get(key + "_rel_l2"),
+                  ckpt_mb_per_chunk=(-(-E.max_steps_fwd(r, h, ds) // SEG) * 7
+                                     * min(nrays, CK.exact_chunk_rays()) * 4 / 1e6
+                                     if exact else None),
+                  loss_last=rows[-1][1], launches=got_stages[s])
+        per_stage.append(st)
+        print(f"{name} stage {s} {r}^3 ({st['gradient']}"
+              + (f", K3 {K.backtrace_path(r ** 3, torch.float32)}" if not exact else "")
+              + f"): {len(rows)} steps, median {med:.3f} ms/step = {st['rays_per_s']:.4g} "
+              f"rays/s; kernels {st['kernel_ms_median']:.3f} ms/step "
+              f"({100 * st['kernel_ms_median'] / med:.1f} %), host and small kernels "
+              f"{st['host_ms']:.3f} ms; ms per launch "
+              + ", ".join(f"{n_} {t:.3f}" for n_, t in st["ms_per_launch"].items())
+              + "; per step " + ", ".join(f"{n_} {t:.3f} = {100 * st['share_of_bound'][n_]:.1f} %"
+                                         f" of its bound {st['bound_ms'][n_]:.4f} "
+                                         f"({st['bound_by'][n_]})"
+                                         for n_, t in st["ms_per_step"].items())
+              + (f"; spot check rel-L2 {st['spot_check_rel_l2']:.3e}"
+                 if st["spot_check_rel_l2"] is not None else "")
+              + (f"; checkpoints {st['ckpt_mb_per_chunk']:.1f} MB a chunk" if exact else "")
+              + f"; loss {st['loss_last']:.6g}", flush=True)
+    print(f"{name}: loss {hist[0]:.6g} -> {hist[-1]:.6g} (mean of the first 10 "
+          f"{sum(hist[:10]) / 10:.6g}, of the last 10 {sum(hist[-10:]) / 10:.6g}); field in "
+          f"[{float(eta.min()):.6f}, {float(eta.max()):.6f}], shell deviation {shell_dev:.2e}",
+          flush=True)
+    return dict(name=name, seconds=seconds, steps=steps, nrays=nrays, launches=launches,
+                paths=paths, escalated=escalated, per_stage=per_stage, spot_checks=checks,
+                loss_first=hist[0], loss_last=hist[-1], eta=eta)
+
+
+def splat_times(name, params, eta, reps=5):
+    """The sensor splat of the path ``name`` at its shapes: ``generate_sensor``
+    and its backward pass to the rays, CUDA events around each, on rays of
+    the path's source traced through the final field; median ms of ``reps``,
+    and the images a step renders."""
+    span, nbins = params["vol_span"], params["nbins"]
+    rays = driver_draw(name, params, torch.Generator(device="cuda").manual_seed(4321))
+    res = eta.shape[0]
+    h = span / (res - 1)
+    with torch.no_grad():
+        xm, vm = api.trace(eta, rays.x, rays.v, h, h / params["step_res"])
+    planes = rays.planes
+    p0, n0, t0 = planes[None, 0, 0], planes[None, 0, 1], planes[None, 0, 2]
+    if name == "image":
+        nimages = len(params["images"])
+        view = slice(0, rays.x.shape[0] // nimages)
+        xs, vs = sensors.trace_rays_to_plane((xm, vm), (planes[:, 0], planes[:, 1]))
+        xs, vs, mask = xs[view], vs[view], rays.mask[view]
+
+        def render(a, b):
+            return sensors.generate_sensor((a, b), 1.0, (p0, n0), nbins, span, t0, mask=mask)
+    else:
+        nimages = len(params["sensor_dists"])
+        src = torch.clamp(-runner.l2ball_sdf(nbins, span), min=0.0)
+        d0 = params["sensor_dists"][0]
+        e = sensors.get_sdf_vals_near((rays.x, rays.v), src, (p0 - (span + d0) * n0, n0), span, t0)
+        xs, vs, mask = xm, vm, rays.mask
+
+        def render(a, b):
+            return sensors.generate_sensor((a, b), e, (p0 + d0 * n0, n0), nbins, span, t0,
+                                           mask=mask)
+    xa, va = xs.detach().requires_grad_(True), vs.detach().requires_grad_(True)
+    w = torch.randn((nbins, nbins), generator=torch.Generator(device="cuda").manual_seed(0),
+                    device="cuda")
+    fwd, bwd = [], []
+    for rep in range(reps + 1):
+        torch.cuda._sleep(BUSY_CYCLES)
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(3)]
+        ev[0].record()
+        img = render(xa, va)
+        ev[1].record()
+        torch.autograd.grad((img * w).sum(), (xa, va))
+        ev[2].record()
+        torch.cuda.synchronize()
+        if rep:  # the first call is the warm-up
+            fwd.append(ev[0].elapsed_time(ev[1]))
+            bwd.append(ev[1].elapsed_time(ev[2]))
+    if not (bool(torch.isfinite(img).all()) and float(img.sum()) > 0):
+        raise AssertionError(f"{name}: the sensor image is empty or not finite")
+    rec = dict(rays=xa.shape[0], fwd_ms=median(fwd), bwd_ms=median(bwd), images_per_step=nimages)
+    print(f"{name} splat: generate_sensor of {rec['rays']} rays onto {nbins}^2 pixels "
+          f"{rec['fwd_ms']:.3f} ms, its backward {rec['bwd_ms']:.3f} ms; {nimages} images a "
+          f"step = {nimages * (rec['fwd_ms'] + rec['bwd_ms']):.3f} ms a step", flush=True)
+    return rec
+
+
+def big_stage_check(eta, failures):
+    """:func:`stage_check` at 129^3 on the Luneburg run's final field with
+    ``BIG_STAGE_RAYS`` of its source's rays: K2 and K5 bitwise, K3 and K6
+    within ``TOL_F32_GRAD`` of the f64 sum of the same f32 terms, and K3's
+    path there (global)."""
+    params = driver_params("luneburg")
+    rays = driver_draw("luneburg", params, torch.Generator(device="cuda").manual_seed(99))
+    idx = torch.randperm(rays.x.shape[0], generator=torch.Generator(device="cuda").manual_seed(3),
+                         device="cuda")[:BIG_STAGE_RAYS]
+    res = eta.shape[0]
+    h = params["vol_span"] / (res - 1)
+    row, work = stage_check(eta.contiguous(), h, h / params["step_res"], rays.x[idx].contiguous(),
+                            rays.v[idx].contiguous(), failures, label=f"luneburg f32 {res}^3")
+    if row["path"] != "global":
+        failures.append(f"K3 took its {row['path']} path at {res}^3, not the global one")
+    return row
+
+
+def driver_small_check(name):
+    """The driver ``name`` in f64 at a small size, on the card against the CPU,
+    with the same rays on both (drawn once on the CPU and handed to the
+    driver through its ``sample_rays`` hook) and the same targets."""
+    params = dict(driver_params(name), res_list=[3, 5, 9], nbins=8, spp=1, optim_iters=3,
+                  record_iters=10 ** 9, dtype="float64")
+    rays = driver_draw(name, params, torch.Generator().manual_seed(0), dtype=torch.float64)
+    span, f64 = params["vol_span"], torch.float64
+    if name == "image":
+        params["disp_ims"] = runner._load_image_list(params["images"], 8, "cpu")
+    elif name == "sdf":
+        fspan = 2 * math.sin(0.5 * math.radians(params["far_sensor_span"]))
+        params.update(sdf_disp=[runner.l2ball_sdf(8, span, dtype=f64, device="cpu")],
+                      sdf_defl=[runner.l2ball_sdf(8, fspan, dtype=f64, device="cpu")],
+                      disp_ims=[None], defl_ims=[None])
+    elif name == "focalstack":
+        src = torch.clamp(-runner.l2ball_sdf(8, span, dtype=f64, device="cpu"), min=0.0)
+        params.update(src_angle=params["source_angle"], source_image=src)
+        params["focal_stack"] = focalstack.make_synthetic_stack(
+            voxel_scenes.gaussian_bump(9, span, dtype=f64, device="cpu"), params, device="cpu")
+    run = {"luneburg": luneburg.run_opt, "image": image.multires_exp, "sdf": image.multires_exp,
+           "focalstack": focalstack.multires_exp}[name]
+    out = {}
+    for device in ("cuda", "cpu"):
+        metrics = MetricsLogger()
+        K.reset_launches()
+        eta, hist = run(params, None, device=device, metrics=metrics,
+                        sample_rays=lambda gen, samples: rays)
+        out[device] = (eta, hist, escalation_stage(metrics), dict(K.LAUNCHES))
+    (eta_g, hist_g, esc_g, launches), (eta_c, hist_c, esc_c, cpu_launches) = out["cuda"], out["cpu"]
+    steps, want, _, _ = expected_launches(params, esc_g, rays.x.shape[0])
+    hist_err = max(abs(a - b) / abs(b) for a, b in zip(hist_g, hist_c))
+    scale = float((eta_c - 1.0).abs().max())
+    eta_err = float((eta_g.cpu() - eta_c).abs().max()) / scale
+    print(f"{name}[f64 {params['res_list']}, {rays.x.shape[0]} rays, {steps} steps, escalated at "
+          f"stage {esc_g}] card against CPU: loss history rel_err {hist_err:.3e}, final field err "
+          f"{eta_err:.3e} of its largest deviation from 1 ({scale:.3e}) (tol {TOL_F64:g}); "
+          f"launches on the card {launches}", flush=True)
+    if esc_g != esc_c or launches != want or any(cpu_launches.values()):
+        raise AssertionError(f"{name}: the card escalated at {esc_g} and launched {launches} "
+                             f"(want {want}), the CPU escalated at {esc_c} and launched "
+                             f"{cpu_launches}")
+    if len(hist_g) != steps or not eta_g.is_cuda or eta_c.is_cuda:
+        raise AssertionError(f"{name}: the small runs did not run where they were asked to")
+    if not (hist_err <= TOL_F64 and eta_err <= TOL_F64 and scale > 0):
+        raise AssertionError(f"{name}: the driver on the card disagrees with the CPU")
 
 
 BENCH_ITERS = 3
@@ -1164,11 +1576,22 @@ def main():
     print(f"fuel: the {fuel['steps']}-step run took {fuel['seconds']:.1f} s, so the shipped "
           f"{FUEL_ITERS_SHIPPED} iterations a stage are predicted at "
           f"{fuel['seconds'] * FUEL_ITERS_SHIPPED / FUEL_ITERS:.0f} s", flush=True)
+    drivers = {}
+    for name in DRIVERS:
+        drivers[name] = driver_path(name)
+        if name in ("image", "focalstack"):
+            drivers[name]["splat"] = splat_times(name, driver_params(name), drivers[name]["eta"])
+    big_row = big_stage_check(drivers["luneburg"]["eta"], failures)
+    for name in DRIVERS:
+        drivers[name].pop("eta")
+        driver_small_check(name)
     full_run = fuel_path(FUEL_ITERS_SHIPPED, "f32 full width, shipped optim_iters", work)
     print(f"fuel[shipped] {full_run['steps']} steps in {full_run['seconds']:.1f} s, escalated "
           f"at stage {full_run['escalated']}, rel_norm {full_run['rel_norm']:.4f}", flush=True)
+    print("drivers: " + json.dumps(drivers), flush=True)
 
-    paths = {"bench": bench_launches, "probe": probe_launches, "fuel": fuel["launches"]}
+    paths = {"bench": bench_launches, "probe": probe_launches, "fuel": fuel["launches"],
+             **{name: d["launches"] for name, d in drivers.items()}}
     replaces = {
         "eval_grad": "adjointnonlinearraytracing_tpu/benchmarks/probe_evalmath.py:107",
         "trace_fwd": "adjointnonlinearraytracing_tpu/tracer/paired.py:64",
@@ -1181,6 +1604,7 @@ def main():
     errs["gather_rows"] = (gather["max_abs_err"], gather["max_abs_err"])
     errs["trace_ckpt"] = (0.0, 0.0)  # bitwise, asserted
     errs["backtrace_exact"] = (ex_bench["abs_err"], ex_bench["rel_err"])
+    stage_rows.append(big_row)
     exact_rows = [row.pop("exact") for row in stage_rows if "exact" in row]
     fuel_stage_ms = {}
     for kf, kb, grad in (("trace_fwd", "backtrace", "adjoint"),
@@ -1201,8 +1625,9 @@ def main():
                       "ms_unordered": times["trace_fwd"]["ms_unordered"],
                       "order_ms": times["order_ms"],
                       "fuel_ms_by_stage": fuel_stage_ms["trace_fwd"],
-                      "launched_by": "bench.run, tracer.api.trace, "
-                                     "experiments.fuel_injection.run_opt"},
+                      "launched_by": "bench.run, tracer.api.trace, the spot checks, "
+                                     "experiments.fuel_injection.run_opt, the drivers "
+                                     "before their escalation"},
         "backtrace": {"rel_tol": TOL_F32_GRAD, **cmp["bstats"],
                       "atomic_adds": 8 * cmp["issued"],
                       "ms_unordered": times["backtrace"]["ms_unordered"],
@@ -1210,16 +1635,17 @@ def main():
                       "launches_by_k3_path": {"bench": bench_paths["backtrace"],
                                               "fuel": fuel["paths"]["backtrace"]},
                       "stage_checks": stage_rows,
-                      "launched_by": "bench.run, tracer.api.trace, "
-                                     "experiments.fuel_injection.run_opt"},
+                      "launched_by": "bench.run, tracer.api.trace, the spot checks, "
+                                     "experiments.fuel_injection.run_opt, the drivers "
+                                     "before their escalation"},
         "trace_ckpt": {"rel_tol": 0.0, **ex_bench["fwd"],
                        "fuel_ms_by_stage": fuel_stage_ms["trace_ckpt"],
                        "fuel_ms_by_stage_alone": {r["label"]: r["k5_ms"] for r in exact_rows},
                        "fuel_share_of_bound_by_stage": {r["label"]: r["k5"]["share_of_bound"]
                                                         for r in exact_rows},
                        "checkpoint_mb": ex_bench["ckpt_mb"],
-                       "launched_by": "tracer.trace_exact, experiments.fuel_injection.run_opt "
-                                      "(after the stage escalation)"},
+                       "launched_by": "tracer.trace_exact: the spot checks, and every "
+                                      "driver after its stage escalation"},
         "backtrace_exact": {"rel_tol": TOL_F32_GRAD, **ex_bench["bwd"],
                             "fuel_ms_by_stage": fuel_stage_ms["backtrace_exact"],
                             "stage_checks": [
@@ -1228,9 +1654,8 @@ def main():
                                  "bound_ms": r["k6"]["bound_ms"],
                                  "share_of_bound": r["k6"]["share_of_bound"]}
                                 for r in exact_rows],
-                            "launched_by": "tracer.trace_exact, "
-                                           "experiments.fuel_injection.run_opt (after the "
-                                           "stage escalation)"},
+                            "launched_by": "tracer.trace_exact: the spot checks, and "
+                                           "every driver after its stage escalation"},
         "gather_rows": {"rel_tol": 0.0, "rows": GATHER_N, "table_rows": GATHER_ROWS,
                         "ms_dirty_flush": gather["ms_dirty_flush"],
                         "library_ms_dirty_flush": gather["library_ms_dirty_flush"],
@@ -1252,6 +1677,9 @@ def main():
             "plain_ms": rec_k["plain_ms"], "bound_ms": rec_k["bound_ms"],
             "bound_by": rec_k["bound_by"], "share_of_bound": rec_k["bound_ms"] / rec_k["ms"],
             "library_ms": rec_k["library_ms"],
+            "ms_per_launch_by_driver_stage": {
+                path: {f"{st['res']}^3": st["ms_per_launch"][name] for st in d["per_stage"]
+                       if name in st["ms_per_launch"]} for path, d in drivers.items()},
             **extra[name],
         })
     if failures:

@@ -278,9 +278,8 @@ def test_runner_runs_the_shipped_yaml(tmp_path):
 def test_what_this_slice_leaves_out_raises_and_names_its_roadmap_item():
     with pytest.raises(NotImplementedError, match="A15"):
         TR.run(FUEL_YAML, "fuel-128", device="cpu")
-    for name in ("params-luneburg.yaml", "params-sdf.yaml"):
-        with pytest.raises(NotImplementedError, match="A11"):
-            TR.run(str(ROOT / "configs" / name), device="cpu")
+    with pytest.raises(NotImplementedError, match="A6"):
+        TR.run(str(ROOT / "configs" / "params-fiber.yaml"), device="cpu")
     with pytest.raises(ValueError, match="unknown experiment family"):
         TR.run(FUEL_YAML, overrides=dict(family="nope"), device="cpu")
 

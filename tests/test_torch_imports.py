@@ -73,14 +73,28 @@ def test_trainer_probe_and_trace_closure_need_a_gpu_and_never_use_the_cpu_instea
         pytest.skip("a GPU is present: this checks the GPU-less behaviour")
     from adjointnonlinearraytracing_tpu_torch.benchmarks import probe_dma_gather
     from adjointnonlinearraytracing_tpu_torch.experiments import common, fuel_injection, runner
+    from adjointnonlinearraytracing_tpu_torch.experiments import focalstack, image, luneburg
     from adjointnonlinearraytracing_tpu_torch.experiments import voxel_scenes
     from adjointnonlinearraytracing_tpu_torch.sources import sources
 
     tiny = dict(fuel_injection.default_params(), res_list=[3], nviews=1, nbins=2, optim_iters=1)
+    stack = dict(tiny, source_image=torch.ones(2, 2), focal_stack=[torch.ones(2, 2)],
+                 sensor_dists=[1.0])
     for call in (
             lambda: fuel_injection.run_opt(tiny),
             lambda: fuel_injection.run_opt(tiny, device="cuda"),
+            lambda: luneburg.run_opt(tiny),
+            lambda: image.multires_exp(tiny),
+            lambda: focalstack.multires_exp(stack),
+            lambda: focalstack.make_synthetic_stack(torch.ones(3, 3, 3), stack),
+            lambda: image.load_image(voxel_scenes.data_path("turing.png"), 4),
+            lambda: runner.l2ball_sdf(4, 1.0),
+            lambda: sources.point_source3(0.0, (2, 2), 1, 1.0),
             lambda: runner.run(str(ROOT / "configs" / "params-fuel.yaml")),
+            lambda: runner.run(str(ROOT / "configs" / "params-luneburg.yaml")),
+            lambda: runner.run(str(ROOT / "configs" / "params-sdf.yaml")),
+            lambda: runner.run(str(ROOT / "configs" / "params-image.yaml"), "einstein-turing"),
+            lambda: runner.run(str(ROOT / "configs" / "params-focalstack.yaml")),
             lambda: probe_dma_gather.run(R=8, N=4, reps=1),
             lambda: common.make_trace(1.0, 0.1, device="cuda"),
             lambda: voxel_scenes.fuel_injection_rif(),
