@@ -2,10 +2,13 @@
 
 This system's "weights" are the voxel grid of refractive indices.  Its layout
 is the same on both sides and is kept as is: ``data[z, y, x]`` with positions
-``p = (x, y, z)``, flat index ``(z*H + y)*W + x``.
+``p = (x, y, z)``, flat index ``(z*H + y)*W + x``.  The fiber driver's weights
+are a 1D radial profile ``data[r]``, the same on both sides too.
 """
 
 from __future__ import annotations
+
+import os
 
 import numpy as np
 import torch
@@ -35,6 +38,25 @@ def rif_to_numpy(rif: torch.Tensor) -> np.ndarray:
     if rif.ndim != 3:
         raise ValueError(f"rif_to_numpy: expected a 3D voxel grid, got shape {tuple(rif.shape)}")
     return rif.detach().cpu().numpy()
+
+
+def profile_from_numpy(src, device="cuda", dtype=torch.float32) -> torch.Tensor:
+    """A radial profile as the fiber driver's ``init_profile`` tensor on ``device``.
+
+    ``src`` is the profile itself (a numpy array, a list, or anything
+    ``np.asarray`` takes) or the path of a ``result.npz`` written by the fiber
+    driver of either package, whose ``rif`` field holds the final profile.
+    """
+    if isinstance(src, (str, os.PathLike)):
+        with np.load(src) as f:
+            arr = f["rif"]
+    else:
+        arr = np.asarray(src.detach().cpu() if isinstance(src, torch.Tensor) else src)
+    if arr.ndim != 1:
+        raise ValueError(f"profile_from_numpy: expected a 1D radial profile, got shape "
+                         f"{arr.shape}")
+    dev = require_device(device)
+    return torch.from_numpy(np.ascontiguousarray(arr)).to(device=dev, dtype=dtype)
 
 
 def checkpoint_from_jax_npz(path: str, device="cuda"):

@@ -4,7 +4,8 @@ Twin of ``adjointnonlinearraytracing_tpu/experiments/runner.py``: it loads a
 section with ``config.load_params``, turns file-path params into tensors
 (images, distance textures, with the JAX runner's synthetic stand-ins for the
 files the repo does not ship) and dispatches to the experiment, on the GPU
-unless ``--device cpu`` is given.  Every family but ``fiber`` runs.
+unless ``--device cpu`` is given.  All six families run: fuel, luneburg,
+image, sdf, focalstack and fiber.
 
 Usage::
 
@@ -90,13 +91,13 @@ def run(path: str, section: Optional[str] = None, result_dir: Optional[str] = No
     family = infer_family(path, params)
     if family not in FAMILIES:
         raise ValueError(f"unknown experiment family {family!r}")
-    if family == "fiber":
-        raise NotImplementedError(
-            "experiment family 'fiber' needs the cylinder field and the cable tracer "
-            "(ROADMAP.md A6)")
     if result_dir:
         os.makedirs(result_dir, exist_ok=True)
     hooks = dict(device=device, stat_fn=stat_fn, metrics=metrics)
+
+    if family == "fiber":
+        from . import fiber
+        return fiber.multires_exp(params, result_dir, **hooks)
 
     if family == "fuel":
         from . import fuel_injection

@@ -3,7 +3,8 @@
 Each ``csrc/*.cu`` has a plain C interface (no PyTorch headers), so ``nvcc``
 compiles it in seconds; all of them compile in parallel into one shared library
 each.  A source may hold more than one kernel (``SOURCE``: K2 ``trace_fwd`` and
-K5 ``trace_ckpt`` are one stepper loop in ``trace_fwd.cu``).  Libraries go to
+K5 ``trace_ckpt`` are one stepper loop in ``trace_fwd.cu``, K7 ``trace_cable``
+and K9 ``trace_cable_ckpt`` one in ``trace_cable.cu``).  Libraries go to
 ``kernels/_build/`` (git-ignored) under a name that carries a hash of the
 sources and flags, so an edited source is rebuilt and an unchanged one is
 reused.
@@ -28,9 +29,11 @@ from typing import Dict
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent / "_build"
 KERNELS = ("eval_grad", "trace_fwd", "backtrace", "gather_rows", "trace_ckpt",
-           "backtrace_exact")
+           "backtrace_exact", "trace_cable", "backtrace_cable", "trace_cable_ckpt",
+           "backtrace_cable_exact")
 #: the source (``csrc/<name>.cu``) that holds each kernel
-SOURCE = {**{k: k for k in KERNELS}, "trace_ckpt": "trace_fwd"}
+SOURCE = {**{k: k for k in KERNELS}, "trace_ckpt": "trace_fwd",
+          "trace_cable_ckpt": "trace_cable"}
 NVCC_FLAGS = (
     "-gencode=arch=compute_90a,code=sm_90a", "-std=c++17", "-O3", "-fmad=false",
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",

@@ -58,6 +58,35 @@ K6 ``backtrace_exact`` (csrc/backtrace_exact.cu)
     neighbouring positions; K3's run sums and warp sums, on the global path
     at every grid size (an H100 ran K6's first design 1.6-1.7 times slower
     on the shared path, at every fuel stage where K3 takes it).
+
+The cable kernels trace a radial profile (``fields/cylinder.py``) toward a
+target point per ray; their field code is ``csrc/cylinder.cuh``, one stepper
+for K7, K9 and K10's replay.  They take no ray order (the profile is a few
+hundred words, L1-resident), and the adjoints sum the gradient in float64
+whatever the profile's type (the wrappers return it so; callers cast).
+
+K7 ``trace_cable`` (csrc/trace_cable.cu)
+    replaces the cable stepper loop ``tracer/eikonal.py::trace_cable``; bound
+    by operations (a square root and four divisions a step in each ray's
+    dependent chain); one thread a ray, the whole loop in the kernel, a ray
+    leaving it when it freezes; closest approach ``(xt, vt, d2)`` bit for bit
+    the plain version's.
+K8 ``backtrace_cable`` (csrc/backtrace_cable.cu)
+    replaces the cable adjoint sweep ``tracer/eikonal.py::backtrace_cable``;
+    bound by operations and the splat's adds onto ``res`` words: a ray sums
+    its splats per pair of bins in registers and adds them to its block's
+    private gradient in shared memory when the pair changes, each block adds
+    its gradient to device memory once.
+K9 ``trace_cable_ckpt`` (csrc/trace_cable.cu, K7's loop with checkpoints)
+    the exact cable gradient's forward pass, replacing
+    ``tracer/checkpointed.py::_fwd_ckpts_cable``: also writes ``(x, v, esc)``
+    at each segment start before the ray freezes and the capture step ``c``.
+K10 ``backtrace_cable_exact`` (csrc/backtrace_cable_exact.cu)
+    the exact cable gradient's backward pass, replacing
+    ``tracer/checkpointed.py::_bwd_segments_cable``: per ray the segments below
+    its capture step, last to first, each replayed with K7's step, then K8's
+    adjoint update in reverse gated by ``k < c``; K8's run sums and
+    block-private gradient.
 """
 
 from __future__ import annotations
@@ -89,8 +118,14 @@ _ARGTYPES = {
                    _I, _I, _VP],
     "backtrace_exact": [_I, _VP, _I, _I, _I, _D, _D, _VP, _VP, _VP, _VP, _VP, _VP, _VP, _VP,
                         _I, _I, _I, _VP],
+    "trace_cable": [_I, _VP, _I, _D, _D, _D, _VP, _VP, _VP, _VP, _VP, _VP, _I, _I, _VP],
+    "backtrace_cable": [_I, _VP, _I, _D, _D, _D, _D, _VP, _VP, _VP, _VP, _VP, _I, _I, _VP],
+    "trace_cable_ckpt": [_I, _VP, _I, _D, _D, _D, _VP, _VP, _VP, _VP, _VP, _VP, _VP, _VP, _I,
+                         _I, _I, _VP],
+    "backtrace_cable_exact": [_I, _VP, _I, _D, _D, _D, _VP, _VP, _VP, _VP, _VP, _I, _I, _I,
+                              _VP],
 }
-#: the states a checkpoint holds: x, v, inside
+#: the states a checkpoint holds: x, v, inside (the cable kernels: x, v, esc)
 CKPT_WIDTH = 7
 _VEC_BYTES = 16  # K4 moves 128-bit vectors
 _INT_MAX = 2 ** 31 - 1
@@ -356,6 +391,127 @@ def backtrace_exact(data: torch.Tensor, h: float, ckpts: torch.Tensor, c: torch.
                         order.data_ptr(), c.data_ptr(), code.data_ptr(), dx.data_ptr(),
                         dv.data_ptr(), out.data_ptr(), _ptr(tally), n, ckpts.shape[0],
                         int(seg))
+    return out
+
+
+def _check_profile(data: torch.Tensor, name: str) -> None:
+    if not data.is_cuda:
+        raise ValueError(f"{name}: the kernel takes CUDA tensors, got a profile on {data.device}")
+    if data.dtype not in (torch.float32, torch.float64):
+        raise TypeError(f"{name}: profile must be float32 or float64, got {data.dtype}")
+    if data.ndim != 1 or not data.is_contiguous() or data.shape[0] < 2:
+        raise ValueError(f"{name}: profile must be a contiguous (res,) tensor with res >= 2, "
+                         f"got shape {tuple(data.shape)}")
+    if data.shape[0] * 8 > SHARED_BYTES_MAX:
+        raise ValueError(f"{name}: a profile of {data.shape[0]} bins does not fit a block's "
+                         f"shared memory as float64 ({SHARED_BYTES_MAX} bytes)")
+
+
+def _launch_on_profile(name: str, data: torch.Tensor, radius: float, length: float,
+                       ds: float, *args) -> None:
+    """:func:`_launch` for the cable kernels, whose first arguments are the profile."""
+    _launch(name, data.device, int(data.dtype == torch.float64), data.data_ptr(),
+            data.shape[0], float(radius), float(length), float(ds), *args)
+
+
+def _grad_out(data: torch.Tensor, out: Optional[torch.Tensor], name: str) -> torch.Tensor:
+    """The float64 ``(res,)`` sum the cable adjoints add into (zeros when not given)."""
+    if out is None:
+        return torch.zeros((data.shape[0],), dtype=torch.float64, device=data.device)
+    if (out.device != data.device or out.dtype != torch.float64
+            or out.shape != (data.shape[0],) or not out.is_contiguous()):
+        raise ValueError(f"{name}: out must be a contiguous float64 ({data.shape[0]},) tensor "
+                         f"on {data.device}")
+    return out
+
+
+def trace_cable(data: torch.Tensor, radius: float, length: float, x0: torch.Tensor,
+                v0: torch.Tensor, target: torch.Tensor, ds: float, max_steps: int
+                ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """K7: closest approach ``(xt, vt, d2)`` of the rays ``(x0, v0)`` to their
+    ``target`` (N, 3) in the cylinder of the profile ``data`` (res,)."""
+    _check_profile(data, "trace_cable")
+    n_rays = _check_rays(data, "trace_cable", x0=x0, v0=v0, target=target)
+    xt, vt = torch.empty_like(x0), torch.empty_like(v0)
+    d2 = torch.empty((n_rays,), dtype=data.dtype, device=data.device)
+    if n_rays:
+        _launch_on_profile("trace_cable", data, radius, length, ds, x0.data_ptr(),
+                           v0.data_ptr(), target.data_ptr(), xt.data_ptr(), vt.data_ptr(),
+                           d2.data_ptr(), n_rays, int(max_steps))
+    return xt, vt, d2
+
+
+def backtrace_cable(data: torch.Tensor, radius: float, length: float, xt: torch.Tensor,
+                    vt: torch.Tensor, dx: torch.Tensor, dv: torch.Tensor, ds: float,
+                    max_steps: int, cap: float, out: Optional[torch.Tensor] = None
+                    ) -> torch.Tensor:
+    """K8: the profile gradient from the closest approach and its cotangents,
+    summed in float64 into ``out`` (made zero when not given) and returned.
+    ``cap`` is the cap-plane snap tolerance ``tol * radius``."""
+    _check_profile(data, "backtrace_cable")
+    n_rays = _check_rays(data, "backtrace_cable", xt=xt, vt=vt, dx=dx, dv=dv)
+    out = _grad_out(data, out, "backtrace_cable")
+    if n_rays:
+        _launch_on_profile("backtrace_cable", data, radius, length, ds, float(cap),
+                           xt.data_ptr(), vt.data_ptr(), dx.data_ptr(), dv.data_ptr(),
+                           out.data_ptr(), n_rays, int(max_steps))
+    return out
+
+
+def trace_cable_ckpt(data: torch.Tensor, radius: float, length: float, x0: torch.Tensor,
+                     v0: torch.Tensor, target: torch.Tensor, ds: float, max_steps: int,
+                     seg: int, store_ckpts: bool = True, exit_state: bool = True):
+    """K9: the exact cable gradient's forward pass.
+
+    Returns ``(xt, vt, d2, c, ckpts)``: K7's closest approach and ``c``
+    (int32, the step whose state became the output, 0 if none), ``None``
+    unless ``exit_state``; ``ckpts`` the ``(ceil(max_steps/seg), 7, N)``
+    stack of ``(x, v, esc)`` at each segment start before the ray froze
+    (later entries are not written), ``None`` unless ``store_ckpts``.
+    """
+    _check_profile(data, "trace_cable_ckpt")
+    n_rays = _check_rays(data, "trace_cable_ckpt", x0=x0, v0=v0, target=target)
+    if int(seg) < 1 or int(max_steps) < 0:
+        raise ValueError(f"trace_cable_ckpt: seg {seg} and max_steps {max_steps} must be "
+                         "positive")
+    nseg = -(-int(max_steps) // int(seg))
+    out = [None] * 5
+    if exit_state:
+        out[:4] = (torch.empty_like(x0), torch.empty_like(v0),
+                   torch.empty((n_rays,), dtype=data.dtype, device=data.device),
+                   torch.empty((n_rays,), dtype=torch.int32, device=data.device))
+    if store_ckpts:
+        out[4] = torch.empty((nseg, CKPT_WIDTH, n_rays), dtype=data.dtype, device=data.device)
+    if n_rays:
+        _launch_on_profile("trace_cable_ckpt", data, radius, length, ds, x0.data_ptr(),
+                           v0.data_ptr(), target.data_ptr(), *(_ptr(t) for t in out),
+                           n_rays, int(max_steps), int(seg))
+    return tuple(out)
+
+
+def backtrace_cable_exact(data: torch.Tensor, radius: float, length: float,
+                          ckpts: torch.Tensor, c: torch.Tensor, dx: torch.Tensor,
+                          dv: torch.Tensor, ds: float, seg: int,
+                          out: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """K10: the exact cable gradient, summed in float64 into ``out`` (made zero
+    when not given) and returned; ``ckpts`` and ``c`` as :func:`trace_cable_ckpt`
+    returned them for the same rays, ``dx, dv`` their cotangents."""
+    _check_profile(data, "backtrace_cable_exact")
+    n_rays = _check_rays(data, "backtrace_cable_exact", dx=dx, dv=dv)
+    if (ckpts.device != data.device or ckpts.dtype != data.dtype or ckpts.ndim != 3
+            or ckpts.shape[1:] != (CKPT_WIDTH, n_rays) or not ckpts.is_contiguous()):
+        raise ValueError(f"backtrace_cable_exact: ckpts must be a contiguous (nseg, "
+                         f"{CKPT_WIDTH}, {n_rays}) {data.dtype} tensor on {data.device}, got "
+                         f"{ckpts.dtype} {tuple(ckpts.shape)} on {ckpts.device}")
+    if c.device != data.device or c.dtype != torch.int32 or c.shape != (n_rays,) \
+            or not c.is_contiguous():
+        raise ValueError(f"backtrace_cable_exact: c must be a contiguous int32 ({n_rays},) "
+                         f"tensor on {data.device}, got {c.dtype} {tuple(c.shape)} on {c.device}")
+    out = _grad_out(data, out, "backtrace_cable_exact")
+    if n_rays:
+        _launch_on_profile("backtrace_cable_exact", data, radius, length, ds, ckpts.data_ptr(),
+                           c.data_ptr(), dx.data_ptr(), dv.data_ptr(), out.data_ptr(), n_rays,
+                           ckpts.shape[0], int(seg))
     return out
 
 

@@ -15,6 +15,12 @@ These are the **plain versions** of the CUDA kernels
 ``while`` over batched tensors, with ``index_add_`` for the splat.  They are
 the oracle the kernels are held against and what CPU tensors run through;
 ``tracer/api.py`` sends CUDA tensors to the kernels instead.
+
+The cylinder variant (``trace_cable``, ``backtrace_cable``, and
+``trace_cable_scan``, the fixed-trip loop the tape differentiates) traces a
+radial profile (``fields/cylinder.py``) toward a target point per ray and
+reports the closest approach; its kernels are ``kernels/csrc/trace_cable.cu``
+and ``kernels/csrc/backtrace_cable.cu``.
 """
 
 from __future__ import annotations
@@ -23,6 +29,7 @@ from typing import Optional
 
 import torch
 
+from ..fields import cylinder as C
 from ..fields import grid as G
 
 
@@ -155,4 +162,141 @@ def backtrace(field: G.GridField, xt, vt, dx, dv, ds: float, max_steps: int,
         stats["evals"] = evals
         stats["splats"] = splats
         stats["flushes"] = flushes
+    return g
+
+
+# ---------------------------------------------------------------------------
+# The cylinder (cable) variant
+# ---------------------------------------------------------------------------
+
+def sum_sq3(d):
+    """Squared norm of the rows of ``d`` (N, 3), summed in the kernels' order."""
+    return (d[:, 0] * d[:, 0] + d[:, 1] * d[:, 1]) + d[:, 2] * d[:, 2]
+
+
+def cable_step(field: C.CylinderField, x, v, active, ds_t):
+    """One step of the cable stepper: the eval is unmasked, only active lanes
+    move (``v += ds*n*grad n; x += ds*v``); returns the new ``x, v``."""
+    n, nx = C.cyl_eval_grad(field, x)
+    vn = v + (ds_t * n)[:, None] * nx
+    v = _where3(active, vn, v)
+    return _where3(active, x + ds_t * v, x), v
+
+
+def cable_advance(field: C.CylinderField, x, v, inside, esc, target, ds_t):
+    """One step of the cable stepper with its bookkeeping: only the lanes not
+    yet escaped move; returns the new ``x``, ``v``, squared distance to
+    ``target``, ``inside`` and ``esc`` (crossed out of the cylinder, or
+    outside and receding)."""
+    x, v = cable_step(field, x, v, ~esc, ds_t)
+    cur_inside = C.cyl_inbounds(field, x)
+    esc = esc | (inside & ~cur_inside) | C.cyl_escaped(field, x, v)
+    return x, v, sum_sq3(x - target), cur_inside, esc
+
+
+def trace_cable(field: C.CylinderField, x0, v0, target, ds: float, max_steps: int,
+                stats: Optional[dict] = None):
+    """Cylinder-volume trace toward ``target`` (N, 3); returns the closest
+    approach ``(xt, vt, dist2)``.
+
+    Only active (not yet escaped) lanes advance, and the closest approach is
+    captured at every step where the squared distance drops (``cur < d2``),
+    not at the crossing.  A lane freezes once it crosses out of the cylinder
+    or is outside and receding (``cyl_escaped``); a frozen lane's distance no
+    longer changes, so leaving the loop per lane is exact.  ``stats`` gets
+    ``ray_steps``: the steps taken by lanes still active.
+    """
+    inside = C.cyl_inbounds(field, x0)
+    esc = torch.zeros_like(inside)
+    ds_t = G._scalar(ds, x0)
+    d2 = sum_sq3(x0 - target)
+    x, v, xt, vt = x0, v0, x0, v0
+    ray_steps = 0
+
+    step = 0
+    while step < max_steps and not bool(esc.all()):
+        if stats is not None:
+            ray_steps += int((~esc).sum())
+        x, v, cur_d2, inside, esc = cable_advance(field, x, v, inside, esc, target, ds_t)
+        closer = cur_d2 < d2
+        xt = _where3(closer, x, xt)
+        vt = _where3(closer, v, vt)
+        d2 = torch.where(closer, cur_d2, d2)
+        step += 1
+    if stats is not None:
+        stats["ray_steps"] = ray_steps
+    return xt, vt, d2
+
+
+def trace_cable_scan(field: C.CylinderField, x0, v0, target, ds: float, max_steps: int):
+    """Fixed-trip twin of :func:`trace_cable` (the JAX ``lax.scan`` version):
+    always ``max_steps`` steps, differentiable with plain autograd.  Frozen
+    lanes do not move, so it returns :func:`trace_cable`'s result."""
+    inside = C.cyl_inbounds(field, x0)
+    esc = torch.zeros_like(inside)
+    ds_t = G._scalar(ds, x0)
+    d2 = sum_sq3(x0 - target)
+    x, v, xt, vt = x0, v0, x0, v0
+    for _ in range(max_steps):
+        x, v, cur_d2, inside, esc = cable_advance(field, x, v, inside, esc, target, ds_t)
+        closer = cur_d2 < d2
+        xt = _where3(closer, x, xt)
+        vt = _where3(closer, v, vt)
+        d2 = torch.where(closer, cur_d2, d2)
+    return xt, vt, d2
+
+
+def backtrace_cable(field: C.CylinderField, xt, vt, dx, dv, ds: float, max_steps: int,
+                    stats: Optional[dict] = None, acc_dtype: Optional[torch.dtype] = None):
+    """Adjoint sweep through the cylinder; returns the radial-profile gradient.
+
+    Per step: unmasked ``x -= ds*v``; the evaluation point ``xe`` is ``x``
+    with its y snapped onto a cap plane (``y = 0`` or ``y = length``) where
+    it lies within ``snap_tol * radius`` of one (1e-9 radii in f64, 1e-3 in
+    f32); eval and Hessian at ``xe``
+    masked by the **old** ``active``; ``v -= ds*n*grad n``; ``active &=
+    !cyl_escaped(xe, -v)``; the splat ``(dn*ds, n*mu*ds)`` masked by the
+    **new** ``active``; then ``la += ds*(dn*grad n + n*H mu)``,
+    ``mu += ds*la``.  Start: ``la = dx``, ``mu = dv + ds*dx``,
+    ``active = !cyl_escaped(xt, -vt)``.  ``stats`` gets ``ray_steps`` (steps
+    of active lanes) and ``splats``; ``acc_dtype`` as for :func:`backtrace`.
+    """
+    ds_t = G._scalar(ds, xt)
+    x, v = xt, vt
+    la = dx
+    mu = dv + ds_t * dx
+    active = ~C.cyl_escaped(field, xt, -vt)
+    g = torch.zeros(field.data.shape, dtype=acc_dtype or field.data.dtype,
+                    device=field.data.device)
+    cap = G._scalar(G.snap_tol(xt.dtype) * field.radius, xt)
+    length = G._scalar(field.length, xt)
+    ray_steps = splats = 0
+
+    step = 0
+    while step < max_steps and bool(active.any()):
+        if stats is not None:
+            ray_steps += int(active.sum())
+        x = x - ds_t * v
+        y = torch.where(x[:, 1].abs() <= cap, torch.zeros_like(x[:, 1]), x[:, 1])
+        y = torch.where((y - length).abs() <= cap, length, y)
+        xe = torch.stack([x[:, 0], y, x[:, 2]], dim=-1)
+        n, nx = C.cyl_eval_grad(field, xe, active)
+        hess = C.cyl_eval_hess(field, xe, active)
+        v = v - (ds_t * n)[:, None] * nx
+
+        active = active & ~C.cyl_escaped(field, xe, -v)
+
+        dn = (mu[:, 0] * nx[:, 0] + mu[:, 1] * nx[:, 1]) + mu[:, 2] * nx[:, 2]
+        dnx = n[:, None] * mu
+        if stats is not None:
+            splats += int(active.sum())
+        C.cyl_scatter_into(g, field, xe, dn * ds_t, dnx * ds_t, active)
+
+        la = la + ds_t * (dn[:, None] * nx + n[:, None] * C.cyl_hess_matvec(hess, mu))
+        mu = mu + ds_t * la
+        step += 1
+
+    if stats is not None:
+        stats["ray_steps"] = ray_steps
+        stats["splats"] = splats
     return g

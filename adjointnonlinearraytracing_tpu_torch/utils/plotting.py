@@ -1,6 +1,6 @@
 """Image and loss-plot dumps of the experiments.
 
-The port's own copy of what the fuel-injection trainer uses of
+The port's own copy of what the experiment drivers use of
 ``adjointnonlinearraytracing_tpu/utils/plotting.py``.  ``matplotlib`` is
 imported inside the functions, so nothing else needs it.
 """
@@ -52,5 +52,21 @@ def save_loss_plot(loss_hist, outname: str):
     plt.xlabel("iteration")
     plt.ylabel("loss")
     plt.yscale("log")
+    fig.savefig(outname, bbox_inches="tight", dpi=100)
+    plt.close(fig)
+
+
+def save_profile_plot(profile, grad, outname: str):
+    """Radial profile and its gradient side by side (the fiber driver's dump)."""
+    import matplotlib
+    matplotlib.use("Agg")
+    import matplotlib.pyplot as plt
+
+    _ensure_dir(outname)
+    fig, ax = plt.subplots(1, 2, figsize=(8, 3))
+    ax[0].plot(_to_numpy(profile))
+    ax[0].set_title("radial profile")
+    ax[1].plot(_to_numpy(grad))
+    ax[1].set_title("gradient profile")
     fig.savefig(outname, bbox_inches="tight", dpi=100)
     plt.close(fig)

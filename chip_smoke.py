@@ -58,6 +58,23 @@ result.  Phases (any failure is an uncaught exception):
       with 2^16 of its rays (K2, K5 bitwise, K3, K6 against the f64 sum of the
       same terms, K3's path); and each driver in f64 at a small size on the
       card against the CPU.
+   h. the GRIN-fiber driver (``params-fiber.yaml`` ``default``) through
+      ``runner.run`` at its shipped size and depth: 840 Adam steps, 3 -> 129
+      bins, two passes of 4,096 rays a step, spot checks and escalation on;
+      the cable kernels' launches asserted per stage and in all; per stage
+      the step time, K7-K10's times per launch and shares of their bounds,
+      the host's share; the final loss and the profile's L2 distance to
+      ``ground_truth(129)``; then the driver in f64 at a small size on the
+      card against the CPU.
+   Before the main paths, the cable kernels K7 ``trace_cable``, K8
+   ``backtrace_cable``, K9 ``trace_cable_ckpt`` and K10
+   ``backtrace_cable_exact`` are held against their plain versions on the
+   fiber source's rays (``cable_check``): at 17 bins and 512 rays in f64 and at
+   the path's full width (129 bins, 4,096 rays, f32): K7 and K9 (closest
+   approach, capture steps, checkpoint rows read) bitwise, K8 and K10 1e-9 in
+   f64 and 1e-5 of the f64 sum of the same terms in f32, with their times and
+   bounds; and ``api.trace_cable`` against ``trace_cable_exact`` in f64, whole
+   and chunked, and against the CPU (``cable_api_check``).
 5. report  - one JSON line of the kernels, then the result line.
 
 Bounds use the published peaks of one H100 SXM: 3.35 TB/s of device memory,
@@ -86,8 +103,11 @@ from adjointnonlinearraytracing_tpu_torch.benchmarks import probe_dma_gather
 from adjointnonlinearraytracing_tpu_torch.benchmarks.scenes import build_case
 from adjointnonlinearraytracing_tpu_torch import sensors
 from adjointnonlinearraytracing_tpu_torch.experiments import fuel_injection, voxel_scenes
-from adjointnonlinearraytracing_tpu_torch.experiments import focalstack, image, luneburg, runner
+from adjointnonlinearraytracing_tpu_torch.experiments import fiber, focalstack, image, luneburg
+from adjointnonlinearraytracing_tpu_torch.experiments import runner
+from adjointnonlinearraytracing_tpu_torch.fields import cylinder as cyl
 from adjointnonlinearraytracing_tpu_torch.fields import grid as G
+from adjointnonlinearraytracing_tpu_torch.fields.cylinder import CylinderField, cyl_eval_grad
 from adjointnonlinearraytracing_tpu_torch.kernels import build
 from adjointnonlinearraytracing_tpu_torch.kernels import wrappers as K
 from adjointnonlinearraytracing_tpu_torch import tracer
@@ -516,8 +536,8 @@ def exact_api_check():
           f"{bool(torch.equal(xt_e, xt_a))}, gradient rel_err {e_tape:.3e} (tol {TOL_F64:g}); "
           f"chunked by 100 against whole {e_chunk:.3e}; the adjoint (api.trace) against "
           f"trace_ad {rel_err(g_d, g_a)[0]:.3e}; launches {launches}", flush=True)
-    want = {"eval_grad": 0, "trace_fwd": 0, "backtrace": 0, "gather_rows": 0,
-            "trace_ckpt": 1 + 1 + 6, "backtrace_exact": 1 + 6}
+    want = {**{name: 0 for name in build.KERNELS}, "trace_ckpt": 1 + 1 + 6,
+            "backtrace_exact": 1 + 6}
     if launches != want:
         raise AssertionError(f"trace_exact must launch {want}, counted {launches}")
     if not (torch.equal(xt_e, xt_a) and torch.equal(xt_c, xt_a)):
@@ -1408,6 +1428,467 @@ def driver_small_check(name):
         raise AssertionError(f"{name}: the driver on the card disagrees with the CPU")
 
 
+# ---------------------------------------------------------------------------
+# the GRIN-fiber driver: the cylinder field and the cable kernels K7-K10
+# ---------------------------------------------------------------------------
+
+FIBER_YAML = "params-fiber.yaml"
+# the shipped section's size: 30 * (1 + ... + 7) Adam steps, 64^2 rays a pass
+FIBER_STEPS, FIBER_RAYS = 840, 4096
+# the f64 cable check: 17 bins, 512 of the fiber source's rays
+CABLE_SMALL = (17, 512)
+# Least arithmetic of the cable kernels, counted as above.  K7 and K9, per step
+# of an active ray: the radial set-up x - R, z - R (2), r^2 (3), sqrt (1), r/h
+# (1), floor and rm - i0 (2), 1 - w0 (1); the value and the radial derivative
+# as a lerp sharing its difference (4); the gradient (rx/r) times xs on x and
+# z (3); v += (ds*n)*grad on x and z (5); x += ds*v (6); |x - target|^2 (8);
+# escaped's pl . v on x and z (3) (inbounds' r^2 is the next step's set-up).
+FLOPS_CABLE_FWD_STEP = 39
+# K8, per step of an active ray: x -= ds*v (6), the cap snap's y - length
+# (1), the set-up (10), value and derivative (4), xhat (2) and the gradient
+# (2), the Hessian's scale rx/r and its three entries (9), v update (5),
+# escaped (3), dn = mu . grad on x and z (3), H mu (6), la on x and z (10:
+# its y component does not move), mu += ds*la (6).
+FLOPS_CABLE_BWD_STEP = 67
+# per splat: dn*ds (1), g . xhat = (n*ds) * (mu . xhat) (5), / h (1), the two
+# bins' terms (4), added to the ray's run (2)
+FLOPS_CABLE_SPLAT = 13
+# K10, per gated-on step: the replayed step (the forward's without the
+# distance: 31), and on the replay's n and grad n at x_k: the Hessian (9),
+# dn (3), H mu (6), la (10), mu (6); each splats.
+FLOPS_CABLE_EXACT_STEP = 65
+
+
+def fiber_params():
+    return runner.cfg.load_params(os.path.join(CONFIGS, FIBER_YAML))
+
+
+def cable_scene(res, n_rays, dtype, seed=0):
+    """The fiber path's rays at ``res`` bins: one draw of its source (``n_rays``
+    of them at random, or all), normalised on entry as the driver does, with
+    the hop pass's targets, on the ground-truth profile plus 1 % noise."""
+    params = fiber_params()
+    radius, length = params["cable_radius"], params["cable_length"]
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    rays = fiber.gen_start_rays(params, gen, dtype)
+    x, v, planes = rays.x, rays.v, rays.planes
+    if n_rays is not None:
+        idx = torch.randperm(x.shape[0], generator=gen, device="cuda")[:n_rays]
+        x, v, planes = x[idx], v[idx], planes[idx]
+    prof = fiber.ground_truth(res, dtype, "cuda") + 0.01 * torch.rand(
+        res, generator=gen, dtype=dtype, device="cuda")
+    field = CylinderField(prof, radius, length)
+    v = v / cyl_eval_grad(field, x)[0][:, None]
+    hop = params.get("hop_distance", 3.14)  # the driver's default
+    ds = radius / res / 2
+    return dict(prof=prof, field=field, radius=radius, length=length, x=x.contiguous(),
+                v=v.contiguous(), target=(planes[:, 0] + hop * planes[:, 1]).contiguous(),
+                ds=ds, steps=api.cable_steps(length, ds))
+
+
+def _host_ms(fn):
+    """One call of a plain version on the card, host clock after a synchronise."""
+    torch.cuda.synchronize()
+    t0 = time.time()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, 1e3 * (time.time() - t0)
+
+
+def cable_check(s, label, times=False):
+    """K7-K10 against their plain versions on the scene ``s``: K7's closest
+    approach and K9's (with its capture steps and every checkpoint row the
+    backward pass reads) bitwise; K8 and K10 within ``TOL_F64`` of the plain
+    versions in f64, and in f32 within ``TOL_F32_GRAD`` of the plain versions'
+    f64 sum of the same f32 terms (``acc_dtype``), both over the largest entry.
+    ``times``: the kernels' and plain versions' times and the bounds, from the
+    plain versions' counts of this scene's work.  Returns the row and failures."""
+    prof, field, radius, length = s["prof"], s["field"], s["radius"], s["length"]
+    x, v, tg, ds, steps = s["x"], s["v"], s["target"], s["ds"], s["steps"]
+    f64 = prof.dtype == torch.float64
+    acc = None if f64 else torch.float64
+    cap = G.snap_tol(prof.dtype) * radius
+    fw, bw, efw, ebw = {}, {}, {}, {}
+    (xt_p, vt_p, d2_p), plain7 = _host_ms(
+        lambda: E.trace_cable(field, x, v, tg, ds, steps, stats=fw))
+    xt_k, vt_k, d2_k = K.trace_cable(prof, radius, length, x, v, tg, ds, steps)
+    dx, dv = 2.0 * (xt_p - tg), torch.ones_like(vt_p)
+    g_p, plain8 = _host_ms(lambda: E.backtrace_cable(field, xt_p, vt_p, dx, dv, ds, steps,
+                                                     stats=bw, acc_dtype=acc))
+    g_k = K.backtrace_cable(prof, radius, length, xt_p, vt_p, dx, dv, ds, steps, cap)
+    (xt_e, vt_e, d2_e, c_p, ck_p), plain9 = _host_ms(
+        lambda: CK._fwd_ckpts_cable(field, x, v, tg, ds, steps, SEG, stats=efw))
+    xt_9, vt_9, d2_9, c_9, ck_9 = K.trace_cable_ckpt(prof, radius, length, x, v, tg, ds, steps,
+                                                     SEG)
+    g_ep, plain10 = _host_ms(lambda: CK._bwd_segments_cable(field, ck_p, c_p, dx, dv, ds, SEG,
+                                                            acc_dtype=acc, stats=ebw))
+    g_10 = K.backtrace_cable_exact(prof, radius, length, ck_9, c_9, dx, dv, ds, SEG)
+    torch.cuda.synchronize()
+    need = (torch.arange(ck_p.shape[0], device="cuda")[:, None] * SEG) < c_p[None, :]
+    bitwise = dict(
+        k7=bool(torch.equal(xt_k, xt_p) and torch.equal(vt_k, vt_p) and torch.equal(d2_k, d2_p)),
+        k9=bool(torch.equal(xt_9, xt_p) and torch.equal(vt_9, vt_p) and torch.equal(d2_9, d2_p)),
+        k9_capture_steps=bool(torch.equal(c_9, c_p)),
+        k9_checkpoint_rows=bool(torch.equal(ck_9.transpose(1, 2)[need],
+                                            ck_p.transpose(1, 2)[need])),
+        exact_forward_is_adjoints=bool(torch.equal(xt_e, xt_p) and torch.equal(d2_e, d2_p)))
+    errs = {}
+    for name, got, want in (("backtrace_cable", g_k, g_p), ("backtrace_cable_exact", g_10, g_ep)):
+        scale = float(want.abs().max())
+        err = float((got - want.to(got.dtype)).abs().max())
+        errs[name] = dict(abs_err=err, rel_err=err / max(scale, 1e-300), max_abs_g=scale)
+    tol = TOL_F64 if f64 else TOL_F32_GRAD
+    n, res, item = x.shape[0], prof.shape[0], prof.element_size()
+    rows = int(need.sum())
+    row = dict(label=label, rays=n, res=res, steps=steps, bitwise=bitwise, errs=errs, tol=tol,
+               work=dict(k7_ray_steps=fw["ray_steps"], k8_ray_steps=bw["ray_steps"],
+                         k8_splats=bw["splats"], k9_ray_steps=efw["ray_steps"],
+                         k10_gated_steps=ebw["ray_steps"], checkpoint_rows_read=rows,
+                         max_c=int(c_p.max()), checkpoint_mb=ck_9.numel() * item / 1e6))
+    if times:
+        # what this scene's data needs: each input read once, each output (and
+        # each checkpoint row the backward pass reads) written once; the
+        # ray-steps and splats the plain versions counted
+        rec = {
+            "trace_cable": dict(bytes=16 * n * item + res * item,
+                                flops=fw["ray_steps"] * FLOPS_CABLE_FWD_STEP),
+            "backtrace_cable": dict(bytes=12 * n * item + res * item + res * 8,
+                                    flops=bw["ray_steps"] * FLOPS_CABLE_BWD_STEP
+                                    + bw["splats"] * FLOPS_CABLE_SPLAT),
+            "trace_cable_ckpt": dict(bytes=16 * n * item + 4 * n + rows * 7 * item + res * item,
+                                     flops=efw["ray_steps"] * FLOPS_CABLE_FWD_STEP),
+            "backtrace_cable_exact": dict(
+                bytes=rows * 7 * item + 4 * n + 6 * n * item + res * item + res * 8,
+                flops=ebw["ray_steps"] * (FLOPS_CABLE_EXACT_STEP + FLOPS_CABLE_SPLAT)),
+        }
+        calls = {
+            "trace_cable": lambda: K.trace_cable(prof, radius, length, x, v, tg, ds, steps),
+            "backtrace_cable": lambda: K.backtrace_cable(prof, radius, length, xt_p, vt_p, dx, dv,
+                                                         ds, steps, cap),
+            "trace_cable_ckpt": lambda: K.trace_cable_ckpt(prof, radius, length, x, v, tg, ds,
+                                                           steps, SEG),
+            "backtrace_cable_exact": lambda: K.backtrace_cable_exact(prof, radius, length, ck_9,
+                                                                     c_9, dx, dv, ds, SEG),
+        }
+        for name, plain in zip(calls, (plain7, plain8, plain9, plain10)):
+            set_bound(rec[name])
+            rec[name].update(ms=time_ms(calls[name], 5), plain_ms=plain, library_ms=None)
+            rec[name]["share_of_bound"] = rec[name]["bound_ms"] / rec[name]["ms"]
+        row["times"] = rec
+    print(f"cable[{label}, {n} rays, {res} bins, {steps} steps] bitwise equal {bitwise}; "
+          + "; ".join(f"{k} rel_err {e['rel_err']:.3e} (max |g| {e['max_abs_g']:.4g})"
+                      for k, e in errs.items())
+          + f" against the plain version{'' if f64 else ' summed in f64 from the same f32 terms'}"
+          f" (tol {tol:g}); work {json.dumps(row['work'])}"
+          + ("; " + ", ".join(f"{k} {r['ms']:.4f} ms (bound {r['bound_ms']:.5f} {r['bound_by']}, "
+                               f"{100 * r['share_of_bound']:.2f} %; plain {r['plain_ms']:.0f} ms)"
+                               for k, r in row.get("times", {}).items()) if times else ""),
+          flush=True)
+    failures = []
+    if not all(bitwise.values()):
+        failures.append(f"K7 or K9 is not bitwise equal to its plain version at {label}: "
+                        f"{bitwise}")
+    for name, e in errs.items():
+        if not (e["rel_err"] <= tol and e["max_abs_g"] > 0):
+            failures.append(f"{name} disagrees with its plain version at {label}: "
+                            f"{e['rel_err']:.3e}")
+    return row, failures
+
+
+def cable_api_check():
+    """``api.trace_cable`` (K7, K8) against ``trace_cable_exact`` (K9, K10) in
+    f64 on the card, whole and chunked (``ANRT_EXACT_CHUNK``), and against
+    ``api.trace_cable`` on the CPU (the plain versions); a loss with a term in
+    ``dist2``, whose cotangent every rule drops."""
+    s = cable_scene(*CABLE_SMALL, torch.float64, seed=5)
+    args = (s["radius"], s["length"], s["x"], s["v"], s["target"], s["ds"])
+
+    def grad(fn, device="cuda"):
+        p = s["prof"].to(device).clone().requires_grad_(True)
+        xt, vt, d2 = fn(p, *(a.to(device) if torch.is_tensor(a) else a for a in args))
+        ((xt ** 2 + xt * vt).sum() + d2.sum()).backward()
+        return xt.detach().cpu(), p.grad.cpu()
+
+    saved = os.environ.get("ANRT_EXACT_CHUNK")
+    K.reset_launches()
+    try:
+        xt_a, g_a = grad(api.trace_cable)
+        xt_e, g_e = grad(CK.trace_cable_exact)
+        os.environ["ANRT_EXACT_CHUNK"] = "100"  # 6 chunks, the last one short
+        xt_c, g_c = grad(CK.trace_cable_exact)
+    finally:
+        if saved is None:
+            os.environ.pop("ANRT_EXACT_CHUNK", None)
+        else:
+            os.environ["ANRT_EXACT_CHUNK"] = saved
+    launches = {k: K.LAUNCHES[k] for k in CABLE_KERNELS}
+    xt_cpu, g_cpu = grad(api.trace_cable, "cpu")
+    e_ex, e_chunk, e_cpu = rel_err(g_a, g_e)[0], rel_err(g_c, g_e)[0], rel_err(g_a, g_cpu)[0]
+    print(f"cable[f64 {CABLE_SMALL[0]} bins x {CABLE_SMALL[1]}, api] trace_cable against "
+          f"trace_cable_exact: gradient rel_err {e_ex:.3e}; exact chunked by 100 against whole "
+          f"{e_chunk:.3e}; the card against the CPU {e_cpu:.3e} (tol {TOL_F64:g}); launches "
+          f"{launches}", flush=True)
+    want = {"trace_cable": 1, "backtrace_cable": 1, "trace_cable_ckpt": 1 + 1 + 6,
+            "backtrace_cable_exact": 1 + 6}
+    if launches != want:
+        raise AssertionError(f"the cable API must launch {want}, counted {launches}")
+    if not (torch.equal(xt_a, xt_e) and torch.equal(xt_a, xt_c)):
+        raise AssertionError("trace_cable_exact's closest approach differs from trace_cable's")
+    if not (e_ex <= TOL_F64 and e_chunk <= TOL_F64 and e_cpu <= TOL_F64
+            and float(g_e.abs().max()) > 0):
+        raise AssertionError("the cable gradients on the card disagree")
+
+
+CABLE_KERNELS = ("trace_cable", "backtrace_cable", "trace_cable_ckpt", "backtrace_cable_exact")
+
+
+def expected_fiber_launches(params, escalated, nrays):
+    """The launches a fiber run of ``params`` implies when its escalation fired
+    at stage ``escalated`` (None: never), with ``nrays`` rays a step.
+
+    Each step traces two passes (the near and the hop focus), each a forward
+    and a backward launch of the stage's gradient: K7 and K8 before the
+    escalation, K9 and K10 from it on (above ``ANRT_EXACT_CHUNK`` a K9 for the
+    forward pass and a K9 and a K10 a chunk).  The start-up spot check (the
+    adjoint against the tape) is one K7 and one K8, the tape launching none;
+    each per-stage check (every stage after the first, up to the one that
+    escalates) one K7, K8, K9 and K10.  Returns the steps, the launches in
+    all and the launches of each stage."""
+    res_list, iters = params["res_list"], params["optim_iters"]
+    stages = len(res_list)
+    first_exact = stages if escalated is None else escalated
+    last_check = stages - 1 if escalated is None else escalated
+    chunks = len(CK._chunks(nrays, CK.exact_chunk_rays()))
+    total = {name: 0 for name in build.KERNELS}
+    per_stage = []
+    for s in range(stages):
+        n = iters * (s + 1)
+        adjoint, exact = (0, n) if s >= first_exact else (n, 0)
+        check = int(params.get("auto_exact", True) and 1 <= s <= last_check)
+        start = int(s == 0 and params.get("grad_spotcheck", True))
+        k = {name: 0 for name in build.KERNELS}
+        k["trace_cable"] = 2 * adjoint + check + start
+        k["backtrace_cable"] = 2 * adjoint + check + start
+        k["trace_cable_ckpt"] = 2 * exact * (chunks + (chunks > 1)) + check
+        k["backtrace_cable_exact"] = 2 * exact * chunks + check
+        per_stage.append(k)
+        for name in total:
+            total[name] += k[name]
+    return iters * stages * (stages + 1) // 2, total, per_stage
+
+
+def fiber_stage_work(eta, params, rays, exact, res):
+    """The work of one step at ``res`` bins on the run's final profile
+    resampled there, as the plain versions count it on one draw of the path's
+    rays (both passes): K7 and K8's ray-steps and splats, or K9's ray-steps
+    and K10's gated-on steps and the checkpoint rows read."""
+    radius, length = params["cable_radius"], params["cable_length"]
+    prof = cyl.upres_profile(eta, res).contiguous()
+    field = CylinderField(prof, radius, length)
+    ds = radius / res / 2
+    steps = api.cable_steps(length, ds)
+    v = (rays.v / cyl_eval_grad(field, rays.x)[0][:, None]).contiguous()
+    work = dict(k7_ray_steps=0, k8_ray_steps=0, k8_splats=0, k9_ray_steps=0,
+                k10_gated_steps=0, rows=0)
+    for hop in (0.0, params.get("hop_distance", 3.14)):
+        tg = (rays.planes[:, 0] + hop * rays.planes[:, 1]).contiguous()
+        fw, bw = {}, {}
+        if not exact:
+            xt, vt, _ = E.trace_cable(field, rays.x, v, tg, ds, steps, stats=fw)
+            E.backtrace_cable(field, xt, vt, torch.ones_like(xt), torch.ones_like(vt), ds, steps,
+                              stats=bw)
+            work["k7_ray_steps"] += fw["ray_steps"]
+            work["k8_ray_steps"] += bw["ray_steps"]
+            work["k8_splats"] += bw["splats"]
+        else:
+            c = CK._fwd_ckpts_cable(field, rays.x, v, tg, ds, steps, SEG, store_ckpts=False,
+                                    stats=fw)[3]
+            work["k9_ray_steps"] += fw["ray_steps"]
+            work["k10_gated_steps"] += int(c.sum())
+            work["rows"] += int(((c + SEG - 1) // SEG).sum())
+    n, item = rays.x.shape[0], prof.element_size()
+    if not exact:
+        return {"trace_cable": set_bound(dict(bytes=2 * (16 * n * item + res * item),
+                                              flops=work["k7_ray_steps"] * FLOPS_CABLE_FWD_STEP)),
+                "backtrace_cable": set_bound(dict(
+                    bytes=2 * (12 * n * item + res * item + res * 8),
+                    flops=work["k8_ray_steps"] * FLOPS_CABLE_BWD_STEP
+                    + work["k8_splats"] * FLOPS_CABLE_SPLAT))}, work
+    rows_bytes = work["rows"] * 7 * item
+    return {"trace_cable_ckpt": set_bound(dict(
+                bytes=2 * (16 * n * item + 4 * n + res * item) + rows_bytes,
+                flops=work["k9_ray_steps"] * FLOPS_CABLE_FWD_STEP)),
+            "backtrace_cable_exact": set_bound(dict(
+                bytes=rows_bytes + 2 * (4 * n + 6 * n * item + res * item + res * 8),
+                flops=work["k10_gated_steps"] * (FLOPS_CABLE_EXACT_STEP + FLOPS_CABLE_SPLAT)))}, work
+
+
+def fiber_path():
+    """The fiber driver through ``runner.run`` on ``params-fiber.yaml``
+    ``default`` at its shipped size and depth (840 steps, 3 -> 129 bins,
+    4,096 rays a pass), as a user runs it: the start-up spot check and the
+    stage escalation on, ``ANRT_EXACT_TOL`` at its default.  Every cable
+    kernel is held to the launches the code implies for the stage the
+    escalation fired at, per stage and in all, and no other kernel launches.
+    Per stage: step time on the host clock (each step ends with the loss read
+    back), the kernels' times from the events around the launches, the host's
+    share, and the kernels' shares of their bounds (work counted by the plain
+    versions on the final profile resampled to the stage)."""
+    params = fiber_params()
+    res_list, iters = params["res_list"], params["optim_iters"]
+    gen_rays = fiber.gen_start_rays(params, torch.Generator(device="cuda").manual_seed(12345))
+    nrays = gen_rays.x.shape[0]
+    if "ANRT_EXACT_TOL" in os.environ:
+        raise AssertionError("ANRT_EXACT_TOL is set: the run would not be a user's run")
+    step_rows, events = [], []
+
+    def stat(it, loss, secs):
+        step_rows.append((it, loss, secs, len(events)))
+
+    metrics = MetricsLogger()
+    K.reset_launches()
+    K.record_events(events)
+    t0 = time.time()
+    try:
+        eta, hist = runner.run(os.path.join(CONFIGS, FIBER_YAML), None, device="cuda",
+                               stat_fn=stat, metrics=metrics)
+        torch.cuda.synchronize()
+    finally:
+        K.record_events(None)
+    seconds = time.time() - t0
+    launches = dict(K.LAUNCHES)
+    escalated = escalation_stage(metrics)
+    steps, want, want_stages = expected_fiber_launches(params, escalated, nrays)
+    got_stages, after = stage_launches(events, step_rows, params)
+    checks = {k: v for row in metrics.history for k, v in row.items()
+              if k.startswith("grad_spotcheck")}
+    print(f"fiber[{FIBER_YAML} default] {nrays} rays a pass ({int(gen_rays.mask.sum())} live "
+          f"in one draw), two passes a step, stages {res_list}, optim_iters {iters}: {steps} "
+          f"Adam steps in {seconds:.2f} s; spot checks {json.dumps(checks)}; escalation to the "
+          f"exact gradient fired at stage {escalated}"
+          + (f" ({res_list[escalated]} bins)" if escalated is not None else "")
+          + f"; launches {launches}", flush=True)
+    if launches != want or got_stages != want_stages or after:
+        raise AssertionError(f"the fiber run must launch {want}, by stage {want_stages}, "
+                             f"counted {launches}, {got_stages} and {len(after)} after the "
+                             "last step")
+    if nrays != FIBER_RAYS or len(hist) != steps or len(step_rows) != steps \
+            or steps != FIBER_STEPS:
+        raise AssertionError("the fiber run is not at its shipped size or lost steps")
+    if not all(map(math.isfinite, hist)):
+        raise AssertionError("a loss of the fiber run is not finite")
+    res = res_list[-1]
+    if eta.shape != (res,) or eta.dtype != torch.float32 or not eta.is_cuda:
+        raise AssertionError(f"the profile is not a ({res},) f32 tensor on the card")
+    if not bool(torch.isfinite(eta).all()) or float(eta.min()) < 1.0 or float(eta[-1]) != 1.0:
+        raise AssertionError("the profile went below 1 or its boundary bin moved")
+    gt = fiber.ground_truth(res, torch.float32, "cuda")
+    l2_gt = float(torch.linalg.norm(eta - gt))
+    l2_start = float(torch.linalg.norm(torch.ones_like(gt) - gt))
+
+    first_exact = len(res_list) if escalated is None else escalated
+    per_stage, first, prev_end = [], 0, 0
+    for s, r in enumerate(res_list):
+        rows = step_rows[first:first + iters * (s + 1)]
+        first += len(rows)
+        exact = s >= first_exact
+        names = ("trace_cable_ckpt", "backtrace_cable_exact") if exact else ("trace_cable",
+                                                                           "backtrace_cable")
+        # the spot check's launches before the stage's first step (512 rays)
+        check_ms = {n_: a.elapsed_time(b) for n_, a, b in events[prev_end:rows[0][3] - 4]}
+        prev_end = rows[-1][3]
+        by_name, kern, sums = {}, [], {}
+        for row in rows:
+            own = events[row[3] - 4:row[3]]  # the step's own launches: two passes
+            if sorted(n_ for n_, _, _ in own) != sorted(names * 2):
+                raise AssertionError(f"fiber: a step's launches at stage {s} are not two of "
+                                     f"{names}")
+            step_sum = {}
+            for n_, a, b in own:
+                t = a.elapsed_time(b)
+                by_name.setdefault(n_, []).append(t)
+                step_sum[n_] = step_sum.get(n_, 0.0) + t
+            kern.append(sum(step_sum.values()))
+            for n_, t in step_sum.items():
+                sums.setdefault(n_, []).append(t)
+        med = median([1e3 * row[2] for row in rows])
+        bounds, work = fiber_stage_work(eta, params, gen_rays, exact, r)
+        key = "grad_spotcheck" if s == 0 else f"grad_spotcheck_stage{s}_rel_l2"
+        st = dict(res=r, steps=len(rows), gradient="exact" if exact else "adjoint",
+                  cable_steps=api.cable_steps(params["cable_length"], params["cable_radius"] / r
+                                              / 2),
+                  step_ms_median=med, rays_per_s=2 * nrays / (1e-3 * med),
+                  kernel_ms_median=median(kern), host_ms=med - median(kern),
+                  host_share=(med - median(kern)) / med,
+                  ms_per_launch={n_: median(t) for n_, t in by_name.items()},
+                  ms_per_step={n_: median(t) for n_, t in sums.items()},
+                  bound_ms={n_: b["bound_ms"] for n_, b in bounds.items()},
+                  bound_by={n_: b["bound_by"] for n_, b in bounds.items()},
+                  share_of_bound={n_: bounds[n_]["bound_ms"] / median(sums[n_]) for n_ in bounds},
+                  work=work, spot_check=checks.get(key), check_ms_per_launch=check_ms,
+                  loss_last=rows[-1][1],
+                  launches=got_stages[s])
+        per_stage.append(st)
+        print(f"fiber stage {s} {r} bins ({st['gradient']}, {st['cable_steps']} steps a ray at "
+              f"most): {len(rows)} steps, median {med:.3f} ms/step = {st['rays_per_s']:.4g} "
+              f"rays/s; kernels {st['kernel_ms_median']:.3f} ms/step "
+              f"({100 * st['kernel_ms_median'] / med:.1f} %), host and small kernels "
+              f"{st['host_ms']:.3f} ms; ms per launch "
+              + ", ".join(f"{n_} {t:.3f}" for n_, t in st["ms_per_launch"].items())
+              + "; per step " + ", ".join(f"{n_} {t:.3f} = {100 * st['share_of_bound'][n_]:.2f} %"
+                                         f" of its bound {st['bound_ms'][n_]:.5f} "
+                                         f"({st['bound_by'][n_]})"
+                                         for n_, t in st["ms_per_step"].items())
+              + f"; work {json.dumps(work)}"
+              + (f"; spot check {st['spot_check']:.3e}" if st["spot_check"] is not None else "")
+              + ("; its launches (512 rays) " + ", ".join(f"{n_} {t:.3f} ms"
+                                                          for n_, t in check_ms.items())
+                 if check_ms else "")
+              + f"; loss {st['loss_last']:.6g}", flush=True)
+    print(f"fiber: loss {hist[0]:.6g} -> {hist[-1]:.6g} (mean of the first 10 "
+          f"{sum(hist[:10]) / 10:.6g}, of the last 10 {sum(hist[-10:]) / 10:.6g}); profile in "
+          f"[{float(eta.min()):.6f}, {float(eta.max()):.6f}]; L2 distance to ground_truth({res}) "
+          f"{l2_gt:.6f} (the flat start's {l2_start:.6f})", flush=True)
+    return dict(seconds=seconds, steps=steps, nrays=nrays, launches=launches,
+                escalated=escalated, per_stage=per_stage, spot_checks=checks,
+                loss_first=hist[0], loss_last=hist[-1], l2_to_ground_truth=l2_gt,
+                l2_start_to_ground_truth=l2_start)
+
+
+def fiber_small_check():
+    """The fiber driver in f64 at a small size, on the card against the CPU,
+    with the same rays on both (drawn once on the CPU, handed to the driver
+    through its ``sample_rays`` hook): loss history and profile within
+    ``TOL_F64``, the card's launches as the code implies, the CPU's none."""
+    params = dict(fiber_params(), res_list=[3, 5, 9], nbins=16, optim_iters=2,
+                  record_iters=10 ** 9, dtype="float64")
+    rays = fiber.gen_start_rays(params, torch.Generator().manual_seed(0), torch.float64)
+    out = {}
+    for device in ("cuda", "cpu"):
+        metrics = MetricsLogger()
+        K.reset_launches()
+        prof, hist = fiber.multires_exp(params, None, device=device, metrics=metrics,
+                                        sample_rays=lambda gen, samples: rays)
+        out[device] = (prof, hist, escalation_stage(metrics), dict(K.LAUNCHES))
+    (p_g, hist_g, esc_g, launches), (p_c, hist_c, esc_c, cpu_launches) = out["cuda"], out["cpu"]
+    steps, want, _ = expected_fiber_launches(params, esc_g, rays.x.shape[0])
+    hist_err = max(abs(a - b) / abs(b) for a, b in zip(hist_g, hist_c))
+    scale = float((p_c - 1.0).abs().max())
+    p_err = float((p_g.cpu() - p_c).abs().max()) / scale
+    print(f"fiber[f64 {params['res_list']}, {rays.x.shape[0]} rays, {steps} steps, escalated at "
+          f"stage {esc_g}] card against CPU: loss history rel_err {hist_err:.3e}, final profile "
+          f"err {p_err:.3e} of its largest deviation from 1 ({scale:.3e}) (tol {TOL_F64:g}); "
+          f"launches on the card {launches}", flush=True)
+    if esc_g != esc_c or launches != want or any(cpu_launches.values()):
+        raise AssertionError(f"fiber: the card escalated at {esc_g} and launched {launches} "
+                             f"(want {want}), the CPU escalated at {esc_c} and launched "
+                             f"{cpu_launches}")
+    if len(hist_g) != steps or not p_g.is_cuda or p_c.is_cuda:
+        raise AssertionError("fiber: the small runs did not run where they were asked to")
+    if not (hist_err <= TOL_F64 and p_err <= TOL_F64 and scale > 0):
+        raise AssertionError("fiber: the driver on the card disagrees with the CPU")
+
+
 BENCH_ITERS = 3
 # forward + adjoint passes of the main path: bench.run's warm-up and timed
 # iterations, and the pass made here through api.trace
@@ -1537,6 +2018,15 @@ def main():
           f"({8 * cmp['issued']} atomic adds)", flush=True)
     work, stage_rows, stage_failures = stage_checks(fuel_params())
     failures += stage_failures
+    cable_small, cable_failures = cable_check(cable_scene(*CABLE_SMALL, torch.float64),
+                                              f"f64 {CABLE_SMALL[0]} bins")
+    failures += cable_failures
+    full_bins = fiber_params()["res_list"][-1]
+    cable_full, cable_failures = cable_check(cable_scene(full_bins, None, torch.float32),
+                                             f"f32 {full_bins} bins", times=True)
+    failures += cable_failures
+    times.update(cable_full["times"])
+    cable_api_check()
 
     gather = gather_check_and_time()
     times["gather_rows"] = gather
@@ -1555,8 +2045,8 @@ def main():
           f"rel-L2 {rec['exact_vs_adjoint_rel_l2']:.3e}", flush=True)
     print(f"launches after bench.run, api.trace and trace_exact: {after_trace}; "
           f"after fields.grid.eval_grad as well: {bench_launches}", flush=True)
-    want = {"eval_grad": 0, "trace_fwd": MAIN_PATH_PASSES, "backtrace": MAIN_PATH_PASSES,
-            "gather_rows": 0, "trace_ckpt": 1, "backtrace_exact": 1}
+    want = {**{name: 0 for name in build.KERNELS}, "trace_fwd": MAIN_PATH_PASSES,
+            "backtrace": MAIN_PATH_PASSES, "trace_ckpt": 1, "backtrace_exact": 1}
     if after_trace != want:
         raise AssertionError(f"{MAIN_PATH_PASSES} forward + adjoint passes and one exact pass "
                              f"must launch {want}, counted {after_trace}")
@@ -1585,13 +2075,17 @@ def main():
     for name in DRIVERS:
         drivers[name].pop("eta")
         driver_small_check(name)
+    fiber_rec = fiber_path()
+    fiber_small_check()
     full_run = fuel_path(FUEL_ITERS_SHIPPED, "f32 full width, shipped optim_iters", work)
     print(f"fuel[shipped] {full_run['steps']} steps in {full_run['seconds']:.1f} s, escalated "
           f"at stage {full_run['escalated']}, rel_norm {full_run['rel_norm']:.4f}", flush=True)
     print("drivers: " + json.dumps(drivers), flush=True)
+    print("fiber: " + json.dumps(fiber_rec), flush=True)
 
     paths = {"bench": bench_launches, "probe": probe_launches, "fuel": fuel["launches"],
-             **{name: d["launches"] for name, d in drivers.items()}}
+             **{name: d["launches"] for name, d in drivers.items()},
+             "fiber": fiber_rec["launches"]}
     replaces = {
         "eval_grad": "adjointnonlinearraytracing_tpu/benchmarks/probe_evalmath.py:107",
         "trace_fwd": "adjointnonlinearraytracing_tpu/tracer/paired.py:64",
@@ -1599,11 +2093,18 @@ def main():
         "gather_rows": "adjointnonlinearraytracing_tpu/benchmarks/probe_dma_gather.py:47",
         "trace_ckpt": "adjointnonlinearraytracing_tpu/tracer/checkpointed.py:107",
         "backtrace_exact": "adjointnonlinearraytracing_tpu/tracer/checkpointed.py:209",
+        "trace_cable": "adjointnonlinearraytracing_tpu/tracer/eikonal.py:187",
+        "backtrace_cable": "adjointnonlinearraytracing_tpu/tracer/eikonal.py:327",
+        "trace_cable_ckpt": "adjointnonlinearraytracing_tpu/tracer/checkpointed.py:724",
+        "backtrace_cable_exact": "adjointnonlinearraytracing_tpu/tracer/checkpointed.py:780",
     }
     errs = dict(zip(("eval_grad", "trace_fwd", "backtrace"), zip(cmp["abs_err"], cmp["rel_err"])))
     errs["gather_rows"] = (gather["max_abs_err"], gather["max_abs_err"])
     errs["trace_ckpt"] = (0.0, 0.0)  # bitwise, asserted
     errs["backtrace_exact"] = (ex_bench["abs_err"], ex_bench["rel_err"])
+    for name in CABLE_KERNELS:  # K7 and K9 bitwise, asserted
+        e = cable_full["errs"].get(name, dict(abs_err=0.0, rel_err=0.0))
+        errs[name] = (e["abs_err"], e["rel_err"])
     stage_rows.append(big_row)
     exact_rows = [row.pop("exact") for row in stage_rows if "exact" in row]
     fuel_stage_ms = {}
@@ -1656,6 +2157,16 @@ def main():
                                 for r in exact_rows],
                             "launched_by": "tracer.trace_exact: the spot checks, and "
                                            "every driver after its stage escalation"},
+        **{name: {"rel_tol": TOL_F32_GRAD if name.startswith("backtrace") else 0.0,
+                  "rel_tol_against": ("the f64 sum of the plain version's f32 terms"
+                                      if name.startswith("backtrace") else "bitwise"),
+                  "scene": f"fiber source, 4096 rays, {full_bins} bins, f32",
+                  "work": cable_full["work"], "f64_check": cable_small["errs"],
+                  "launched_by": "experiments.fiber.multires_exp through runner.run: "
+                                 + ("the steps before the escalation and the spot checks"
+                                    if name in ("trace_cable", "backtrace_cable") else
+                                    "the steps from the escalation on and the stage checks")}
+           for name in CABLE_KERNELS},
         "gather_rows": {"rel_tol": 0.0, "rows": GATHER_N, "table_rows": GATHER_ROWS,
                         "ms_dirty_flush": gather["ms_dirty_flush"],
                         "library_ms_dirty_flush": gather["library_ms_dirty_flush"],
@@ -1678,8 +2189,10 @@ def main():
             "bound_by": rec_k["bound_by"], "share_of_bound": rec_k["bound_ms"] / rec_k["ms"],
             "library_ms": rec_k["library_ms"],
             "ms_per_launch_by_driver_stage": {
-                path: {f"{st['res']}^3": st["ms_per_launch"][name] for st in d["per_stage"]
-                       if name in st["ms_per_launch"]} for path, d in drivers.items()},
+                **{path: {f"{st['res']}^3": st["ms_per_launch"][name] for st in d["per_stage"]
+                          if name in st["ms_per_launch"]} for path, d in drivers.items()},
+                "fiber": {f"{st['res']} bins": st["ms_per_launch"][name]
+                          for st in fiber_rec["per_stage"] if name in st["ms_per_launch"]}},
             **extra[name],
         })
     if failures:

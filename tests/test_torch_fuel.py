@@ -278,8 +278,11 @@ def test_runner_runs_the_shipped_yaml(tmp_path):
 def test_what_this_slice_leaves_out_raises_and_names_its_roadmap_item():
     with pytest.raises(NotImplementedError, match="A15"):
         TR.run(FUEL_YAML, "fuel-128", device="cpu")
-    with pytest.raises(NotImplementedError, match="A6"):
-        TR.run(str(ROOT / "configs" / "params-fiber.yaml"), device="cpu")
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setenv("ANRT_BUCKETED", "2")
+        with pytest.raises(NotImplementedError, match="A8"):
+            TR.run(FUEL_YAML, device="cpu", overrides=dict(
+                res_list=[3], nviews=1, nbins=2, optim_iters=1, grad_spotcheck=False))
     with pytest.raises(ValueError, match="unknown experiment family"):
         TR.run(FUEL_YAML, overrides=dict(family="nope"), device="cpu")
 
