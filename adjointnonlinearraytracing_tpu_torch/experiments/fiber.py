@@ -15,7 +15,9 @@ the profile at their start (``|v| = n`` on entry).  Three gradient modes:
 the constant-memory adjoint (``tracer.trace_cable``: K7, K8 on the card), the
 tape (``"ad"`` or ``autodiff``: ``trace_cable_ad``) and the exact gradient
 (``"exact"``: ``trace_cable_exact``, K9, K10), to which the per-stage spot
-check escalates where the adjoint drifts.
+check escalates where the adjoint drifts.  A step's two passes (the near and
+the hop focus) trace the same rays, so they are traced as one batch
+(:class:`FiberLoss`): one forward and one backward launch a step on the card.
 
 Everything runs on the GPU unless the caller passes ``device="cpu"``; with no
 GPU and no such argument :func:`multires_exp` raises.  Each step draws fresh
@@ -27,7 +29,7 @@ from __future__ import annotations
 import os
 import time
 import warnings
-from typing import Callable, Dict, Optional
+from typing import Callable, Dict, NamedTuple, Optional
 
 import numpy as np
 import torch
@@ -89,6 +91,62 @@ def gen_start_rays(params: Dict, gen: torch.Generator, dtype=torch.float32) -> S
                                dtype=dtype)
 
 
+class FiberLoss(NamedTuple):
+    """The loss of one step: the squared distance of each ray's closest
+    approach to its focal point, the near one (on the rays' sensor plane) and
+    the hop one (``hop_distance`` along the plane's normal, weighted by
+    ``hop_weight``).  Both passes trace the same rays, so :meth:`step` traces
+    them once, as one batch of twice the rays (K7 and K8, or K9 and K10, once
+    a step on the card), and takes each pass's loss from its half."""
+
+    radius: float
+    length: float
+    camera_span: float
+    hop_distance: float
+    hop_weight: float
+    plane_epsilon: float
+
+    @classmethod
+    def from_params(cls, params: Dict) -> "FiberLoss":
+        radius = params.get("cable_radius", 1.0)
+        return cls(radius, params.get("cable_length", float(params.get("res_list", [32])[-1])),
+                   params.get("camera_span", radius), params.get("hop_distance", 3.14),
+                   params.get("hop_weight", 0.1), params.get("plane_epsilon", 0.001))
+
+    def trace(self, nt, x, v, sp, mode: str):
+        """The closest approach of the rays ``(x, v)`` to ``sp`` in the profile
+        ``nt``, the rays normalised by the profile at their start; ``mode``
+        ``"adjoint"``, ``"ad"`` (the tape) or ``"exact"`` picks the gradient."""
+        sds = self.radius / nt.shape[0] / 2
+        n_bound, _ = cyl_eval_grad(CylinderField(nt, self.radius, self.length), x)
+        v = v / n_bound[:, None]  # |v| = n on entry
+        fn = {"ad": api.trace_cable_ad, "exact": checkpointed.trace_cable_exact,
+              "adjoint": api.trace_cable}[mode]
+        return fn(nt, self.radius, self.length, x, v, sp, sds)
+
+    def pass_loss(self, xm, dist2, sp, mask):
+        """Squared distance of the closest approach to the (hopped) focal
+        point, over the live rays not already within ``plane_epsilon`` of it."""
+        eps_mask = (dist2 > self.plane_epsilon ** 2) & mask
+        nrays = torch.clamp(mask.sum(), min=1)  # the live rays
+        loss_vec = torch.where(eps_mask[:, None], (xm - sp) ** 2, torch.zeros_like(xm)) \
+            / nrays / self.radius
+        return loss_vec.sum() / self.camera_span
+
+    def targets(self, rays: S.Rays, hop: float):
+        """The focal points ``hop`` along each ray's sensor-plane normal."""
+        return rays.planes[:, 0, :] + hop * rays.planes[:, 1, :]
+
+    def step(self, nt, rays: S.Rays, mode: str):
+        """Both passes' loss from one trace of the rays twice over."""
+        n = rays.x.shape[0]
+        sp = torch.cat([self.targets(rays, 0.0), self.targets(rays, self.hop_distance)])
+        xm, _, dist2 = self.trace(nt, torch.cat([rays.x, rays.x]), torch.cat([rays.v, rays.v]),
+                                  sp, mode)
+        return (self.pass_loss(xm[:n], dist2[:n], sp[:n], rays.mask)
+                + self.hop_weight * self.pass_loss(xm[n:], dist2[n:], sp[n:], rays.mask))
+
+
 def multires_exp(params: Dict, result_dir: Optional[str] = None, *, device="cuda",
                  sample_rays: Optional[Callable[[torch.Generator, int], S.Rays]] = None,
                  stat_fn: Optional[Callable[[int, float, float], None]] = None,
@@ -106,18 +164,14 @@ def multires_exp(params: Dict, result_dir: Optional[str] = None, *, device="cuda
     dev = require_device(device)
     init_offset = params.get("init_offset", 0)
     res_list = params.get("res_list", [32])
-    cable_length = params.get("cable_length", float(res_list[-1]))
-    cable_radius = params.get("cable_radius", 1.0)
-    camera_span = params.get("camera_span", cable_radius)
+    loss_of = FiberLoss.from_params(params)
+    cable_radius, cable_length = loss_of.radius, loss_of.length
     spp = params.get("spp", 1)
-    hop_dist = params.get("hop_distance", 3.14)
-    hop_weight = params.get("hop_weight", 0.1)
     optim_iters = params.get("optim_iters", 300)
     record_iters = params.get("record_iters", optim_iters)
     projected_step = params.get("projected_step", False)
     lr = params.get("lr", 1e-4)
     autodiff = params.get("autodiff", False)
-    plane_eps = params.get("plane_epsilon", 0.001)
     seed = params.get("seed", 0)
     dtype = common.param_dtype(params)
 
@@ -133,32 +187,15 @@ def multires_exp(params: Dict, result_dir: Optional[str] = None, *, device="cuda
     def seeded(offset):
         return torch.Generator(device=dev).manual_seed(seed + offset)
 
-    # the gradient mode, read at every trace: the per-stage spot check flips
+    # the gradient mode, read at every step: the per-stage spot check flips
     # it from the adjoint to "exact" where the adjoint drifts
     grad_holder = {"mode": params.get("gradient")}
 
-    def trace(nt, x, v, sp):
-        sds = cable_radius / nt.shape[0] / 2
-        n_bound, _ = cyl_eval_grad(CylinderField(nt, cable_radius, cable_length), x)
-        v = v / n_bound[:, None]  # |v| = n on entry
-        mode = grad_holder.get("mode")
-        if mode == "ad" or (mode is None and autodiff):
-            return api.trace_cable_ad(nt, cable_radius, cable_length, x, v, sp, sds)
-        if mode == "exact":
-            return checkpointed.trace_cable_exact(nt, cable_radius, cable_length, x, v, sp, sds)
-        return api.trace_cable(nt, cable_radius, cable_length, x, v, sp, sds)
-
-    def pass_loss(nt, rays, hop: float):
-        """Squared distance of the closest approach to the (hopped) focal
-        point, over the live rays not already within ``plane_epsilon`` of it."""
-        sn = rays.planes[:, 1, :]
-        sp = rays.planes[:, 0, :] + hop * sn
-        xm, vm, dist2 = trace(nt, rays.x, rays.v, sp)
-        eps_mask = (dist2 > plane_eps ** 2) & rays.mask
-        nrays = torch.clamp(rays.mask.sum(), min=1)  # the live rays
-        loss_vec = torch.where(eps_mask[:, None], (xm - sp) ** 2, torch.zeros_like(xm)) \
-            / nrays / cable_radius
-        return loss_vec.sum() / camera_span
+    def mode():
+        m = grad_holder.get("mode")
+        if m == "ad" or (m is None and autodiff):
+            return "ad"
+        return "exact" if m == "exact" else "adjoint"
 
     def probe_grad(fn, nt, rays):
         xs, vs, sp0 = rays.x[:512], rays.v[:512], rays.planes[:512, 0, :]
@@ -221,7 +258,7 @@ def multires_exp(params: Dict, result_dir: Optional[str] = None, *, device="cuda
             t0 = time.perf_counter()
             nt = n.detach().requires_grad_(True)
             rays = draw(gen)
-            loss = pass_loss(nt, rays, 0.0) + hop_weight * pass_loss(nt, rays, hop_dist)
+            loss = loss_of.step(nt, rays, mode())
             (g,) = torch.autograd.grad(loss, nt)
             g[-1] = 0.0  # the boundary bin is frozen
             with torch.no_grad():

@@ -13,14 +13,20 @@
 // position x stays unsnapped.  An inactive ray contributes nothing, so the
 // thread leaves the loop when its ray turns inactive.
 //
-// What bounds it on the card: operations (a square root and five divisions a
-// step) and the splat's adds onto at most a few hundred words.  Design
-// (cylinder.cuh): a ray sums its splats into its current pair of bins in
-// registers (CableRun) and adds them to its block's private gradient in
-// shared memory when the pair changes; each block adds its gradient to device
-// memory once.  Sums are in double, so the f32 gradient is held against the
-// f64 sum of the plain version's own f32 terms; the order of the adds varies
-// from run to run, so the result is reproducible to rounding only.
+// What bounds it on the card: the latency of each ray's chain (x, the cap
+// snap, the evaluation, v), step after step.  Design (cylinder.cuh): the
+// evaluation reads the block's per-bin table, divisions and square roots take
+// the IEEE fast paths (div_rn, sqrt_rn), and each splat goes to the lane's own
+// column of its block's gradient in shared memory (LaneColumn): no atomics
+// and no branch in the step, so the adjoint update, which feeds nothing back
+// into x or v, is scheduled beside the chain.  Where the columns of a block
+// of kColumnThreads lanes do not fit shared memory (a profile of more than
+// about 800 bins), the launch takes one gradient a block and a ray's runs
+// (CableRun) instead; the caller says which (wrappers.backtrace_cable_path).
+// Each block adds its gradient to device memory once.  Sums are in double,
+// so the f32 gradient is held against the f64 sum of the plain version's own
+// f32 terms; the order of the adds across blocks varies from run to run, so
+// the result is reproducible to rounding only.
 #include "cylinder.cuh"
 
 namespace anrt {
@@ -32,7 +38,8 @@ struct CableBackRay {
   const T *xt, *vt, *dx, *dv;
   int max_steps;
 
-  __device__ __forceinline__ void operator()(int i, double* acc) const {
+  template <typename Acc>
+  __device__ __forceinline__ void operator()(int i, const BinEntry<T>* tab, Acc& acc) const {
     T x[3], v[3], la[3], mu[3];
     load3(xt, i, x);
     load3(vt, i, v);
@@ -41,7 +48,6 @@ struct CableBackRay {
 #pragma unroll
     for (int k = 0; k < 3; ++k) mu[k] = mu[k] + ds * la[k];
     bool active = !escaped(p, x, v, static_cast<T>(-1));
-    CableRun run;
 
     for (int step = 0; step < max_steps && active; ++step) {
 #pragma unroll
@@ -50,17 +56,16 @@ struct CableBackRay {
       y = fabs(y - p.length) <= cap ? p.length : y;
       const T xe[3] = {x[0], y, x[2]};
 
-      const Radial<T> rd = radial(p, xe);
-      T n, rx, xhat[3], fx[3], hess[3];
-      value_grad(p, rd, n, rx, xhat, fx);
-      hessian(rd, rx, xhat, hess);
-      const T dsn = ds * n;
+      const FieldAt<T> f = field_at(p, tab, xe);
+      T hess[3];
+      hessian(f, hess);
+      const T dsn = ds * f.n;
 #pragma unroll
-      for (int k = 0; k < 3; ++k) v[k] = v[k] - dsn * fx[k];
+      for (int k = 0; k < 3; ++k) v[k] = v[k] - dsn * f.fx[k];
       active = !escaped(p, xe, v, static_cast<T>(-1));
-      cable_adjoint_update(p, ds, rd, n, xhat, fx, hess, active, la, mu, run, acc);
+      cable_adjoint_update(p, ds, f, hess, active, la, mu, acc);
     }
-    run.flush(acc);
+    acc.flush();
   }
 };
 
@@ -68,27 +73,29 @@ template <typename T>
 int launch_backtrace_cable(const void* prof, int res, double radius, double length, double ds,
                            double cap, const void* xt, const void* vt, const void* dx,
                            const void* dv, void* grad_out, int n_rays, int max_steps,
-                           cudaStream_t stream) {
-  const CableBackRay<T> ray{make_profile<T>(prof, res, radius, length), static_cast<T>(ds),
-                            static_cast<T>(cap), static_cast<const T*>(xt),
-                            static_cast<const T*>(vt), static_cast<const T*>(dx),
-                            static_cast<const T*>(dv), max_steps};
-  return launch_cable_adjoint(ray, res, grad_out, n_rays, stream);
+                           int columns, cudaStream_t stream) {
+  const Profile<T> p = make_profile<T>(prof, res, radius, length);
+  const CableBackRay<T> ray{p, static_cast<T>(ds), static_cast<T>(cap),
+                            static_cast<const T*>(xt), static_cast<const T*>(vt),
+                            static_cast<const T*>(dx), static_cast<const T*>(dv), max_steps};
+  return launch_cable_adjoint(ray, p, grad_out, n_rays, columns != 0, stream);
 }
 
 }  // namespace anrt
 
 // grad_out: res doubles, zero-filled (or holding a sum to add to) before the
 // call.  cap: the cap-plane snap tolerance, tol * radius, rounded to T here.
+// columns: 1 for a column a lane, 0 for one gradient a block and runs.
 extern "C" int anrt_backtrace_cable(int is_double, const void* prof, int res, double radius,
                                     double length, double ds, double cap, const void* xt,
                                     const void* vt, const void* dx, const void* dv,
-                                    void* grad_out, int n_rays, int max_steps, void* stream) {
+                                    void* grad_out, int n_rays, int max_steps, int columns,
+                                    void* stream) {
   auto s = static_cast<cudaStream_t>(stream);
   return is_double ? anrt::launch_backtrace_cable<double>(prof, res, radius, length, ds, cap, xt,
                                                           vt, dx, dv, grad_out, n_rays,
-                                                          max_steps, s)
+                                                          max_steps, columns, s)
                    : anrt::launch_backtrace_cable<float>(prof, res, radius, length, ds, cap, xt,
                                                          vt, dx, dv, grad_out, n_rays,
-                                                         max_steps, s);
+                                                         max_steps, columns, s);
 }

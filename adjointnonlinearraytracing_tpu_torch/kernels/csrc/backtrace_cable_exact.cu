@@ -16,9 +16,10 @@
 // longer drops), so the gate is k < c; the replay still carries esc as the
 // plain version does.
 //
-// What bounds it on the card: operations (one replayed step and one adjoint
-// step a gated-on ray-step) and the splat's adds, as K8 (cylinder.cuh: runs
-// summed in double in registers, a block-private gradient in shared memory).
+// What bounds it on the card: the latency of the replayed and the adjoint
+// steps of a ray, as K7's and K8's (cylinder.cuh: the per-bin table and the
+// IEEE fast paths of K7 and K8; the splats as runs summed in double in
+// registers into a block-private gradient in shared memory).
 // The replayed positions of a stretch of at most kReplay steps live in the
 // thread's local memory (12 B a step in f32), written once and read once; a
 // segment longer than kReplay is replayed in stretches, the later first, each
@@ -35,10 +36,10 @@ constexpr int kCableReplay = 32;
 // One replayed step: the forward's, with `inside` recomputed from x and the
 // lane's esc carried, as the plain replay does.
 template <typename T>
-__device__ __forceinline__ void replay_step(const Profile<T>& p, T ds, T x[3], T v[3],
-                                            bool& esc) {
+__device__ __forceinline__ void replay_step(const Profile<T>& p, const BinEntry<T>* tab, T ds,
+                                            T x[3], T v[3], bool& esc) {
   const bool inside = inbounds(p, x);
-  cable_step(p, ds, x, v, !esc);
+  cable_step(p, tab, ds, x, v, !esc);
   const bool cur_inside = inbounds(p, x);
   esc = esc || (inside && !cur_inside) || escaped(p, x, v, static_cast<T>(1));
 }
@@ -52,7 +53,8 @@ struct CableExactRay {
   const T *dx, *dv;
   int n_rays, nseg, seg;
 
-  __device__ __forceinline__ void operator()(int i, double* acc) const {
+  template <typename Acc>
+  __device__ __forceinline__ void operator()(int i, const BinEntry<T>* tab, Acc& run) const {
     const unsigned lanes = __activemask();  // the lanes of the warp that have a ray
     const int steps = __ldg(c + i);        // the gated-on steps: k < c
     const int last = steps <= 0 ? -1 : ((steps - 1) / seg < nseg - 1 ? (steps - 1) / seg
@@ -63,7 +65,6 @@ struct CableExactRay {
     load3(dv, i, mu);
 #pragma unroll
     for (int k = 0; k < 3; ++k) mu[k] = mu[k] + ds * la[k];
-    CableRun run;
     T xs[kCableReplay][3];
     const size_t field = static_cast<size_t>(n_rays);
 
@@ -85,7 +86,7 @@ struct CableExactRay {
             v[k] = row[(k + 3) * field];
           }
           esc = row[6 * field] > static_cast<T>(0.5);
-          for (int j = 0; j < b0; ++j) replay_step(p, ds, x, v, esc);
+          for (int j = 0; j < b0; ++j) replay_step(p, tab, ds, x, v, esc);
         }
         unsigned act = 0u;  // bit j: active at the stretch's step j
         for (int j = 0; j < nb_warp; ++j) {
@@ -93,22 +94,21 @@ struct CableExactRay {
 #pragma unroll
             for (int k = 0; k < 3; ++k) xs[j][k] = x[k];
             if (!esc) act |= 1u << j;
-            if (j + 1 < nb) replay_step(p, ds, x, v, esc);
+            if (j + 1 < nb) replay_step(p, tab, ds, x, v, esc);
           }
         }
         for (int j = nb_warp - 1; j >= 0; --j) {
           if (j < nb && ((act >> j) & 1u)) {  // gated off: la, mu unchanged
             const T xk[3] = {xs[j][0], xs[j][1], xs[j][2]};
-            const Radial<T> rd = radial(p, xk);
-            T nk, rx, xhat[3], fx[3], hess[3];
-            value_grad(p, rd, nk, rx, xhat, fx);
-            hessian(rd, rx, xhat, hess);
-            cable_adjoint_update(p, ds, rd, nk, xhat, fx, hess, true, la, mu, run, acc);
+            const FieldAt<T> f = field_at(p, tab, xk);
+            T hess[3];
+            hessian(f, hess);
+            cable_adjoint_update(p, ds, f, hess, true, la, mu, run);
           }
         }
       }
     }
-    run.flush(acc);
+    run.flush();
   }
 };
 
@@ -117,11 +117,12 @@ int launch_backtrace_cable_exact(const void* prof, int res, double radius, doubl
                                  double ds, const void* ckpts, const void* c, const void* dx,
                                  const void* dv, void* grad_out, int n_rays, int nseg, int seg,
                                  cudaStream_t stream) {
-  const CableExactRay<T> ray{make_profile<T>(prof, res, radius, length), static_cast<T>(ds),
+  const Profile<T> p = make_profile<T>(prof, res, radius, length);
+  const CableExactRay<T> ray{p, static_cast<T>(ds),
                              static_cast<const T*>(ckpts), static_cast<const int*>(c),
                              static_cast<const T*>(dx), static_cast<const T*>(dv), n_rays,
                              nseg, seg};
-  return launch_cable_adjoint(ray, res, grad_out, n_rays, stream);
+  return launch_cable_adjoint(ray, p, grad_out, n_rays, false, stream);
 }
 
 }  // namespace anrt

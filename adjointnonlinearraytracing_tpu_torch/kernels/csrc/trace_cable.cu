@@ -22,8 +22,10 @@
 // closer than where it started).  Checkpoints are (nseg, 7, n_rays), field k
 // of ray i at [s][k][i], so a warp's store of one field is one line.
 //
-// Bound by operations (cylinder.cuh): a square root and four divisions in
-// each step's dependent chain, 4,096 rays at the fiber driver's width.
+// Bound by the latency of each ray's chain of steps (cylinder.cuh): the
+// block's threads build its per-bin table first, and a step reads the table
+// and divides and takes its square root by the IEEE fast paths (div_rn,
+// sqrt_rn), none of them in a branch region of its own.
 #include "cylinder.cuh"
 
 namespace anrt {
@@ -34,6 +36,10 @@ trace_cable_kernel(Profile<T> p, T ds, const T* __restrict__ x0, const T* __rest
                    const T* __restrict__ target, T* __restrict__ xt_out,
                    T* __restrict__ vt_out, T* __restrict__ d2_out, int* __restrict__ c_out,
                    T* __restrict__ ckpts, int n_rays, int max_steps, int seg) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  BinEntry<T>* tab = reinterpret_cast<BinEntry<T>*>(smem);
+  build_bin_table(p, tab);
+  __syncthreads();
   const int i = blockIdx.x * blockDim.x + threadIdx.x;
   if (i >= n_rays) return;
   T x[3], v[3], tg[3], xt[3], vt[3];
@@ -61,7 +67,7 @@ trace_cable_kernel(Profile<T> p, T ds, const T* __restrict__ x0, const T* __rest
       }
       --until_ck;
     }
-    cable_step(p, ds, x, v, true);  // the loop runs active rays only
+    cable_step(p, tab, ds, x, v, true);  // the loop runs active rays only
     const T cur = sum_sq3(x, tg);
     const bool cur_inside = inbounds(p, x);
     esc = (inside && !cur_inside) || escaped(p, x, v, static_cast<T>(1));
@@ -86,7 +92,11 @@ int launch_trace_cable(const void* prof, int res, double radius, double length, 
                        void* d2, void* c, void* ckpts, int n_rays, int max_steps, int seg,
                        cudaStream_t stream) {
   if (n_rays > 0) {
-    trace_cable_kernel<T, kCkpt><<<blocks_for(n_rays), kThreads, 0, stream>>>(
+    const size_t bytes = table_bytes<T>(res);
+    auto kernel = trace_cable_kernel<T, kCkpt>;
+    const cudaError_t err = allow_shared(kernel, bytes);
+    if (err != cudaSuccess) return static_cast<int>(err);
+    kernel<<<blocks_for(n_rays), kThreads, bytes, stream>>>(
         make_profile<T>(prof, res, radius, length), static_cast<T>(ds),
         static_cast<const T*>(x0), static_cast<const T*>(v0), static_cast<const T*>(target),
         static_cast<T*>(xt), static_cast<T*>(vt), static_cast<T*>(d2), static_cast<int*>(c),

@@ -61,22 +61,28 @@ K6 ``backtrace_exact`` (csrc/backtrace_exact.cu)
 
 The cable kernels trace a radial profile (``fields/cylinder.py``) toward a
 target point per ray; their field code is ``csrc/cylinder.cuh``, one stepper
-for K7, K9 and K10's replay.  They take no ray order (the profile is a few
-hundred words, L1-resident), and the adjoints sum the gradient in float64
-whatever the profile's type (the wrappers return it so; callers cast).
+for K7, K9 and K10's replay.  They take no ray order, and the adjoints sum the
+gradient in float64 whatever the profile's type (the wrappers return it so;
+callers cast).  A kernel takes its longest ray's steps times the latency of
+one step (each ray's steps are a chain of dependent operations, and a few
+thousand rays leave at most one warp a scheduler), so the design shortens a
+step (``tools/cable_designs.py`` measures each part): each block builds a per-bin table of
+the profile in shared memory (values and radial derivative), and f32
+divisions and square roots take the IEEE fast paths without the compiler's
+slow-path branch around each one (``div_rn``, ``sqrt_rn``).
 
 K7 ``trace_cable`` (csrc/trace_cable.cu)
-    replaces the cable stepper loop ``tracer/eikonal.py::trace_cable``; bound
-    by operations (a square root and four divisions a step in each ray's
-    dependent chain); one thread a ray, the whole loop in the kernel, a ray
-    leaving it when it freezes; closest approach ``(xt, vt, d2)`` bit for bit
-    the plain version's.
+    replaces the cable stepper loop ``tracer/eikonal.py::trace_cable``; one
+    thread a ray, the whole loop in the kernel, a ray leaving it when it
+    freezes; closest approach ``(xt, vt, d2)`` bit for bit the plain
+    version's.
 K8 ``backtrace_cable`` (csrc/backtrace_cable.cu)
     replaces the cable adjoint sweep ``tracer/eikonal.py::backtrace_cable``;
-    bound by operations and the splat's adds onto ``res`` words: a ray sums
-    its splats per pair of bins in registers and adds them to its block's
-    private gradient in shared memory when the pair changes, each block adds
-    its gradient to device memory once.
+    each lane adds its splats to its own column of its block's gradient in
+    shared memory (no atomics), each block adds its gradient to device memory
+    once; a profile too large for the columns (:func:`backtrace_cable_path`)
+    takes one gradient a block, to which a ray adds its splats per pair of
+    bins summed in registers.
 K9 ``trace_cable_ckpt`` (csrc/trace_cable.cu, K7's loop with checkpoints)
     the exact cable gradient's forward pass, replacing
     ``tracer/checkpointed.py::_fwd_ckpts_cable``: also writes ``(x, v, esc)``
@@ -85,8 +91,8 @@ K10 ``backtrace_cable_exact`` (csrc/backtrace_cable_exact.cu)
     the exact cable gradient's backward pass, replacing
     ``tracer/checkpointed.py::_bwd_segments_cable``: per ray the segments below
     its capture step, last to first, each replayed with K7's step, then K8's
-    adjoint update in reverse gated by ``k < c``; K8's run sums and
-    block-private gradient.
+    adjoint update in reverse gated by ``k < c``; run sums into one gradient a
+    block.
 """
 
 from __future__ import annotations
@@ -103,6 +109,8 @@ from . import build
 LAUNCHES = {name: 0 for name in build.KERNELS}
 #: K3's launches by path (:func:`backtrace_path`), counted with ``LAUNCHES``
 BACKTRACE_PATHS = {"shared": 0, "global": 0}
+#: K8's launches by path (:func:`backtrace_cable_path`), counted with ``LAUNCHES``
+BACKTRACE_CABLE_PATHS = {"columns": 0, "block": 0}
 #: the dynamic shared memory one block may opt in to on sm_90 (227 KB);
 #: ``kSharedMax`` in csrc/backtrace.cu
 SHARED_BYTES_MAX = 232448
@@ -119,7 +127,7 @@ _ARGTYPES = {
     "backtrace_exact": [_I, _VP, _I, _I, _I, _D, _D, _VP, _VP, _VP, _VP, _VP, _VP, _VP, _VP,
                         _I, _I, _I, _VP],
     "trace_cable": [_I, _VP, _I, _D, _D, _D, _VP, _VP, _VP, _VP, _VP, _VP, _I, _I, _VP],
-    "backtrace_cable": [_I, _VP, _I, _D, _D, _D, _D, _VP, _VP, _VP, _VP, _VP, _I, _I, _VP],
+    "backtrace_cable": [_I, _VP, _I, _D, _D, _D, _D, _VP, _VP, _VP, _VP, _VP, _I, _I, _I, _VP],
     "trace_cable_ckpt": [_I, _VP, _I, _D, _D, _D, _VP, _VP, _VP, _VP, _VP, _VP, _VP, _VP, _I,
                          _I, _I, _VP],
     "backtrace_cable_exact": [_I, _VP, _I, _D, _D, _D, _VP, _VP, _VP, _VP, _VP, _I, _I, _I,
@@ -138,7 +146,7 @@ _events: Optional[List[Tuple[str, "torch.cuda.Event", "torch.cuda.Event"]]] = No
 
 
 def reset_launches() -> None:
-    for counts in (LAUNCHES, BACKTRACE_PATHS):
+    for counts in (LAUNCHES, BACKTRACE_PATHS, BACKTRACE_CABLE_PATHS):
         for name in counts:
             counts[name] = 0
 
@@ -394,7 +402,29 @@ def backtrace_exact(data: torch.Tensor, h: float, ckpts: torch.Tensor, c: torch.
     return out
 
 
-def _check_profile(data: torch.Tensor, name: str) -> None:
+#: K8's block size on its column path (``kColumnThreads`` in csrc/cylinder.cuh)
+CABLE_COLUMN_THREADS = 32
+
+
+def cable_shared_bytes(res: int, dtype: torch.dtype, slots: int) -> int:
+    """The shared memory of one block of a cable kernel on a profile of ``res``
+    bins: the per-bin table (four words a bin) and ``slots`` float64 gradients
+    (0 for K7 and K9, 1 for the adjoints' block gradient, a lane's column each
+    on K8's column path; csrc/cylinder.cuh)."""
+    item = torch.empty((), dtype=dtype).element_size()
+    return res * (4 * item + 8 * slots)
+
+
+def backtrace_cable_path(res: int, dtype: torch.dtype) -> str:
+    """K8's path for a profile of ``res`` bins of ``dtype``: ``"columns"`` (each
+    lane adds its splats to its own column of the block's gradient) where a
+    block of :data:`CABLE_COLUMN_THREADS` lanes' columns fits shared memory,
+    else ``"block"`` (one gradient a block, a ray's runs added to it)."""
+    fits = cable_shared_bytes(res, dtype, CABLE_COLUMN_THREADS) <= SHARED_BYTES_MAX
+    return "columns" if fits else "block"
+
+
+def _check_profile(data: torch.Tensor, name: str, slots: int = 0) -> None:
     if not data.is_cuda:
         raise ValueError(f"{name}: the kernel takes CUDA tensors, got a profile on {data.device}")
     if data.dtype not in (torch.float32, torch.float64):
@@ -402,9 +432,10 @@ def _check_profile(data: torch.Tensor, name: str) -> None:
     if data.ndim != 1 or not data.is_contiguous() or data.shape[0] < 2:
         raise ValueError(f"{name}: profile must be a contiguous (res,) tensor with res >= 2, "
                          f"got shape {tuple(data.shape)}")
-    if data.shape[0] * 8 > SHARED_BYTES_MAX:
-        raise ValueError(f"{name}: a profile of {data.shape[0]} bins does not fit a block's "
-                         f"shared memory as float64 ({SHARED_BYTES_MAX} bytes)")
+    need = cable_shared_bytes(data.shape[0], data.dtype, slots)
+    if need > SHARED_BYTES_MAX:
+        raise ValueError(f"{name}: a profile of {data.shape[0]} bins needs {need} bytes of a "
+                         f"block's shared memory, more than its {SHARED_BYTES_MAX}")
 
 
 def _launch_on_profile(name: str, data: torch.Tensor, radius: float, length: float,
@@ -447,14 +478,17 @@ def backtrace_cable(data: torch.Tensor, radius: float, length: float, xt: torch.
                     ) -> torch.Tensor:
     """K8: the profile gradient from the closest approach and its cotangents,
     summed in float64 into ``out`` (made zero when not given) and returned.
-    ``cap`` is the cap-plane snap tolerance ``tol * radius``."""
-    _check_profile(data, "backtrace_cable")
+    ``cap`` is the cap-plane snap tolerance ``tol * radius``.  The path
+    (:func:`backtrace_cable_path`) follows from the profile's size and type."""
+    _check_profile(data, "backtrace_cable", slots=1)
     n_rays = _check_rays(data, "backtrace_cable", xt=xt, vt=vt, dx=dx, dv=dv)
     out = _grad_out(data, out, "backtrace_cable")
     if n_rays:
+        path = backtrace_cable_path(data.shape[0], data.dtype)
         _launch_on_profile("backtrace_cable", data, radius, length, ds, float(cap),
                            xt.data_ptr(), vt.data_ptr(), dx.data_ptr(), dv.data_ptr(),
-                           out.data_ptr(), n_rays, int(max_steps))
+                           out.data_ptr(), n_rays, int(max_steps), int(path == "columns"))
+        BACKTRACE_CABLE_PATHS[path] += 1
     return out
 
 
@@ -496,7 +530,7 @@ def backtrace_cable_exact(data: torch.Tensor, radius: float, length: float,
     """K10: the exact cable gradient, summed in float64 into ``out`` (made zero
     when not given) and returned; ``ckpts`` and ``c`` as :func:`trace_cable_ckpt`
     returned them for the same rays, ``dx, dv`` their cotangents."""
-    _check_profile(data, "backtrace_cable_exact")
+    _check_profile(data, "backtrace_cable_exact", slots=1)
     n_rays = _check_rays(data, "backtrace_cable_exact", dx=dx, dv=dv)
     if (ckpts.device != data.device or ckpts.dtype != data.dtype or ckpts.ndim != 3
             or ckpts.shape[1:] != (CKPT_WIDTH, n_rays) or not ckpts.is_contiguous()):

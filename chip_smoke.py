@@ -60,10 +60,11 @@ result.  Phases (any failure is an uncaught exception):
       card against the CPU.
    h. the GRIN-fiber driver (``params-fiber.yaml`` ``default``) through
       ``runner.run`` at its shipped size and depth: 840 Adam steps, 3 -> 129
-      bins, two passes of 4,096 rays a step, spot checks and escalation on;
-      the cable kernels' launches asserted per stage and in all; per stage
-      the step time, K7-K10's times per launch and shares of their bounds,
-      the host's share; the final loss and the profile's L2 distance to
+      bins, two passes of 4,096 rays a step traced as one batch (one K7 and
+      one K8 a step), spot checks and escalation on; the cable kernels'
+      launches asserted per stage and in all; per stage the step time,
+      K7-K10's times per launch and a step and shares of their bounds, the
+      host's share; the final loss and the profile's L2 distance to
       ``ground_truth(129)``; then the driver in f64 at a small size on the
       card against the CPU.
    Before the main paths, the cable kernels K7 ``trace_cable``, K8
@@ -1463,10 +1464,12 @@ def fiber_params():
     return runner.cfg.load_params(os.path.join(CONFIGS, FIBER_YAML))
 
 
-def cable_scene(res, n_rays, dtype, seed=0):
+def cable_scene(res, n_rays, dtype, seed=0, both_passes=False):
     """The fiber path's rays at ``res`` bins: one draw of its source (``n_rays``
     of them at random, or all), normalised on entry as the driver does, with
-    the hop pass's targets, on the ground-truth profile plus 1 % noise."""
+    the hop pass's targets, on the ground-truth profile plus 1 % noise.  With
+    ``both_passes`` the rays twice over, the near pass's targets first, as
+    the driver traces a step."""
     params = fiber_params()
     radius, length = params["cable_radius"], params["cable_length"]
     gen = torch.Generator(device="cuda").manual_seed(seed)
@@ -1480,10 +1483,14 @@ def cable_scene(res, n_rays, dtype, seed=0):
     field = CylinderField(prof, radius, length)
     v = v / cyl_eval_grad(field, x)[0][:, None]
     hop = params.get("hop_distance", 3.14)  # the driver's default
+    target = planes[:, 0] + hop * planes[:, 1]
+    if both_passes:
+        x, v = torch.cat([x, x]), torch.cat([v, v])
+        target = torch.cat([planes[:, 0] + 0.0 * planes[:, 1], target])
     ds = radius / res / 2
     return dict(prof=prof, field=field, radius=radius, length=length, x=x.contiguous(),
-                v=v.contiguous(), target=(planes[:, 0] + hop * planes[:, 1]).contiguous(),
-                ds=ds, steps=api.cable_steps(length, ds))
+                v=v.contiguous(), target=target.contiguous(), ds=ds,
+                steps=api.cable_steps(length, ds))
 
 
 def _host_ms(fn):
@@ -1639,6 +1646,42 @@ def cable_api_check():
         raise AssertionError("the cable gradients on the card disagree")
 
 
+# K8's block path: a profile too large for a column a lane (wrappers.
+# backtrace_cable_path), 512 of the fiber source's rays, the steps cut to 400
+# on both sides so that the plain version stays quick
+CABLE_WIDE, CABLE_WIDE_STEPS = 1025, 400
+
+
+def cable_block_path_check():
+    """K8 on its block path (one gradient a block, runs) against the plain
+    version at ``CABLE_WIDE`` bins: f64 within ``TOL_F64``, f32 within
+    ``TOL_F32_GRAD`` of the f64 sum of the same terms; the path each launch
+    took is asserted.  Returns the failures."""
+    failures = []
+    for dtype in (torch.float64, torch.float32):
+        s = cable_scene(CABLE_WIDE, 512, dtype, seed=9)
+        prof, field, radius, length, ds = s["prof"], s["field"], s["radius"], s["length"], s["ds"]
+        xt, vt, _ = E.trace_cable(field, s["x"], s["v"], s["target"], ds, CABLE_WIDE_STEPS)
+        dx, dv = 2.0 * (xt - s["target"]), torch.ones_like(vt)
+        want = E.backtrace_cable(field, xt, vt, dx, dv, ds, CABLE_WIDE_STEPS,
+                                 acc_dtype=torch.float64)
+        K.reset_launches()
+        got = K.backtrace_cable(prof, radius, length, xt.contiguous(), vt.contiguous(),
+                                dx.contiguous(), dv, ds, CABLE_WIDE_STEPS,
+                                G.snap_tol(dtype) * radius)
+        paths = dict(K.BACKTRACE_CABLE_PATHS)
+        err = float((got - want).abs().max()) / max(float(want.abs().max()), 1e-300)
+        tol = TOL_F64 if dtype == torch.float64 else TOL_F32_GRAD
+        print(f"cable[{dtype} {CABLE_WIDE} bins x 512, {CABLE_WIDE_STEPS} steps] K8 paths "
+              f"{paths}: rel_err {err:.3e} against the plain version's f64 sum (tol {tol:g})",
+              flush=True)
+        if paths != {"columns": 0, "block": 1} or not (err <= tol
+                                                       and float(want.abs().max()) > 0):
+            failures.append(f"K8 on its block path at {CABLE_WIDE} bins {dtype}: paths {paths}, "
+                            f"rel_err {err:.3e}")
+    return failures
+
+
 CABLE_KERNELS = ("trace_cable", "backtrace_cable", "trace_cable_ckpt", "backtrace_cable_exact")
 
 
@@ -1646,10 +1689,11 @@ def expected_fiber_launches(params, escalated, nrays):
     """The launches a fiber run of ``params`` implies when its escalation fired
     at stage ``escalated`` (None: never), with ``nrays`` rays a step.
 
-    Each step traces two passes (the near and the hop focus), each a forward
-    and a backward launch of the stage's gradient: K7 and K8 before the
-    escalation, K9 and K10 from it on (above ``ANRT_EXACT_CHUNK`` a K9 for the
-    forward pass and a K9 and a K10 a chunk).  The start-up spot check (the
+    Each step traces its two passes (the near and the hop focus) as one batch
+    of ``2 * nrays`` rays: a forward and a backward launch of the stage's
+    gradient, K7 and K8 before the escalation, K9 and K10 from it on (above
+    ``ANRT_EXACT_CHUNK`` a K9 for the forward pass and a K9 and a K10 a
+    chunk).  The start-up spot check (the
     adjoint against the tape) is one K7 and one K8, the tape launching none;
     each per-stage check (every stage after the first, up to the one that
     escalates) one K7, K8, K9 and K10.  Returns the steps, the launches in
@@ -1658,7 +1702,7 @@ def expected_fiber_launches(params, escalated, nrays):
     stages = len(res_list)
     first_exact = stages if escalated is None else escalated
     last_check = stages - 1 if escalated is None else escalated
-    chunks = len(CK._chunks(nrays, CK.exact_chunk_rays()))
+    chunks = len(CK._chunks(2 * nrays, CK.exact_chunk_rays()))
     total = {name: 0 for name in build.KERNELS}
     per_stage = []
     for s in range(stages):
@@ -1667,21 +1711,26 @@ def expected_fiber_launches(params, escalated, nrays):
         check = int(params.get("auto_exact", True) and 1 <= s <= last_check)
         start = int(s == 0 and params.get("grad_spotcheck", True))
         k = {name: 0 for name in build.KERNELS}
-        k["trace_cable"] = 2 * adjoint + check + start
-        k["backtrace_cable"] = 2 * adjoint + check + start
-        k["trace_cable_ckpt"] = 2 * exact * (chunks + (chunks > 1)) + check
-        k["backtrace_cable_exact"] = 2 * exact * chunks + check
+        k["trace_cable"] = adjoint + check + start
+        k["backtrace_cable"] = adjoint + check + start
+        k["trace_cable_ckpt"] = exact * (chunks + (chunks > 1)) + check
+        k["backtrace_cable_exact"] = exact * chunks + check
         per_stage.append(k)
         for name in total:
             total[name] += k[name]
     return iters * stages * (stages + 1) // 2, total, per_stage
 
 
+# a fiber step's launches: both passes as one batch, one forward and one backward
+FIBER_STEP_LAUNCHES = 2
+
+
 def fiber_stage_work(eta, params, rays, exact, res):
     """The work of one step at ``res`` bins on the run's final profile
     resampled there, as the plain versions count it on one draw of the path's
-    rays (both passes): K7 and K8's ray-steps and splats, or K9's ray-steps
-    and K10's gated-on steps and the checkpoint rows read."""
+    rays (both passes, one launch of twice the rays): K7 and K8's ray-steps
+    and splats, or K9's ray-steps and K10's gated-on steps and the checkpoint
+    rows read."""
     radius, length = params["cable_radius"], params["cable_length"]
     prof = cyl.upres_profile(eta, res).contiguous()
     field = CylinderField(prof, radius, length)
@@ -1706,28 +1755,29 @@ def fiber_stage_work(eta, params, rays, exact, res):
             work["k9_ray_steps"] += fw["ray_steps"]
             work["k10_gated_steps"] += int(c.sum())
             work["rows"] += int(((c + SEG - 1) // SEG).sum())
-    n, item = rays.x.shape[0], prof.element_size()
+    n, item = 2 * rays.x.shape[0], prof.element_size()
     if not exact:
-        return {"trace_cable": set_bound(dict(bytes=2 * (16 * n * item + res * item),
+        return {"trace_cable": set_bound(dict(bytes=16 * n * item + res * item,
                                               flops=work["k7_ray_steps"] * FLOPS_CABLE_FWD_STEP)),
                 "backtrace_cable": set_bound(dict(
-                    bytes=2 * (12 * n * item + res * item + res * 8),
+                    bytes=12 * n * item + res * item + res * 8,
                     flops=work["k8_ray_steps"] * FLOPS_CABLE_BWD_STEP
                     + work["k8_splats"] * FLOPS_CABLE_SPLAT))}, work
     rows_bytes = work["rows"] * 7 * item
     return {"trace_cable_ckpt": set_bound(dict(
-                bytes=2 * (16 * n * item + 4 * n + res * item) + rows_bytes,
+                bytes=16 * n * item + 4 * n + res * item + rows_bytes,
                 flops=work["k9_ray_steps"] * FLOPS_CABLE_FWD_STEP)),
             "backtrace_cable_exact": set_bound(dict(
-                bytes=rows_bytes + 2 * (4 * n + 6 * n * item + res * item + res * 8),
+                bytes=rows_bytes + 4 * n + 6 * n * item + res * item + res * 8,
                 flops=work["k10_gated_steps"] * (FLOPS_CABLE_EXACT_STEP + FLOPS_CABLE_SPLAT)))}, work
 
 
 def fiber_path():
     """The fiber driver through ``runner.run`` on ``params-fiber.yaml``
     ``default`` at its shipped size and depth (840 steps, 3 -> 129 bins,
-    4,096 rays a pass), as a user runs it: the start-up spot check and the
-    stage escalation on, ``ANRT_EXACT_TOL`` at its default.  Every cable
+    4,096 rays a pass, both passes one batch), as a user runs it: the
+    start-up spot check and the stage escalation on, ``ANRT_EXACT_TOL`` at
+    its default.  Every cable
     kernel is held to the launches the code implies for the stage the
     escalation fired at, per stage and in all, and no other kernel launches.
     Per stage: step time on the host clock (each step ends with the loss read
@@ -1756,22 +1806,25 @@ def fiber_path():
     finally:
         K.record_events(None)
     seconds = time.time() - t0
-    launches = dict(K.LAUNCHES)
+    launches, k8_paths = dict(K.LAUNCHES), dict(K.BACKTRACE_CABLE_PATHS)
     escalated = escalation_stage(metrics)
     steps, want, want_stages = expected_fiber_launches(params, escalated, nrays)
     got_stages, after = stage_launches(events, step_rows, params)
     checks = {k: v for row in metrics.history for k, v in row.items()
               if k.startswith("grad_spotcheck")}
     print(f"fiber[{FIBER_YAML} default] {nrays} rays a pass ({int(gen_rays.mask.sum())} live "
-          f"in one draw), two passes a step, stages {res_list}, optim_iters {iters}: {steps} "
+          f"in one draw), two passes a step as one batch, stages {res_list}, optim_iters "
+          f"{iters}: {steps} "
           f"Adam steps in {seconds:.2f} s; spot checks {json.dumps(checks)}; escalation to the "
           f"exact gradient fired at stage {escalated}"
           + (f" ({res_list[escalated]} bins)" if escalated is not None else "")
-          + f"; launches {launches}", flush=True)
+          + f"; launches {launches}, K8 by path {k8_paths}", flush=True)
     if launches != want or got_stages != want_stages or after:
         raise AssertionError(f"the fiber run must launch {want}, by stage {want_stages}, "
                              f"counted {launches}, {got_stages} and {len(after)} after the "
                              "last step")
+    if k8_paths != {"columns": launches["backtrace_cable"], "block": 0}:
+        raise AssertionError(f"K8 must take its column path at every stage, took {k8_paths}")
     if nrays != FIBER_RAYS or len(hist) != steps or len(step_rows) != steps \
             or steps != FIBER_STEPS:
         raise AssertionError("the fiber run is not at its shipped size or lost steps")
@@ -1788,6 +1841,7 @@ def fiber_path():
 
     first_exact = len(res_list) if escalated is None else escalated
     per_stage, first, prev_end = [], 0, 0
+    card = smi_line()
     for s, r in enumerate(res_list):
         rows = step_rows[first:first + iters * (s + 1)]
         first += len(rows)
@@ -1795,14 +1849,15 @@ def fiber_path():
         names = ("trace_cable_ckpt", "backtrace_cable_exact") if exact else ("trace_cable",
                                                                            "backtrace_cable")
         # the spot check's launches before the stage's first step (512 rays)
-        check_ms = {n_: a.elapsed_time(b) for n_, a, b in events[prev_end:rows[0][3] - 4]}
+        check_ms = {n_: a.elapsed_time(b)
+                    for n_, a, b in events[prev_end:rows[0][3] - FIBER_STEP_LAUNCHES]}
         prev_end = rows[-1][3]
         by_name, kern, sums = {}, [], {}
         for row in rows:
-            own = events[row[3] - 4:row[3]]  # the step's own launches: two passes
-            if sorted(n_ for n_, _, _ in own) != sorted(names * 2):
-                raise AssertionError(f"fiber: a step's launches at stage {s} are not two of "
-                                     f"{names}")
+            own = events[row[3] - FIBER_STEP_LAUNCHES:row[3]]  # the step's own launches
+            if sorted(n_ for n_, _, _ in own) != sorted(names):
+                raise AssertionError(f"fiber: a step's launches at stage {s} are not one of "
+                                     f"each of {names}")
             step_sum = {}
             for n_, a, b in own:
                 t = a.elapsed_time(b)
@@ -1844,13 +1899,14 @@ def fiber_path():
               + ("; its launches (512 rays) " + ", ".join(f"{n_} {t:.3f} ms"
                                                           for n_, t in check_ms.items())
                  if check_ms else "")
-              + f"; loss {st['loss_last']:.6g}", flush=True)
+              + f"; loss {st['loss_last']:.6g}; {card}", flush=True)
     print(f"fiber: loss {hist[0]:.6g} -> {hist[-1]:.6g} (mean of the first 10 "
           f"{sum(hist[:10]) / 10:.6g}, of the last 10 {sum(hist[-10:]) / 10:.6g}); profile in "
           f"[{float(eta.min()):.6f}, {float(eta.max()):.6f}]; L2 distance to ground_truth({res}) "
           f"{l2_gt:.6f} (the flat start's {l2_start:.6f})", flush=True)
     return dict(seconds=seconds, steps=steps, nrays=nrays, launches=launches,
-                escalated=escalated, per_stage=per_stage, spot_checks=checks,
+                k8_paths=k8_paths, card=card, escalated=escalated, per_stage=per_stage,
+                spot_checks=checks,
                 loss_first=hist[0], loss_last=hist[-1], l2_to_ground_truth=l2_gt,
                 l2_start_to_ground_truth=l2_start)
 
@@ -2022,11 +2078,13 @@ def main():
                                               f"f64 {CABLE_SMALL[0]} bins")
     failures += cable_failures
     full_bins = fiber_params()["res_list"][-1]
-    cable_full, cable_failures = cable_check(cable_scene(full_bins, None, torch.float32),
-                                             f"f32 {full_bins} bins", times=True)
+    cable_full, cable_failures = cable_check(
+        cable_scene(full_bins, None, torch.float32, both_passes=True),
+        f"f32 {full_bins} bins, a fiber step's two passes", times=True)
     failures += cable_failures
     times.update(cable_full["times"])
     cable_api_check()
+    failures += cable_block_path_check()
 
     gather = gather_check_and_time()
     times["gather_rows"] = gather
@@ -2160,8 +2218,11 @@ def main():
         **{name: {"rel_tol": TOL_F32_GRAD if name.startswith("backtrace") else 0.0,
                   "rel_tol_against": ("the f64 sum of the plain version's f32 terms"
                                       if name.startswith("backtrace") else "bitwise"),
-                  "scene": f"fiber source, 4096 rays, {full_bins} bins, f32",
+                  "scene": f"fiber source, 4096 rays twice (near and hop targets), "
+                           f"{full_bins} bins, f32",
                   "work": cable_full["work"], "f64_check": cable_small["errs"],
+                  **({"launches_by_k8_path": fiber_rec["k8_paths"]}
+                     if name == "backtrace_cable" else {}),
                   "launched_by": "experiments.fiber.multires_exp through runner.run: "
                                  + ("the steps before the escalation and the spot checks"
                                     if name in ("trace_cable", "backtrace_cable") else

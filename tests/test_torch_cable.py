@@ -330,3 +330,19 @@ def test_cable_kernels_refuse_cpu_tensors(scene):
                                 torch.zeros(250, dtype=torch.int32), x, v, DS, SEG)
     assert all(K.LAUNCHES[k] == 0 for k in ("trace_cable", "backtrace_cable",
                                              "trace_cable_ckpt", "backtrace_cable_exact"))
+
+
+@pytest.mark.parametrize("dtype, last_columns", [(torch.float32, 854), (torch.float64, 807)])
+def test_k8_takes_columns_while_a_block_of_them_fits_shared_memory(dtype, last_columns):
+    """K8's path follows from the profile's size and type alone: a column a
+    lane of its 32-lane block plus the per-bin table (16 or 32 bytes a bin)
+    within the 232,448 bytes a block may have; above that one gradient a
+    block, which every profile the cable kernels take fits."""
+    item = torch.empty((), dtype=dtype).element_size()
+    assert K.cable_shared_bytes(last_columns, dtype, K.CABLE_COLUMN_THREADS) \
+        <= K.SHARED_BYTES_MAX < K.cable_shared_bytes(last_columns + 1, dtype,
+                                                     K.CABLE_COLUMN_THREADS)
+    assert K.backtrace_cable_path(129, dtype) == "columns"
+    assert K.backtrace_cable_path(last_columns, dtype) == "columns"
+    assert K.backtrace_cable_path(last_columns + 1, dtype) == "block"
+    assert K.cable_shared_bytes(1025, dtype, 1) == 1025 * (4 * item + 8) <= K.SHARED_BYTES_MAX
