@@ -12,15 +12,20 @@
 // so the thread leaves the loop when its ray freezes: the result is the
 // plain version's bit for bit (compiled with -fmad=false).
 //
-// K9 trace_cable_ckpt is the same loop compiled with kCkpt: the forward pass
+// K9 trace_cable_ckpt is the same step compiled with kCkpt: the forward pass
 // of the exact cable gradient (replacing the segmented XLA forward of the JAX
 // package's tracer/checkpointed.py::_fwd_ckpts_cable; the port's plain
-// version is tracer/checkpointed.py::_fwd_ckpts_cable).  It also writes, for
-// each ray, (x, v, esc) at the start of every segment of seg steps that it
-// begins before it freezes (later rows are never read: the backward pass
-// stops at the capture step) and the capture step c (0 if the ray never got
-// closer than where it started).  Checkpoints are (nseg, 7, n_rays), field k
-// of ray i at [s][k][i], so a warp's store of one field is one line.
+// version is tracer/checkpointed.py::_fwd_ckpts_cable).  It also writes the
+// capture step c (0 if the ray never got closer than where it started) and,
+// with kStore, for each ray (x, v, esc) at the start of every segment of seg
+// steps that it begins before it freezes (later rows are never read: the
+// backward pass stops at the capture step).  Checkpoints are (nseg, 7,
+// n_rays), field k of ray i at [s][k][i], so a warp's store of one field is
+// one line.  With kStore the loop is one over segments around one of at most
+// seg steps, as the JAX segment scan is: the store sits at the segment's
+// start outside the inner loop, so the step carries no counter of its own and
+// no test of the checkpoint pointer (the first design counted down to the
+// next store and tested the pointer at every step, 21 % slower than K7).
 //
 // Bound by the latency of each ray's chain of steps (cylinder.cuh): the
 // block's threads build its per-bin table first, and a step reads the table
@@ -30,7 +35,27 @@
 
 namespace anrt {
 
-template <typename T, bool kCkpt>
+// One step of K9's segment loop: the move, the freeze test and the capture of
+// the closest approach; returns whether the ray froze.
+template <typename T>
+__device__ __forceinline__ bool trace_step(const Profile<T>& p, const BinEntry<T>* tab, T ds,
+                                           const T tg[3], T x[3], T v[3], T xt[3], T vt[3],
+                                           T& d2, bool& inside, int& c, int step) {
+  cable_step(p, tab, ds, x, v, true);  // the loop runs active rays only
+  const T cur = sum_sq3(x, tg);
+  const bool cur_inside = inbounds(p, x);
+  const bool esc = (inside && !cur_inside) || escaped(p, x, v, static_cast<T>(1));
+  if (cur < d2) {
+#pragma unroll
+    for (int k = 0; k < 3; ++k) { xt[k] = x[k]; vt[k] = v[k]; }
+    d2 = cur;
+    c = step + 1;
+  }
+  inside = cur_inside;
+  return esc;
+}
+
+template <typename T, bool kCkpt, bool kStore>
 __global__ void __launch_bounds__(kThreads)
 trace_cable_kernel(Profile<T> p, T ds, const T* __restrict__ x0, const T* __restrict__ v0,
                    const T* __restrict__ target, T* __restrict__ xt_out,
@@ -52,32 +77,34 @@ trace_cable_kernel(Profile<T> p, T ds, const T* __restrict__ x0, const T* __rest
   bool inside = inbounds(p, x);
   bool esc = false;
   int c = 0;
-  T* ck = ckpts == nullptr ? nullptr : ckpts + i;
-  const size_t field = static_cast<size_t>(n_rays);
-  int until_ck = 0;
 
-  for (int step = 0; step < max_steps && !esc; ++step) {
-    if (kCkpt && ck != nullptr) {
-      if (until_ck == 0) {
-        const T row[7] = {x[0], x[1], x[2], v[0], v[1], v[2], static_cast<T>(0)};
+  if (kStore) {
+    for (int s0 = 0; s0 < max_steps && !esc; s0 += seg) {
+      const size_t field = static_cast<size_t>(n_rays);
+      T* ck = ckpts + static_cast<size_t>(s0 / seg) * 7 * field + i;
+      const T row[7] = {x[0], x[1], x[2], v[0], v[1], v[2], static_cast<T>(0)};
 #pragma unroll
-        for (int k = 0; k < 7; ++k) ck[k * field] = row[k];
-        ck += 7 * field;
-        until_ck = seg;
+      for (int k = 0; k < 7; ++k) ck[k * field] = row[k];
+      const int end = max_steps - s0 < seg ? max_steps : s0 + seg;
+      for (int step = s0; step < end && !esc; ++step)
+        esc = trace_step(p, tab, ds, tg, x, v, xt, vt, d2, inside, c, step);
+    }
+  } else {
+    // K7 (and K9 without checkpoints): K7's loop with the step written out;
+    // with trace_step in its place K7 ran 4 % slower on an H100 (PERF.md)
+    for (int step = 0; step < max_steps && !esc; ++step) {
+      cable_step(p, tab, ds, x, v, true);  // the loop runs active rays only
+      const T cur = sum_sq3(x, tg);
+      const bool cur_inside = inbounds(p, x);
+      esc = (inside && !cur_inside) || escaped(p, x, v, static_cast<T>(1));
+      if (cur < d2) {
+#pragma unroll
+        for (int k = 0; k < 3; ++k) { xt[k] = x[k]; vt[k] = v[k]; }
+        d2 = cur;
+        c = step + 1;
       }
-      --until_ck;
+      inside = cur_inside;
     }
-    cable_step(p, tab, ds, x, v, true);  // the loop runs active rays only
-    const T cur = sum_sq3(x, tg);
-    const bool cur_inside = inbounds(p, x);
-    esc = (inside && !cur_inside) || escaped(p, x, v, static_cast<T>(1));
-    if (cur < d2) {
-#pragma unroll
-      for (int k = 0; k < 3; ++k) { xt[k] = x[k]; vt[k] = v[k]; }
-      d2 = cur;
-      c = step + 1;
-    }
-    inside = cur_inside;
   }
   if (xt_out == nullptr) return;
   store3(xt_out, i, xt);
@@ -93,7 +120,8 @@ int launch_trace_cable(const void* prof, int res, double radius, double length, 
                        cudaStream_t stream) {
   if (n_rays > 0) {
     const size_t bytes = table_bytes<T>(res);
-    auto kernel = trace_cable_kernel<T, kCkpt>;
+    auto kernel = kCkpt && ckpts != nullptr ? trace_cable_kernel<T, kCkpt, kCkpt>
+                                            : trace_cable_kernel<T, kCkpt, false>;
     const cudaError_t err = allow_shared(kernel, bytes);
     if (err != cudaSuccess) return static_cast<int>(err);
     kernel<<<blocks_for(n_rays), kThreads, bytes, stream>>>(

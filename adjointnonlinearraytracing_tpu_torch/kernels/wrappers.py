@@ -83,16 +83,22 @@ K8 ``backtrace_cable`` (csrc/backtrace_cable.cu)
     once; a profile too large for the columns (:func:`backtrace_cable_path`)
     takes one gradient a block, to which a ray adds its splats per pair of
     bins summed in registers.
-K9 ``trace_cable_ckpt`` (csrc/trace_cable.cu, K7's loop with checkpoints)
+K9 ``trace_cable_ckpt`` (csrc/trace_cable.cu, K7's step with checkpoints)
     the exact cable gradient's forward pass, replacing
     ``tracer/checkpointed.py::_fwd_ckpts_cable``: also writes ``(x, v, esc)``
-    at each segment start before the ray freezes and the capture step ``c``.
+    at each segment start before the ray freezes (a loop over segments around
+    one over a segment's steps, the store between them) and the capture step
+    ``c``.
 K10 ``backtrace_cable_exact`` (csrc/backtrace_cable_exact.cu)
     the exact cable gradient's backward pass, replacing
     ``tracer/checkpointed.py::_bwd_segments_cable``: per ray the segments below
     its capture step, last to first, each replayed with K7's step, then K8's
-    adjoint update in reverse gated by ``k < c``; run sums into one gradient a
-    block.
+    adjoint update in reverse gated by ``k < c``; a block's replay warp
+    replays the next stretch into one of two buffers while its adjoint warp
+    sweeps the other, for the same 32 rays; splats to a lane's column as K8's,
+    the buffers in shared memory beside the columns, or, where they do not fit
+    (:func:`backtrace_cable_exact_path`), runs into one gradient a block, the
+    buffers in device memory, so that K10 takes every profile K8 takes.
 """
 
 from __future__ import annotations
@@ -111,6 +117,8 @@ LAUNCHES = {name: 0 for name in build.KERNELS}
 BACKTRACE_PATHS = {"shared": 0, "global": 0}
 #: K8's launches by path (:func:`backtrace_cable_path`), counted with ``LAUNCHES``
 BACKTRACE_CABLE_PATHS = {"columns": 0, "block": 0}
+#: K10's launches by path (:func:`backtrace_cable_exact_path`), counted with ``LAUNCHES``
+BACKTRACE_CABLE_EXACT_PATHS = {"columns": 0, "block": 0}
 #: the dynamic shared memory one block may opt in to on sm_90 (227 KB);
 #: ``kSharedMax`` in csrc/backtrace.cu
 SHARED_BYTES_MAX = 232448
@@ -131,7 +139,7 @@ _ARGTYPES = {
     "trace_cable_ckpt": [_I, _VP, _I, _D, _D, _D, _VP, _VP, _VP, _VP, _VP, _VP, _VP, _VP, _I,
                          _I, _I, _VP],
     "backtrace_cable_exact": [_I, _VP, _I, _D, _D, _D, _VP, _VP, _VP, _VP, _VP, _I, _I, _I,
-                              _VP],
+                              _I, _VP, _I, _VP],
 }
 #: the states a checkpoint holds: x, v, inside (the cable kernels: x, v, esc)
 CKPT_WIDTH = 7
@@ -146,7 +154,8 @@ _events: Optional[List[Tuple[str, "torch.cuda.Event", "torch.cuda.Event"]]] = No
 
 
 def reset_launches() -> None:
-    for counts in (LAUNCHES, BACKTRACE_PATHS, BACKTRACE_CABLE_PATHS):
+    for counts in (LAUNCHES, BACKTRACE_PATHS, BACKTRACE_CABLE_PATHS,
+                   BACKTRACE_CABLE_EXACT_PATHS):
         for name in counts:
             counts[name] = 0
 
@@ -424,9 +433,43 @@ def backtrace_cable_path(res: int, dtype: torch.dtype) -> str:
     return "columns" if fits else "block"
 
 
+#: the steps of one of K10's two replay buffers (``kCableReplay`` in
+#: csrc/backtrace_cable_exact.cu); a longer segment is replayed in stretches
+CABLE_REPLAY = 32
+#: the most blocks of K10 on its block path, each with two replay buffers in
+#: device memory (at most 51 MB in f32, 101 MB in f64): no fewer than an H100
+#: runs at once at any profile size that path takes (12 blocks an SM at its
+#: smallest); a block takes every ``CABLE_EXACT_BLOCK_GRID``-th group of rays
+CABLE_EXACT_BLOCK_GRID = 2048
+
+
+def cable_replay_bytes(dtype: torch.dtype) -> int:
+    """One of K10's replay buffers: the positions of :data:`CABLE_REPLAY`
+    steps of its block's 32 rays and a 4-byte word of active steps a ray."""
+    item = torch.empty((), dtype=dtype).element_size()
+    return 32 * (CABLE_REPLAY * 3 * item + 4)
+
+
+def cable_exact_shared_bytes(res: int, dtype: torch.dtype, slots: int) -> int:
+    """K10's shared memory a block on its column path: :func:`cable_shared_bytes`
+    plus its two replay buffers.  (Its block path keeps them in device memory
+    and needs K8's ``cable_shared_bytes(res, dtype, 1)``.)"""
+    return cable_shared_bytes(res, dtype, slots) + 2 * cable_replay_bytes(dtype)
+
+
+def backtrace_cable_exact_path(res: int, dtype: torch.dtype) -> str:
+    """K10's path for a profile of ``res`` bins of ``dtype``, by K8's rule
+    (:func:`backtrace_cable_path`) with its replay buffers counted in:
+    ``"columns"`` (each adjoint lane's own column of the block's gradient)
+    where they fit shared memory, else ``"block"``."""
+    fits = cable_exact_shared_bytes(res, dtype, CABLE_COLUMN_THREADS) <= SHARED_BYTES_MAX
+    return "columns" if fits else "block"
+
+
 def _check_profile(data: torch.Tensor, name: str, slots: int = 0) -> None:
-    if not data.is_cuda:
-        raise ValueError(f"{name}: the kernel takes CUDA tensors, got a profile on {data.device}")
+    """Raises on a profile the kernel does not take: the wrong type or shape, more
+    bins than a block's shared memory holds (:func:`cable_shared_bytes`), or off
+    the card."""
     if data.dtype not in (torch.float32, torch.float64):
         raise TypeError(f"{name}: profile must be float32 or float64, got {data.dtype}")
     if data.ndim != 1 or not data.is_contiguous() or data.shape[0] < 2:
@@ -436,6 +479,8 @@ def _check_profile(data: torch.Tensor, name: str, slots: int = 0) -> None:
     if need > SHARED_BYTES_MAX:
         raise ValueError(f"{name}: a profile of {data.shape[0]} bins needs {need} bytes of a "
                          f"block's shared memory, more than its {SHARED_BYTES_MAX}")
+    if not data.is_cuda:
+        raise ValueError(f"{name}: the kernel takes CUDA tensors, got a profile on {data.device}")
 
 
 def _launch_on_profile(name: str, data: torch.Tensor, radius: float, length: float,
@@ -529,7 +574,9 @@ def backtrace_cable_exact(data: torch.Tensor, radius: float, length: float,
                           out: Optional[torch.Tensor] = None) -> torch.Tensor:
     """K10: the exact cable gradient, summed in float64 into ``out`` (made zero
     when not given) and returned; ``ckpts`` and ``c`` as :func:`trace_cable_ckpt`
-    returned them for the same rays, ``dx, dv`` their cotangents."""
+    returned them for the same rays, ``dx, dv`` their cotangents.  The path
+    (:func:`backtrace_cable_exact_path`) follows from the profile's size and
+    type."""
     _check_profile(data, "backtrace_cable_exact", slots=1)
     n_rays = _check_rays(data, "backtrace_cable_exact", dx=dx, dv=dv)
     if (ckpts.device != data.device or ckpts.dtype != data.dtype or ckpts.ndim != 3
@@ -543,9 +590,15 @@ def backtrace_cable_exact(data: torch.Tensor, radius: float, length: float,
                          f"tensor on {data.device}, got {c.dtype} {tuple(c.shape)} on {c.device}")
     out = _grad_out(data, out, "backtrace_cable_exact")
     if n_rays:
+        path = backtrace_cable_exact_path(data.shape[0], data.dtype)
+        grid = min(-(-n_rays // 32), CABLE_EXACT_BLOCK_GRID)
+        buffers = None if path == "columns" else torch.empty(
+            (2 * grid * cable_replay_bytes(data.dtype),), dtype=torch.uint8, device=data.device)
         _launch_on_profile("backtrace_cable_exact", data, radius, length, ds, ckpts.data_ptr(),
                            c.data_ptr(), dx.data_ptr(), dv.data_ptr(), out.data_ptr(), n_rays,
-                           ckpts.shape[0], int(seg))
+                           ckpts.shape[0], int(seg), int(path == "columns"), _ptr(buffers),
+                           grid)
+        BACKTRACE_CABLE_EXACT_PATHS[path] += 1
     return out
 
 

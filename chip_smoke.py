@@ -67,15 +67,26 @@ result.  Phases (any failure is an uncaught exception):
       host's share; the final loss and the profile's L2 distance to
       ``ground_truth(129)``; then the driver in f64 at a small size on the
       card against the CPU.
+   h2. the same run with ``gradient: "exact"`` set in the params, the
+      driver's own exact mode: every step one K9 and one K10 (the start-up
+      check one K7 and one K8, no stage checks), asserted per stage and in
+      all, K10 on its column path; per stage as in h, and the final loss and
+      L2 distance beside h's; then that mode in f64 at a small size on the
+      card against the CPU.
    Before the main paths, the cable kernels K7 ``trace_cable``, K8
    ``backtrace_cable``, K9 ``trace_cable_ckpt`` and K10
    ``backtrace_cable_exact`` are held against their plain versions on the
    fiber source's rays (``cable_check``): at 17 bins and 512 rays in f64 and at
-   the path's full width (129 bins, 4,096 rays, f32): K7 and K9 (closest
-   approach, capture steps, checkpoint rows read) bitwise, K8 and K10 1e-9 in
+   the path's full width (129 bins, a step's two passes of 4,096 rays, f32):
+   K7 and K9 (closest approach, capture steps, checkpoint rows read)
+   bitwise, K8 and K10 1e-9 in
    f64 and 1e-5 of the f64 sum of the same terms in f32, with their times and
-   bounds; and ``api.trace_cable`` against ``trace_cable_exact`` in f64, whole
-   and chunked, and against the CPU (``cable_api_check``).
+   bounds; K9 and K10 so again at ``seg`` 7 and 48, shorter and longer than
+   K10's replay buffer (``cable_seg_check``); ``api.trace_cable`` against
+   ``trace_cable_exact`` in f64, whole and chunked, and against the CPU
+   (``cable_api_check``); K8 and K10 on their block paths at 1,025 bins
+   and at the largest profile they take, there on more rays than K10's
+   block path has blocks (``cable_block_path_check``).
 5. report  - one JSON line of the kernels, then the result line.
 
 Bounds use the published peaks of one H100 SXM: 3.35 TB/s of device memory,
@@ -1602,6 +1613,47 @@ def cable_check(s, label, times=False):
     return row, failures
 
 
+# K10's segments beside its replay buffer of K.CABLE_REPLAY steps: shorter, and
+# longer (replayed in two stretches, the later first)
+CABLE_SEGS = (7, 48)
+
+
+def cable_seg_check(s, label):
+    """K9 and K10 against their plain versions on the scene ``s`` at each
+    ``seg`` of ``CABLE_SEGS``, held as ``cable_check`` holds them at ``SEG``:
+    K9's closest approach, capture steps and checkpoint rows read bitwise, K10
+    within ``TOL_F64`` (f64) or ``TOL_F32_GRAD`` of the f64 sum of the same
+    terms (f32).  Returns the failures."""
+    prof, field, radius, length = s["prof"], s["field"], s["radius"], s["length"]
+    x, v, tg, ds, steps = s["x"], s["v"], s["target"], s["ds"], s["steps"]
+    f64 = prof.dtype == torch.float64
+    tol = TOL_F64 if f64 else TOL_F32_GRAD
+    failures = []
+    for seg in CABLE_SEGS:
+        xt_p, vt_p, d2_p, c_p, ck_p = CK._fwd_ckpts_cable(field, x, v, tg, ds, steps, seg)
+        xt_k, vt_k, d2_k, c_k, ck_k = K.trace_cable_ckpt(prof, radius, length, x, v, tg, ds,
+                                                         steps, seg)
+        need = (torch.arange(ck_p.shape[0], device="cuda")[:, None] * seg) < c_p[None, :]
+        bitwise = bool(torch.equal(xt_k, xt_p) and torch.equal(vt_k, vt_p)
+                       and torch.equal(d2_k, d2_p) and torch.equal(c_k, c_p)
+                       and torch.equal(ck_k.transpose(1, 2)[need], ck_p.transpose(1, 2)[need]))
+        dx, dv = 2.0 * (xt_p - tg), torch.ones_like(vt_p)
+        want = CK._bwd_segments_cable(field, ck_p, c_p, dx, dv, ds, seg,
+                                      acc_dtype=None if f64 else torch.float64)
+        K.reset_launches()
+        got = K.backtrace_cable_exact(prof, radius, length, ck_k, c_k, dx, dv, ds, seg)
+        paths = dict(K.BACKTRACE_CABLE_EXACT_PATHS)
+        scale = float(want.abs().max())
+        err = float((got - want.to(got.dtype)).abs().max()) / max(scale, 1e-300)
+        print(f"cable[{label}, seg {seg}] K9 bitwise equal {bitwise} (rows read {int(need.sum())}"
+              f"); K10 paths {paths}: rel_err {err:.3e} (max |g| {scale:.4g}, tol {tol:g})",
+              flush=True)
+        if not (bitwise and err <= tol and scale > 0):
+            failures.append(f"K9 or K10 at seg {seg}, {label}: bitwise {bitwise}, K10 rel_err "
+                            f"{err:.3e}")
+    return failures
+
+
 def cable_api_check():
     """``api.trace_cable`` (K7, K8) against ``trace_cable_exact`` (K9, K10) in
     f64 on the card, whole and chunked (``ANRT_EXACT_CHUNK``), and against
@@ -1650,35 +1702,63 @@ def cable_api_check():
 # backtrace_cable_path), 512 of the fiber source's rays, the steps cut to 400
 # on both sides so that the plain version stays quick
 CABLE_WIDE, CABLE_WIDE_STEPS = 1025, 400
+# and the largest profile K8 and K10 take (9,685 bins in f32, 5,811 in f64),
+# with a fiber step's rays nine times over: 73,728 rays, more groups of 32
+# than K10's block path has blocks, so that its blocks take two groups each
+CABLE_WIDEST_COPIES = 9
+
+
+def cable_largest_res(dtype):
+    """The most bins K8 and K10 take: one gradient a block beside the table."""
+    return K.SHARED_BYTES_MAX // K.cable_shared_bytes(1, dtype, 1)
 
 
 def cable_block_path_check():
-    """K8 on its block path (one gradient a block, runs) against the plain
-    version at ``CABLE_WIDE`` bins: f64 within ``TOL_F64``, f32 within
-    ``TOL_F32_GRAD`` of the f64 sum of the same terms; the path each launch
-    took is asserted.  Returns the failures."""
+    """K8 and K10 on their block paths (one gradient a block, runs; K10's
+    buffers in device memory) against the plain versions at ``CABLE_WIDE``
+    bins on 512 rays and at the largest profile on 73,728: f64 within
+    ``TOL_F64``, f32 within ``TOL_F32_GRAD`` of the f64 sum of the same
+    terms; the path each launch took is asserted.  Returns the failures."""
     failures = []
-    for dtype in (torch.float64, torch.float32):
-        s = cable_scene(CABLE_WIDE, 512, dtype, seed=9)
+    for dtype, res in ((torch.float64, CABLE_WIDE), (torch.float32, CABLE_WIDE),
+                       (torch.float64, None), (torch.float32, None)):
+        if res is None:
+            res = cable_largest_res(dtype)
+            s = cable_scene(res, None, dtype, seed=9, both_passes=True)
+            for k in ("x", "v", "target"):
+                s[k] = s[k].repeat(CABLE_WIDEST_COPIES, 1).contiguous()
+            if s["x"].shape[0] <= 32 * K.CABLE_EXACT_BLOCK_GRID:
+                raise AssertionError("the widest block-path check must give K10's blocks more "
+                                     "than one group of rays")
+        else:
+            s = cable_scene(res, 512, dtype, seed=9)
         prof, field, radius, length, ds = s["prof"], s["field"], s["radius"], s["length"], s["ds"]
-        xt, vt, _ = E.trace_cable(field, s["x"], s["v"], s["target"], ds, CABLE_WIDE_STEPS)
-        dx, dv = 2.0 * (xt - s["target"]), torch.ones_like(vt)
-        want = E.backtrace_cable(field, xt, vt, dx, dv, ds, CABLE_WIDE_STEPS,
-                                 acc_dtype=torch.float64)
+        x, v, tg = s["x"], s["v"], s["target"]
+        n = x.shape[0]
+        xt, vt, _, c, ck = CK._fwd_ckpts_cable(field, x, v, tg, ds, CABLE_WIDE_STEPS, SEG)
+        dx, dv = 2.0 * (xt - tg), torch.ones_like(vt)
+        want8 = E.backtrace_cable(field, xt, vt, dx, dv, ds, CABLE_WIDE_STEPS,
+                                  acc_dtype=torch.float64)
+        want10 = CK._bwd_segments_cable(field, ck, c, dx, dv, ds, SEG, acc_dtype=torch.float64)
         K.reset_launches()
-        got = K.backtrace_cable(prof, radius, length, xt.contiguous(), vt.contiguous(),
-                                dx.contiguous(), dv, ds, CABLE_WIDE_STEPS,
-                                G.snap_tol(dtype) * radius)
-        paths = dict(K.BACKTRACE_CABLE_PATHS)
-        err = float((got - want).abs().max()) / max(float(want.abs().max()), 1e-300)
+        got8 = K.backtrace_cable(prof, radius, length, xt.contiguous(), vt.contiguous(),
+                                 dx.contiguous(), dv, ds, CABLE_WIDE_STEPS,
+                                 G.snap_tol(dtype) * radius)
+        c_k, ck_k = K.trace_cable_ckpt(prof, radius, length, x, v, tg, ds, CABLE_WIDE_STEPS,
+                                       SEG)[3:]
+        got10 = K.backtrace_cable_exact(prof, radius, length, ck_k, c_k, dx.contiguous(), dv, ds,
+                                        SEG)
+        paths = {"K8": dict(K.BACKTRACE_CABLE_PATHS), "K10": dict(K.BACKTRACE_CABLE_EXACT_PATHS)}
         tol = TOL_F64 if dtype == torch.float64 else TOL_F32_GRAD
-        print(f"cable[{dtype} {CABLE_WIDE} bins x 512, {CABLE_WIDE_STEPS} steps] K8 paths "
-              f"{paths}: rel_err {err:.3e} against the plain version's f64 sum (tol {tol:g})",
-              flush=True)
-        if paths != {"columns": 0, "block": 1} or not (err <= tol
-                                                       and float(want.abs().max()) > 0):
-            failures.append(f"K8 on its block path at {CABLE_WIDE} bins {dtype}: paths {paths}, "
-                            f"rel_err {err:.3e}")
+        for name, got, want in (("K8", got8, want8), ("K10", got10, want10)):
+            err = float((got - want).abs().max()) / max(float(want.abs().max()), 1e-300)
+            print(f"cable[{dtype} {res} bins x {n}, {CABLE_WIDE_STEPS} steps] {name} "
+                  f"paths {paths[name]}: rel_err {err:.3e} against the plain version's f64 sum "
+                  f"(tol {tol:g})", flush=True)
+            if paths[name] != {"columns": 0, "block": 1} or not (
+                    err <= tol and float(want.abs().max()) > 0):
+                failures.append(f"{name} on its block path at {res} bins x {n} {dtype}: paths "
+                                f"{paths[name]}, rel_err {err:.3e}")
     return failures
 
 
@@ -1772,19 +1852,23 @@ def fiber_stage_work(eta, params, rays, exact, res):
                 flops=work["k10_gated_steps"] * (FLOPS_CABLE_EXACT_STEP + FLOPS_CABLE_SPLAT)))}, work
 
 
-def fiber_path():
+def fiber_path(gradient=None):
     """The fiber driver through ``runner.run`` on ``params-fiber.yaml``
     ``default`` at its shipped size and depth (840 steps, 3 -> 129 bins,
     4,096 rays a pass, both passes one batch), as a user runs it: the
     start-up spot check and the stage escalation on, ``ANRT_EXACT_TOL`` at
-    its default.  Every cable
+    its default.  ``gradient="exact"`` sets the driver's own exact mode in
+    the params (phase h2): every step is then one K9 and one K10 and no stage
+    check runs, the launches of an escalation at stage 0.  Every cable
     kernel is held to the launches the code implies for the stage the
     escalation fired at, per stage and in all, and no other kernel launches.
     Per stage: step time on the host clock (each step ends with the loss read
     back), the kernels' times from the events around the launches, the host's
     share, and the kernels' shares of their bounds (work counted by the plain
     versions on the final profile resampled to the stage)."""
-    params = fiber_params()
+    overrides = {} if gradient is None else {"gradient": gradient}
+    params = dict(fiber_params(), **overrides)
+    label = f"{FIBER_YAML} default" + ("" if gradient is None else f", gradient {gradient}")
     res_list, iters = params["res_list"], params["optim_iters"]
     gen_rays = fiber.gen_start_rays(params, torch.Generator(device="cuda").manual_seed(12345))
     nrays = gen_rays.x.shape[0]
@@ -1800,31 +1884,40 @@ def fiber_path():
     K.record_events(events)
     t0 = time.time()
     try:
-        eta, hist = runner.run(os.path.join(CONFIGS, FIBER_YAML), None, device="cuda",
-                               stat_fn=stat, metrics=metrics)
+        eta, hist = runner.run(os.path.join(CONFIGS, FIBER_YAML), None, overrides=overrides,
+                               device="cuda", stat_fn=stat, metrics=metrics)
         torch.cuda.synchronize()
     finally:
         K.record_events(None)
     seconds = time.time() - t0
     launches, k8_paths = dict(K.LAUNCHES), dict(K.BACKTRACE_CABLE_PATHS)
+    k10_paths = dict(K.BACKTRACE_CABLE_EXACT_PATHS)
     escalated = escalation_stage(metrics)
+    if gradient == "exact":
+        if escalated is not None:
+            raise AssertionError(f"the exact fiber run escalated at stage {escalated}")
+        escalated = 0  # exact from the first step
     steps, want, want_stages = expected_fiber_launches(params, escalated, nrays)
     got_stages, after = stage_launches(events, step_rows, params)
     checks = {k: v for row in metrics.history for k, v in row.items()
               if k.startswith("grad_spotcheck")}
-    print(f"fiber[{FIBER_YAML} default] {nrays} rays a pass ({int(gen_rays.mask.sum())} live "
+    print(f"fiber[{label}] {nrays} rays a pass ({int(gen_rays.mask.sum())} live "
           f"in one draw), two passes a step as one batch, stages {res_list}, optim_iters "
           f"{iters}: {steps} "
-          f"Adam steps in {seconds:.2f} s; spot checks {json.dumps(checks)}; escalation to the "
-          f"exact gradient fired at stage {escalated}"
-          + (f" ({res_list[escalated]} bins)" if escalated is not None else "")
-          + f"; launches {launches}, K8 by path {k8_paths}", flush=True)
+          f"Adam steps in {seconds:.2f} s; spot checks {json.dumps(checks)}; "
+          + ("the exact gradient from the first step" if gradient == "exact" else
+             f"escalation to the exact gradient fired at stage {escalated}"
+             + (f" ({res_list[escalated]} bins)" if escalated is not None else ""))
+          + f"; launches {launches}, K8 by path {k8_paths}, K10 by path {k10_paths}",
+          flush=True)
     if launches != want or got_stages != want_stages or after:
         raise AssertionError(f"the fiber run must launch {want}, by stage {want_stages}, "
                              f"counted {launches}, {got_stages} and {len(after)} after the "
                              "last step")
-    if k8_paths != {"columns": launches["backtrace_cable"], "block": 0}:
-        raise AssertionError(f"K8 must take its column path at every stage, took {k8_paths}")
+    if k8_paths != {"columns": launches["backtrace_cable"], "block": 0} or \
+            k10_paths != {"columns": launches["backtrace_cable_exact"], "block": 0}:
+        raise AssertionError(f"K8 and K10 must take their column paths at every stage, took "
+                             f"{k8_paths}, {k10_paths}")
     if nrays != FIBER_RAYS or len(hist) != steps or len(step_rows) != steps \
             or steps != FIBER_STEPS:
         raise AssertionError("the fiber run is not at its shipped size or lost steps")
@@ -1884,9 +1977,9 @@ def fiber_path():
                   loss_last=rows[-1][1],
                   launches=got_stages[s])
         per_stage.append(st)
-        print(f"fiber stage {s} {r} bins ({st['gradient']}, {st['cable_steps']} steps a ray at "
-              f"most): {len(rows)} steps, median {med:.3f} ms/step = {st['rays_per_s']:.4g} "
-              f"rays/s; kernels {st['kernel_ms_median']:.3f} ms/step "
+        print(f"fiber[{label}] stage {s} {r} bins ({st['gradient']}, {st['cable_steps']} steps "
+              f"a ray at most): {len(rows)} steps, median {med:.3f} ms/step = "
+              f"{st['rays_per_s']:.4g} rays/s; kernels {st['kernel_ms_median']:.3f} ms/step "
               f"({100 * st['kernel_ms_median'] / med:.1f} %), host and small kernels "
               f"{st['host_ms']:.3f} ms; ms per launch "
               + ", ".join(f"{n_} {t:.3f}" for n_, t in st["ms_per_launch"].items())
@@ -1900,24 +1993,26 @@ def fiber_path():
                                                           for n_, t in check_ms.items())
                  if check_ms else "")
               + f"; loss {st['loss_last']:.6g}; {card}", flush=True)
-    print(f"fiber: loss {hist[0]:.6g} -> {hist[-1]:.6g} (mean of the first 10 "
+    print(f"fiber[{label}]: loss {hist[0]:.6g} -> {hist[-1]:.6g} (mean of the first 10 "
           f"{sum(hist[:10]) / 10:.6g}, of the last 10 {sum(hist[-10:]) / 10:.6g}); profile in "
           f"[{float(eta.min()):.6f}, {float(eta.max()):.6f}]; L2 distance to ground_truth({res}) "
           f"{l2_gt:.6f} (the flat start's {l2_start:.6f})", flush=True)
-    return dict(seconds=seconds, steps=steps, nrays=nrays, launches=launches,
-                k8_paths=k8_paths, card=card, escalated=escalated, per_stage=per_stage,
-                spot_checks=checks,
+    return dict(gradient=gradient or "adjoint", seconds=seconds, steps=steps, nrays=nrays,
+                launches=launches, k8_paths=k8_paths, k10_paths=k10_paths, card=card,
+                escalated=escalated, per_stage=per_stage, spot_checks=checks,
                 loss_first=hist[0], loss_last=hist[-1], l2_to_ground_truth=l2_gt,
                 l2_start_to_ground_truth=l2_start)
 
 
-def fiber_small_check():
+def fiber_small_check(gradient=None):
     """The fiber driver in f64 at a small size, on the card against the CPU,
     with the same rays on both (drawn once on the CPU, handed to the driver
     through its ``sample_rays`` hook): loss history and profile within
-    ``TOL_F64``, the card's launches as the code implies, the CPU's none."""
+    ``TOL_F64``, the card's launches as the code implies, the CPU's none.
+    ``gradient`` as for :func:`fiber_path`."""
     params = dict(fiber_params(), res_list=[3, 5, 9], nbins=16, optim_iters=2,
-                  record_iters=10 ** 9, dtype="float64")
+                  record_iters=10 ** 9, dtype="float64",
+                  **({} if gradient is None else {"gradient": gradient}))
     rays = fiber.gen_start_rays(params, torch.Generator().manual_seed(0), torch.float64)
     out = {}
     for device in ("cuda", "cpu"):
@@ -1927,12 +2022,14 @@ def fiber_small_check():
                                         sample_rays=lambda gen, samples: rays)
         out[device] = (prof, hist, escalation_stage(metrics), dict(K.LAUNCHES))
     (p_g, hist_g, esc_g, launches), (p_c, hist_c, esc_c, cpu_launches) = out["cuda"], out["cpu"]
-    steps, want, _ = expected_fiber_launches(params, esc_g, rays.x.shape[0])
+    exact_from = 0 if gradient == "exact" and esc_g is None else esc_g
+    steps, want, _ = expected_fiber_launches(params, exact_from, rays.x.shape[0])
     hist_err = max(abs(a - b) / abs(b) for a, b in zip(hist_g, hist_c))
     scale = float((p_c - 1.0).abs().max())
     p_err = float((p_g.cpu() - p_c).abs().max()) / scale
-    print(f"fiber[f64 {params['res_list']}, {rays.x.shape[0]} rays, {steps} steps, escalated at "
-          f"stage {esc_g}] card against CPU: loss history rel_err {hist_err:.3e}, final profile "
+    print(f"fiber[f64 {params['res_list']}, {rays.x.shape[0]} rays, {steps} steps, gradient "
+          f"{gradient or 'adjoint'}, escalated at stage {esc_g}] card against CPU: loss history "
+          f"rel_err {hist_err:.3e}, final profile "
           f"err {p_err:.3e} of its largest deviation from 1 ({scale:.3e}) (tol {TOL_F64:g}); "
           f"launches on the card {launches}", flush=True)
     if esc_g != esc_c or launches != want or any(cpu_launches.values()):
@@ -2083,6 +2180,10 @@ def main():
         f"f32 {full_bins} bins, a fiber step's two passes", times=True)
     failures += cable_failures
     times.update(cable_full["times"])
+    failures += cable_seg_check(cable_scene(*CABLE_SMALL, torch.float64),
+                                f"f64 {CABLE_SMALL[0]} bins")
+    failures += cable_seg_check(cable_scene(full_bins, None, torch.float32, both_passes=True),
+                                f"f32 {full_bins} bins, a fiber step's two passes")
     cable_api_check()
     failures += cable_block_path_check()
 
@@ -2134,16 +2235,22 @@ def main():
         drivers[name].pop("eta")
         driver_small_check(name)
     fiber_rec = fiber_path()
+    fiber_exact = fiber_path("exact")
+    print("fiber, exact against adjoint: " + "; ".join(
+        f"{k} {fiber_exact[k]:.6g} against {fiber_rec[k]:.6g}"
+        for k in ("loss_last", "l2_to_ground_truth", "seconds")), flush=True)
     fiber_small_check()
+    fiber_small_check("exact")
     full_run = fuel_path(FUEL_ITERS_SHIPPED, "f32 full width, shipped optim_iters", work)
     print(f"fuel[shipped] {full_run['steps']} steps in {full_run['seconds']:.1f} s, escalated "
           f"at stage {full_run['escalated']}, rel_norm {full_run['rel_norm']:.4f}", flush=True)
     print("drivers: " + json.dumps(drivers), flush=True)
     print("fiber: " + json.dumps(fiber_rec), flush=True)
+    print("fiber exact: " + json.dumps(fiber_exact), flush=True)
 
     paths = {"bench": bench_launches, "probe": probe_launches, "fuel": fuel["launches"],
              **{name: d["launches"] for name, d in drivers.items()},
-             "fiber": fiber_rec["launches"]}
+             "fiber": fiber_rec["launches"], "fiber_exact": fiber_exact["launches"]}
     replaces = {
         "eval_grad": "adjointnonlinearraytracing_tpu/benchmarks/probe_evalmath.py:107",
         "trace_fwd": "adjointnonlinearraytracing_tpu/tracer/paired.py:64",
@@ -2223,10 +2330,14 @@ def main():
                   "work": cable_full["work"], "f64_check": cable_small["errs"],
                   **({"launches_by_k8_path": fiber_rec["k8_paths"]}
                      if name == "backtrace_cable" else {}),
+                  **({"launches_by_k10_path": {"fiber": fiber_rec["k10_paths"],
+                                               "fiber_exact": fiber_exact["k10_paths"]}}
+                     if name == "backtrace_cable_exact" else {}),
                   "launched_by": "experiments.fiber.multires_exp through runner.run: "
                                  + ("the steps before the escalation and the spot checks"
                                     if name in ("trace_cable", "backtrace_cable") else
-                                    "the steps from the escalation on and the stage checks")}
+                                    "the steps from the escalation on (every step with "
+                                    "gradient exact) and the stage checks")}
            for name in CABLE_KERNELS},
         "gather_rows": {"rel_tol": 0.0, "rows": GATHER_N, "table_rows": GATHER_ROWS,
                         "ms_dirty_flush": gather["ms_dirty_flush"],
@@ -2252,8 +2363,9 @@ def main():
             "ms_per_launch_by_driver_stage": {
                 **{path: {f"{st['res']}^3": st["ms_per_launch"][name] for st in d["per_stage"]
                           if name in st["ms_per_launch"]} for path, d in drivers.items()},
-                "fiber": {f"{st['res']} bins": st["ms_per_launch"][name]
-                          for st in fiber_rec["per_stage"] if name in st["ms_per_launch"]}},
+                **{path: {f"{st['res']} bins": st["ms_per_launch"][name]
+                          for st in rec_f["per_stage"] if name in st["ms_per_launch"]}
+                   for path, rec_f in (("fiber", fiber_rec), ("fiber_exact", fiber_exact))}},
             **extra[name],
         })
     if failures:

@@ -1,8 +1,11 @@
-"""Times of K7 ``trace_cable``'s and K8 ``backtrace_cable``'s designs on one card.
+"""Times of the cable kernels' designs (K7-K10) on one card.
 
 Run from the repo root on a machine with a CUDA device and ``nvcc``::
 
-    python tools/cable_designs.py [--rounds N] [--reps N] [--out FILE]
+    python tools/cable_designs.py [--rounds N] [--reps N] [--out FILE] [--part PART]
+
+``--part k7k8`` runs the K7 and K8 part described next, ``--part exact`` the
+K9 and K10 part described after it; both by default.
 
 It builds the shipped kernels and ``tools/cable_designs.cu`` (K7's and K8's
 first designs, and the designs tried on the way to the shipped ones, which
@@ -31,7 +34,20 @@ and prints the registers and spills (``ptxas -v``) and, from ``cuobjdump
 MUFU operations, the IEEE division and square-root checks (``FCHK``) and
 their slow-path calls (``CALL``), convergence barriers (``BSSY``), shared
 atomics (``ATOMS``, with ``.CAS``/``.CAST`` for the f64 adds), and the
-global and shared loads.  Ends with one JSON line.
+global, shared and local (``LDL``, ``STL``) loads and stores.
+
+The exact part builds ``tools/cable_exact_designs.cu`` (K9's and K10's
+previous designs verbatim, and the K10 designs between them and the shipped one: per-lane
+columns, the replayed positions in shared memory, the replay and the
+adjoint as two warps, the adjoint evaluating a step ahead, each path; the
+file lists them), checks each K9 design bit for bit against the shipped K9 (closest
+approach, capture steps, every checkpoint row read) and each K10 design
+within 1e-5 of the shipped K10, and times them beside the shipped K7, K9 and
+K10 with ``clock64()`` cycles a step from the instrumented copies, on two
+scenes of 8,192 rays at 129 bins: ``both``,
+``chip_smoke.cable_scene(129, None, float32, both_passes=True)`` with
+``cable_check``'s cotangents, and ``driver`` (below) with its loss's.
+Ends with one JSON line.
 """
 
 from __future__ import annotations
@@ -62,6 +78,7 @@ from adjointnonlinearraytracing_tpu_torch.kernels import wrappers as K  # noqa: 
 from adjointnonlinearraytracing_tpu_torch.tracer import api  # noqa: E402
 
 SOURCE = Path(__file__).resolve().parent / "cable_designs.cu"
+EXACT_SOURCE = Path(__file__).resolve().parent / "cable_exact_designs.cu"
 K7_DESIGNS = {0: "first", 1: "table", 2: "early eval", 3: "table + early eval",
               4: "table, floor-convert", 5: "table, fast paths",
               6: "table, floor-convert, fast paths", 7: "table + early eval, fast paths"}
@@ -76,20 +93,44 @@ K8_DESIGNS = {0: "first", 1: "table, block runs", 2: "table + early, block runs"
 CHECK_RES_MAX = 4097
 #: and these (none a power of two) over every exponent as well
 CHECK_RES_SWEEP = (100, 854, 1000)
+K9_DESIGNS = {0: "previous", 1: "segment loop (shipped)"}
+K10_DESIGNS = {0: "previous", 1: "columns", 2: "columns, shared buffer", 3: "two roles",
+               4: "two roles, block runs",
+               5: "two roles, evaluation ahead (shipped columns)",
+               6: "two roles, evaluation ahead, branch splat",
+               7: "two roles, evaluation ahead, branch splat, block runs",
+               8: "two roles, evaluation ahead, block runs (shipped block adjoint)"}
 THREADS = (32, 64, 128)
 TOL = 1e-5
-SASS_OPS = ("MUFU", "FCHK", "CALL", "BSSY", "BRA", "ATOMS", "LDG", "LDS", "STS", "DADD")
+SASS_OPS = ("MUFU", "FCHK", "CALL", "BSSY", "BRA", "ATOMS", "LDG", "LDS", "STS", "LDL", "STL",
+            "DADD", "BAR")
+
+
+def nvcc_lib(source):
+    """Compile ``source`` as ``build.py`` compiles the shipped sources."""
+    build.BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    out = build.BUILD_DIR / f"lib{source.stem}.so"
+    proc = subprocess.run([build._nvcc(), *build.NVCC_FLAGS, "-I", str(build.CSRC), "-o",
+                           str(out), str(source)], capture_output=True, text=True)
+    if proc.returncode != 0:
+        raise RuntimeError(f"nvcc failed for {source.name}:\n{proc.stdout}{proc.stderr}")
+    return ctypes.CDLL(str(out)), out, proc.stdout + proc.stderr
+
+
+def build_exact_designs():
+    lib, out, log = nvcc_lib(EXACT_SOURCE)
+    vp, i, d = ctypes.c_void_p, ctypes.c_int, ctypes.c_double
+    lib.anrt_k9_design.argtypes = [i, i, vp, i, d, d, d, vp, vp, vp, vp, vp, vp, vp, vp, vp, i, i,
+                                   i, vp]
+    lib.anrt_k9_design.restype = i
+    lib.anrt_k10_design.argtypes = [i, vp, i, d, d, d, vp, vp, vp, vp, vp, vp, i, i, i, vp]
+    lib.anrt_k10_design.restype = i
+    return lib, out, log
 
 
 def build_designs():
     """Compile ``cable_designs.cu`` as ``build.py`` compiles the shipped sources."""
-    build.BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    out = build.BUILD_DIR / "libcable_designs.so"
-    proc = subprocess.run([build._nvcc(), *build.NVCC_FLAGS, "-I", str(build.CSRC), "-o",
-                           str(out), str(SOURCE)], capture_output=True, text=True)
-    if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed for {SOURCE.name}:\n{proc.stdout}{proc.stderr}")
-    lib = ctypes.CDLL(str(out))
+    lib, out, log = nvcc_lib(SOURCE)
     vp, i, d = ctypes.c_void_p, ctypes.c_int, ctypes.c_double
     lib.anrt_k7_design.argtypes = [i, i, vp, i, d, d, d, vp, vp, vp, vp, vp, vp, vp, i, i, vp]
     lib.anrt_k7_design.restype = i
@@ -97,7 +138,7 @@ def build_designs():
     lib.anrt_k8_design.restype = i
     lib.anrt_arith_check.argtypes = [i, ctypes.c_float, ctypes.c_uint, ctypes.c_uint, vp, vp]
     lib.anrt_arith_check.restype = i
-    return lib, out, proc.stdout + proc.stderr
+    return lib, out, log
 
 
 def f32_bits(x):
@@ -149,7 +190,8 @@ def machine_code(lib_path):
     counts = {}
     for part in re.split(r"\n\s*Function : ", sass)[1:]:
         name = demangle(part.split("\n", 1)[0].strip())
-        if "<double" in name or not any(k in name for k in ("cable", "k7<", "k8<")):
+        if "<double" in name or not any(k in name for k in ("cable", "k7<", "k8<", "two_roles",
+                                                             "k9_")):
             continue
         ops = re.findall(r"/\*[0-9a-f]{4,}\*/\s+(?:@!?U?P\w+\s+)?([A-Z][A-Z0-9_.]*)", part)
         kinds = {"total": len(ops)}
@@ -250,58 +292,30 @@ def driver_scene():
     return s
 
 
-def main(argv=None):
-    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--rounds", type=int, default=4)
-    ap.add_argument("--reps", type=int, default=5)
-    ap.add_argument("--out", default=None, help="also write the JSON line to this file")
-    ap.add_argument("--sass", default=None,
-                    help="also write the machine code of each library to this directory")
-    args = ap.parse_args(argv)
+def time_rounds(fns, args):
+    """Median ms of each function over ``args.rounds`` rounds, all in turn each round."""
+    torch.cuda.synchronize()
+    times = {name: [] for name in fns}
+    for _ in range(args.rounds):
+        for name, fn in fns.items():
+            times[name].append(CS.time_ms(fn, args.reps))
+    return {name: sorted(t)[len(t) // 2] for name, t in times.items()}, times
 
-    card = CS.smi_line()
-    print(f"device: {card}", flush=True)
-    for name in build.KERNELS:
-        build.load(name)
-    lib, lib_path, log = build_designs()
-    regs = ptxas_lines(log)
-    for name, text in build.build_logs().items():
-        if "cable" in name:
-            regs += [f"[{name}] {line}" for line in ptxas_lines(text)]
-    for line in regs:
-        print(f"ptxas {line}")
-    sass = {}
-    libs = [Path(build.load(n)._name) for n in ("trace_cable", "backtrace_cable",
-                                                "backtrace_cable_exact")] + [lib_path]
-    for path in libs:
-        sass.update(machine_code(path))
-        if args.sass:
-            Path(args.sass).mkdir(parents=True, exist_ok=True)
-            cuobjdump = Path(build._nvcc()).with_name("cuobjdump")
-            text = subprocess.run([str(cuobjdump), "-sass", str(path)], capture_output=True,
-                                  text=True, check=True).stdout
-            (Path(args.sass) / f"{path.stem}.sass").write_text(demangle(text))
-    for name, ops in sass.items():
-        print(f"sass {name}: {ops}")
 
-    arith = arith_check(lib)
-    print(f"div_rn, sqrt_rn against the operators (values that differ in any bit): {arith}",
-          flush=True)
-    if any(v["differ"] for k, v in arith.items() if "below" not in k):
-        raise AssertionError(f"div_rn or sqrt_rn differs from the IEEE operators: {arith}")
+def report(label, s, fns, med, clocks):
+    print(f"{label} ({s['x'].shape[0]} rays, {s['prof'].shape[0]} bins):", flush=True)
+    for name in fns:
+        c = clocks.get(name)
+        print(f"  {name}: {med[name]:.4f} ms"
+              + (f"; cycles a step mean {c['mean']:.0f}, max {c['max']:.0f}, longest ray "
+                 f"{c['longest_steps']} steps at {c['longest_cycles_per_step']:.0f}, "
+                 f"all {c['cycles_per_all_steps']:.0f}" if c else ""), flush=True)
 
-    # the shipped K7-K10 against their plain versions first
-    checks = {}
-    for label, sc in (("f64 17 bins", CS.cable_scene(*CS.CABLE_SMALL, torch.float64)),
-                      ("f32 129 bins", CS.cable_scene(129, None, torch.float32))):
-        row, failures = CS.cable_check(sc, label, times=label.startswith("f32"))
-        if failures:
-            raise AssertionError("\n".join(failures))
-        checks[label] = row
-    CS.cable_api_check()
 
+def k7k8_part(lib, scenes, args):
+    """The K7 and K8 designs on the ``fixed`` and ``driver`` scenes."""
     results = []
-    for label, s in (("fixed", fixed_scene()), ("driver", driver_scene())):
+    for label, s in scenes:
         prof, radius, length, ds, steps = s["prof"], s["radius"], s["length"], s["ds"], s["steps"]
         x, v, tg, xt, vt, dx, dv = (s[k] for k in ("x", "v", "target", "xt", "vt", "dx", "dv"))
         fns, clocks, errs = {}, {}, {}
@@ -347,22 +361,168 @@ def main(argv=None):
                     raise AssertionError(f"{key} is {errs[key]:.3e} from the shipped K8 at "
                                          f"{label}")
                 clocks[key] = cycles(k8_design(lib, num, th, s, xt, vt, dx, dv, clock=True)()[1])
-        torch.cuda.synchronize()
-        times = {name: [] for name in fns}
-        for _ in range(args.rounds):
-            for name, fn in fns.items():
-                times[name].append(CS.time_ms(fn, args.reps))
-        med = {name: sorted(t)[len(t) // 2] for name, t in times.items()}
-        row = dict(scene=label, rays=x.shape[0], res=prof.shape[0], steps=steps, ms=med,
-                   all=times, cycles=clocks, rel_err_to_shipped_k8=errs)
-        results.append(row)
-        print(f"{label} ({x.shape[0]} rays, {prof.shape[0]} bins):", flush=True)
-        for name in fns:
-            c = clocks.get(name)
-            print(f"  {name}: {med[name]:.4f} ms"
-                  + (f"; cycles a step mean {c['mean']:.0f}, max {c['max']:.0f}, longest ray "
-                     f"{c['longest_steps']} steps at {c['longest_cycles_per_step']:.0f}, "
-                     f"all {c['cycles_per_all_steps']:.0f}" if c else ""), flush=True)
+        med, times = time_rounds(fns, args)
+        results.append(dict(scene=label, rays=x.shape[0], res=prof.shape[0], steps=steps, ms=med,
+                            all=times, cycles=clocks, rel_err_to_shipped_k8=errs))
+        report(label, s, fns, med, clocks)
+    return results
+
+
+def k9_design(lib, num, threads, s, clock=False):
+    def run():
+        prof, x = s["prof"], s["x"]
+        n, nseg = x.shape[0], -(-s["steps"] // CS.SEG)
+        xt, vt = torch.empty_like(x), torch.empty_like(x)
+        d2 = torch.empty((n,), dtype=prof.dtype, device="cuda")
+        c = torch.empty((n,), dtype=torch.int32, device="cuda")
+        ck = torch.empty((nseg, K.CKPT_WIDTH, n), dtype=prof.dtype, device="cuda")
+        clk = torch.zeros((n, 2), dtype=torch.int64, device="cuda") if clock else None
+        rc = lib.anrt_k9_design(num, threads, prof.data_ptr(), prof.shape[0], s["radius"],
+                                s["length"], s["ds"], x.data_ptr(), s["v"].data_ptr(),
+                                s["target"].data_ptr(), xt.data_ptr(), vt.data_ptr(),
+                                d2.data_ptr(), c.data_ptr(), ck.data_ptr(),
+                                None if clk is None else clk.data_ptr(), n, s["steps"], CS.SEG,
+                                stream())
+        if rc != 0:
+            raise RuntimeError(f"anrt_k9_design({num}, {threads}) returned CUDA error {rc}")
+        return xt, vt, d2, c, ck, clk
+    return run
+
+
+def k10_design(lib, num, s, ck, c, clock=False):
+    def run():
+        prof, n = s["prof"], s["x"].shape[0]
+        g = torch.zeros((prof.shape[0],), dtype=torch.float64, device="cuda")
+        clk = torch.zeros((n, 2), dtype=torch.int64, device="cuda") if clock else None
+        rc = lib.anrt_k10_design(num, prof.data_ptr(), prof.shape[0], s["radius"], s["length"],
+                                 s["ds"], ck.data_ptr(), c.data_ptr(), s["dx"].data_ptr(),
+                                 s["dv"].data_ptr(), g.data_ptr(),
+                                 None if clk is None else clk.data_ptr(), n, ck.shape[0], CS.SEG,
+                                 stream())
+        if rc != 0:
+            raise RuntimeError(f"anrt_k10_design({num}) returned CUDA error {rc}")
+        return (g, clk) if clock else g
+    return run
+
+
+def exact_part(lib, scenes, args):
+    """The K9 and K10 designs beside the shipped K7, K9 and K10."""
+    results = []
+    for label, s in scenes:
+        prof, radius, length, ds, steps = s["prof"], s["radius"], s["length"], s["ds"], s["steps"]
+        x, v, tg, dx, dv = (s[k] for k in ("x", "v", "target", "dx", "dv"))
+        ref9 = K.trace_cable_ckpt(prof, radius, length, x, v, tg, ds, steps, CS.SEG)
+        c, ck = ref9[3], ref9[4]
+        need = (torch.arange(ck.shape[0], device="cuda")[:, None] * CS.SEG) < c[None, :]
+        fns, clocks, errs = {}, {}, {}
+        fns["K7 shipped"] = lambda: K.trace_cable(prof, radius, length, x, v, tg, ds, steps)
+        fns["K9 shipped"] = lambda: K.trace_cable_ckpt(prof, radius, length, x, v, tg, ds, steps,
+                                                       CS.SEG)
+        fns["K10 shipped"] = lambda: K.backtrace_cable_exact(prof, radius, length, ck, c, dx, dv,
+                                                             ds, CS.SEG)
+        ref10 = fns["K10 shipped"]()
+        scale = max(float(ref10.abs().max()), 1e-300)
+        for num, name in K9_DESIGNS.items():
+            for th in THREADS:
+                key = f"K9 {name} @{th}"
+                fns[key] = k9_design(lib, num, th, s)
+                out = fns[key]()
+                same = all(torch.equal(a, b) for a, b in zip(out[:4], ref9[:4])) and torch.equal(
+                    out[4].transpose(1, 2)[need], ck.transpose(1, 2)[need])
+                if not same:
+                    raise AssertionError(f"{key} differs from the shipped K9 at {label}")
+                clocks[key] = cycles(k9_design(lib, num, th, s, clock=True)()[5])
+        for num, name in K10_DESIGNS.items():
+            key = f"K10 {name}"
+            fns[key] = k10_design(lib, num, s, ck, c)
+            errs[key] = float((fns[key]() - ref10).abs().max()) / scale
+            if errs[key] > TOL:
+                raise AssertionError(f"{key} is {errs[key]:.3e} from the shipped K10 at {label}")
+            clocks[key] = cycles(k10_design(lib, num, s, ck, c, clock=True)()[1])
+        med, times = time_rounds(fns, args)
+        results.append(dict(scene=label, rays=x.shape[0], res=prof.shape[0], steps=steps, ms=med,
+                            all=times, cycles=clocks, rel_err_to_shipped_k10=errs,
+                            k10_gated_steps=int(c.sum()), max_c=int(c.max())))
+        report(label, s, fns, med, clocks)
+    return results
+
+
+def both_scene():
+    """A fiber step's two passes on the ground truth plus 1 %: ``cable_check``'s
+    full-width scene and cotangents."""
+    s = CS.cable_scene(129, None, torch.float32, both_passes=True)
+    xt, _, _ = K.trace_cable(s["prof"], s["radius"], s["length"], s["x"], s["v"], s["target"],
+                             s["ds"], s["steps"])
+    s.update(dx=(2.0 * (xt - s["target"])).contiguous(), dv=torch.ones_like(xt))
+    return s
+
+
+def main(argv=None):
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--rounds", type=int, default=4)
+    ap.add_argument("--reps", type=int, default=5)
+    ap.add_argument("--part", choices=("all", "k7k8", "exact"), default="all")
+    ap.add_argument("--out", default=None, help="also write the JSON line to this file")
+    ap.add_argument("--sass", default=None,
+                    help="also write the machine code of each library to this directory")
+    args = ap.parse_args(argv)
+    parts = ("k7k8", "exact") if args.part == "all" else (args.part,)
+
+    card = CS.smi_line()
+    print(f"device: {card}", flush=True)
+    for name in build.KERNELS:
+        build.load(name)
+    libs, logs = {}, []
+    if "k7k8" in parts:
+        libs["k7k8"], lib_path, log = build_designs()
+        logs.append((lib_path, log))
+    if "exact" in parts:
+        libs["exact"], lib_path, log = build_exact_designs()
+        logs.append((lib_path, log))
+    regs = [line for _, log in logs for line in ptxas_lines(log)]
+    for name, text in build.build_logs().items():
+        if "cable" in name:
+            regs += [f"[{name}] {line}" for line in ptxas_lines(text)]
+    for line in regs:
+        print(f"ptxas {line}")
+    sass = {}
+    paths = [Path(build.load(n)._name) for n in ("trace_cable", "backtrace_cable",
+                                                 "backtrace_cable_exact")]
+    for path in paths + [p for p, _ in logs]:
+        sass.update(machine_code(path))
+        if args.sass:
+            Path(args.sass).mkdir(parents=True, exist_ok=True)
+            cuobjdump = Path(build._nvcc()).with_name("cuobjdump")
+            text = subprocess.run([str(cuobjdump), "-sass", str(path)], capture_output=True,
+                                  text=True, check=True).stdout
+            (Path(args.sass) / f"{path.stem}.sass").write_text(demangle(text))
+    for name, ops in sass.items():
+        print(f"sass {name}: {ops}")
+
+    arith = None
+    if "k7k8" in parts:
+        arith = arith_check(libs["k7k8"])
+        print(f"div_rn, sqrt_rn against the operators (values that differ in any bit): {arith}",
+              flush=True)
+        if any(v["differ"] for k, v in arith.items() if "below" not in k):
+            raise AssertionError(f"div_rn or sqrt_rn differs from the IEEE operators: {arith}")
+
+    # the shipped K7-K10 against their plain versions first
+    checks = {}
+    for label, sc in (("f64 17 bins", CS.cable_scene(*CS.CABLE_SMALL, torch.float64)),
+                      ("f32 129 bins", CS.cable_scene(129, None, torch.float32))):
+        row, failures = CS.cable_check(sc, label, times=label.startswith("f32"))
+        if failures:
+            raise AssertionError("\n".join(failures))
+        checks[label] = row
+    CS.cable_api_check()
+
+    driver = driver_scene()
+    results = []
+    if "k7k8" in parts:
+        results += k7k8_part(libs["k7k8"], (("fixed", fixed_scene()), ("driver", driver)), args)
+    if "exact" in parts:
+        results += exact_part(libs["exact"], (("both", both_scene()), ("driver", driver)), args)
     clocks_line = subprocess.run(
         ["nvidia-smi", "--query-gpu=clocks.sm,clocks.max.sm", "--format=csv,noheader"],
         capture_output=True, text=True).stdout.strip()
@@ -374,7 +534,7 @@ def main(argv=None):
     if args.out:
         Path(args.out).parent.mkdir(parents=True, exist_ok=True)
         Path(args.out).write_text(line + "\n")
-    print(json.dumps({"card": card, "ms": {r["scene"]: r["ms"] for r in results}}))
+    print(json.dumps({"card": card, "ms": [{r["scene"]: r["ms"]} for r in results]}))
 
 
 if __name__ == "__main__":
