@@ -15,7 +15,8 @@
 //
 // Which path runs is the caller's choice (kernels/wrappers.py decides K3's
 // from the grid's size and type alone; K6 takes the global path at every
-// size); a refused launch is an error, not a retry.
+// size); a refused launch is an error, not a retry.  T is the accumulator's
+// type: the grid's for K3 and K6, double for K14.
 #pragma once
 
 #include "trilinear.cuh"

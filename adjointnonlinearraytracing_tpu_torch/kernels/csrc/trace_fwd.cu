@@ -41,16 +41,156 @@
 // at the fuel trainer's coarse stages and added as much at the fine ones and
 // on the bench scene (8 more registers), so K5 reads them at every step, as
 // K2 does (tools/k6_designs.py, PERF.md).
+//
+// K11 trace_plane, K12 trace_target and K13 trace_sdf are the same loop under
+// another stop and capture rule (a `Rule`, below), replacing the variants of
+// the JAX package's paired stepper (tracer/paired.py::trace_plane,
+// ::trace_target, ::trace_sdf; the same numbers as tracer/eikonal.py's
+// functions of those names):
+//   * K11 (PlaneRule): "inside" is inbounds and not past the ray's plane
+//     ((x - o) . d > 0); outputs (xt, vt) as K2's and miss = !esc.  Leaving
+//     the loop at esc is exact as for K2: an escaped ray is past its plane
+//     moving on, or outside the grid moving away.
+//   * K12 (TargetRule): the closest approach to the ray's target, captured
+//     at every step the squared distance drops; d2 out; no fix-up.  Here an
+//     escaped ray does NOT stop: the JAX loop runs until every ray of the
+//     batch has escaped, and an escaped ray goes on straight (its eval is
+//     masked) and is still captured when it gets closer.  So the kernel runs
+//     in two launches: pass 1 (trace_fwd_kernel) steps each ray to its escape
+//     as K2 does, saves its state and takes the batch's last escape step S
+//     into one word (a warp's max, then atomicMax); pass 2
+//     (trace_horizon_kernel) steps each escaped ray on to S, step by step
+//     with the same step (so the rounding is the plain version's, not a
+//     closed form), capturing as before.  Pass 2's steps are straight lines:
+//     6 + 8 flops a step and no grid read.
+//   * K13 (SdfRule): "inside" at the new x is sdf < 0, the sdf read under the
+//     previous inside (an outside ray reads 0 and stays outside); escape is
+//     tested on the grid; no fix-up.  A ray that escaped the grid while still
+//     inside the sdf (clamped corners can read sdf < 0 outside the grid) may
+//     cross later, while the batch runs, so K13 takes K12's two passes, and
+//     pass 2 steps only those rays, each until it leaves the sdf (after that
+//     nothing of it can change) or S.
+// The horizon costs K12 and K13 a second launch and 60 B (f32) of state a
+// ray in device memory between them; the launch is cheap where no ray
+// continues (K13 on most scenes).
 #include "trilinear.cuh"
 
 namespace anrt {
 
-template <typename T, bool kCkpt>
+// The stop and capture rules.  A rule holds its per-ray inputs and outputs;
+// `Ray` is its per-ray state: start(i, x0) makes it, inside(r, x, was,
+// in_grid) is "inside" at the new x (in_grid = inbounds(x), was = the
+// previous step's inside), capture(r, x, cross) says whether (x, v) becomes
+// the output, finish(r, i, esc) writes the rule's own outputs.  kFixup: a ray
+// that never escaped reports its last x; kHorizon: escaped rays step on to
+// the batch's last escape (two launches), while continues(inside) holds,
+// from the state resume(i) rebuilds.
+template <typename T>
+struct VolumeRule {  // K2 and K5
+  static constexpr bool kFixup = true, kHorizon = false;
+  struct Ray {};
+  __device__ __forceinline__ Ray start(int, const T*) const { return {}; }
+  __device__ __forceinline__ bool inside(Ray&, const T*, bool, bool in_grid) const {
+    return in_grid;
+  }
+  __device__ __forceinline__ bool capture(Ray&, const T*, bool cross) const { return cross; }
+  __device__ __forceinline__ void finish(const Ray&, int, bool) const {}
+};
+
+template <typename T>
+struct PlaneRule {  // K11
+  const T* __restrict__ o;
+  const T* __restrict__ d;
+  unsigned char* __restrict__ miss;
+  static constexpr bool kFixup = true, kHorizon = false;
+  struct Ray { T o[3], d[3]; };
+  __device__ __forceinline__ Ray start(int i, const T*) const {
+    Ray r;
+    load3(o, i, r.o);
+    load3(d, i, r.d);
+    return r;
+  }
+  __device__ __forceinline__ bool inside(Ray& r, const T x[3], bool, bool in_grid) const {
+    const T past = (x[0] - r.o[0]) * r.d[0] + (x[1] - r.o[1]) * r.d[1] +
+                   (x[2] - r.o[2]) * r.d[2];
+    return in_grid && !(past > static_cast<T>(0));
+  }
+  __device__ __forceinline__ bool capture(Ray&, const T*, bool cross) const { return cross; }
+  __device__ __forceinline__ void finish(const Ray&, int i, bool esc) const { miss[i] = !esc; }
+};
+
+template <typename T>
+__device__ __forceinline__ T dist2(const T x[3], const T y[3]) {
+  const T d[3] = {x[0] - y[0], x[1] - y[1], x[2] - y[2]};
+  return d[0] * d[0] + d[1] * d[1] + d[2] * d[2];
+}
+
+template <typename T>
+struct TargetRule {  // K12
+  const T* __restrict__ target;
+  T* __restrict__ d2;
+  static constexpr bool kFixup = false, kHorizon = true;
+  struct Ray { T tgt[3]; T d2; };
+  __device__ __forceinline__ Ray start(int i, const T* x0) const {
+    Ray r;
+    load3(target, i, r.tgt);
+    r.d2 = dist2(x0, r.tgt);
+    return r;
+  }
+  // pass 2 starts from pass 1's output
+  __device__ __forceinline__ Ray resume(int i) const {
+    Ray r;
+    load3(target, i, r.tgt);
+    r.d2 = d2[i];
+    return r;
+  }
+  __device__ __forceinline__ bool inside(Ray&, const T*, bool, bool in_grid) const {
+    return in_grid;
+  }
+  __device__ __forceinline__ bool capture(Ray& r, const T x[3], bool) const {
+    const T cur = dist2(x, r.tgt);
+    const bool closer = cur < r.d2;
+    if (closer) r.d2 = cur;
+    return closer;
+  }
+  __device__ __forceinline__ void finish(const Ray& r, int i, bool) const { d2[i] = r.d2; }
+  __device__ __forceinline__ bool continues(bool) const { return true; }
+};
+
+template <typename T>
+struct SdfRule {  // K13
+  Grid<T> sdf;  // on the grid's lattice
+  static constexpr bool kFixup = false, kHorizon = true;
+  struct Ray {};
+  __device__ __forceinline__ Ray start(int, const T*) const { return {}; }
+  __device__ __forceinline__ Ray resume(int) const { return {}; }
+  __device__ __forceinline__ bool inside(Ray&, const T x[3], bool was, bool) const {
+    return was && value_at(sdf, x) < static_cast<T>(0);
+  }
+  __device__ __forceinline__ bool capture(Ray&, const T*, bool cross) const { return cross; }
+  __device__ __forceinline__ void finish(const Ray&, int, bool) const {}
+  __device__ __forceinline__ bool continues(bool inside) const { return inside; }
+};
+
+// The state pass 1 of a horizon rule leaves for pass 2, at the thread's slot:
+// x, v (3 each), the steps taken, inside; `last` is the batch's last escape
+// step (zeroed by the caller).
+template <typename T>
+struct Horizon {
+  T* x;
+  T* v;
+  int* steps;
+  unsigned char* inside;
+  int* last;
+};
+
+template <typename T, bool kCkpt, typename Rule>
 __global__ void trace_fwd_kernel(Grid<T> g, T ds, const T* __restrict__ x0,
                                  const T* __restrict__ v0, const int* __restrict__ order,
                                  T* __restrict__ xt_out, T* __restrict__ vt_out,
                                  int* __restrict__ c_out, unsigned char* __restrict__ code_out,
-                                 T* __restrict__ ckpts, int n_rays, int max_steps, int seg) {
+                                 T* __restrict__ ckpts, Rule rule, Horizon<T> hz, int n_rays,
+                                 int max_steps, int seg) {
   const int t = blockIdx.x * blockDim.x + threadIdx.x;
   if (t >= n_rays) return;
   const int i = ray_of(order, t);
@@ -59,6 +199,7 @@ __global__ void trace_fwd_kernel(Grid<T> g, T ds, const T* __restrict__ x0,
   load3(v0, i, v);
 #pragma unroll
   for (int k = 0; k < 3; ++k) { xt[k] = x[k]; vt[k] = v[k]; }
+  typename Rule::Ray r = rule.start(i, x);
   bool inside = inbounds(g, x);
   bool esc = false;
   int c = max_steps;
@@ -69,7 +210,8 @@ __global__ void trace_fwd_kernel(Grid<T> g, T ds, const T* __restrict__ x0,
   const size_t field = static_cast<size_t>(n_rays);
   int until_ck = 0;
 
-  for (int step = 0; step < max_steps && !esc; ++step) {
+  int step = 0;
+  for (; step < max_steps && !esc; ++step) {
     if (kCkpt && ck != nullptr) {
       if (until_ck == 0) {
         const T row[7] = {x[0], x[1], x[2], v[0], v[1], v[2], static_cast<T>(inside ? 1 : 0)};
@@ -80,10 +222,10 @@ __global__ void trace_fwd_kernel(Grid<T> g, T ds, const T* __restrict__ x0,
       }
       --until_ck;
     }
-    const bool cur_inside = forward_step(g, ds, x, v, inside);
+    const bool cur_inside = rule.inside(r, x, inside, forward_step(g, ds, x, v, inside));
     const bool cross = inside && !cur_inside;
     esc = esc || cross || escaped(g, x, v, static_cast<T>(1));
-    if (cross) {
+    if (rule.capture(r, x, cross)) {
 #pragma unroll
       for (int k = 0; k < 3; ++k) { xt[k] = x[k]; vt[k] = v[k]; }
       c = step + 1;
@@ -91,17 +233,93 @@ __global__ void trace_fwd_kernel(Grid<T> g, T ds, const T* __restrict__ x0,
     }
     inside = cur_inside;
   }
+  if constexpr (Rule::kHorizon) {
+    store3(hz.x, t, x);
+    store3(hz.v, t, v);
+    hz.steps[t] = step;
+    hz.inside[t] = inside;
+    const unsigned lanes = __activemask();
+    const int last = __reduce_max_sync(lanes, step);
+    if ((threadIdx.x & 31) == __ffs(lanes) - 1) atomicMax(hz.last, last);
+  }
   if (xt_out == nullptr) return;
 
-  // rays that never escaped report their final position; vt is not fixed up
+  // K2, K11: rays that never escaped report their final position; vt is not
+  // fixed up
+  if constexpr (Rule::kFixup) {
 #pragma unroll
-  for (int k = 0; k < 3; ++k) xt[k] = esc ? xt[k] : x[k];
+    for (int k = 0; k < 3; ++k) xt[k] = esc ? xt[k] : x[k];
+  }
   store3(xt_out, i, xt);
   store3(vt_out, i, vt);
+  rule.finish(r, i, esc);
   if (kCkpt) {
     c_out[i] = c;
     code_out[i] = !esc ? 0 : (captured ? 1 : 2);
   }
+}
+
+// Pass 2 of a horizon rule (K12, K13): each escaped ray that the rule
+// continues steps on from where pass 1 left it to the batch's last escape
+// step, with K2's step and the rule's inside and capture, and rewrites its
+// outputs.  Every ray here has escaped (one that never did took max_steps).
+template <typename T, typename Rule>
+__global__ void trace_horizon_kernel(Grid<T> g, T ds, const int* __restrict__ order,
+                                     T* __restrict__ xt_out, T* __restrict__ vt_out, Rule rule,
+                                     Horizon<T> hz, int n_rays) {
+  const int t = blockIdx.x * blockDim.x + threadIdx.x;
+  if (t >= n_rays) return;
+  int step = hz.steps[t];
+  bool inside = hz.inside[t];
+  const int last = *hz.last;
+  if (step >= last || !rule.continues(inside)) return;
+  const int i = ray_of(order, t);
+  T x[3], v[3], xt[3], vt[3];
+  load3(hz.x, t, x);
+  load3(hz.v, t, v);
+  load3(xt_out, i, xt);
+  load3(vt_out, i, vt);
+  typename Rule::Ray r = rule.resume(i);
+  for (; step < last && rule.continues(inside); ++step) {
+    const bool cur_inside = rule.inside(r, x, inside, forward_step(g, ds, x, v, inside));
+    if (rule.capture(r, x, inside && !cur_inside)) {
+#pragma unroll
+      for (int k = 0; k < 3; ++k) { xt[k] = x[k]; vt[k] = v[k]; }
+    }
+    inside = cur_inside;
+  }
+  store3(xt_out, i, xt);
+  store3(vt_out, i, vt);
+  rule.finish(r, i, true);
+}
+
+// One pass of a variant: pass 1 (or the only one) with trace_fwd_kernel,
+// pass 2 with trace_horizon_kernel.
+template <typename T, typename Rule>
+int launch_variant(const Grid<T>& g, double ds, const void* x0, const void* v0,
+                   const int* order, void* xt, void* vt, const Rule& rule, const Horizon<T>& hz,
+                   int n_rays, int max_steps, int pass, cudaStream_t stream) {
+  if (n_rays > 0) {
+    if (pass == 1) {
+      trace_fwd_kernel<T, false, Rule><<<blocks_for(n_rays), kThreads, 0, stream>>>(
+          g, static_cast<T>(ds), static_cast<const T*>(x0), static_cast<const T*>(v0), order,
+          static_cast<T*>(xt), static_cast<T*>(vt), nullptr, nullptr, nullptr, rule, hz, n_rays,
+          max_steps, 1);
+    } else if constexpr (Rule::kHorizon) {
+      trace_horizon_kernel<T, Rule><<<blocks_for(n_rays), kThreads, 0, stream>>>(
+          g, static_cast<T>(ds), order, static_cast<T*>(xt), static_cast<T*>(vt), rule, hz,
+          n_rays);
+    } else {
+      return static_cast<int>(cudaErrorInvalidValue);  // a rule without a horizon has one pass
+    }
+  }
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <typename T>
+Horizon<T> make_horizon(void* x, void* v, void* steps, void* inside, void* last) {
+  return Horizon<T>{static_cast<T*>(x), static_cast<T*>(v), static_cast<int*>(steps),
+                    static_cast<unsigned char*>(inside), static_cast<int*>(last)};
 }
 
 template <typename T>
@@ -109,10 +327,10 @@ int launch_trace_fwd(const void* rif, int W, int H, int D, double h, double ds,
                      const void* x0, const void* v0, const int* order, void* xt, void* vt,
                      int n_rays, int max_steps, cudaStream_t stream) {
   if (n_rays > 0) {
-    trace_fwd_kernel<T, false><<<blocks_for(n_rays), kThreads, 0, stream>>>(
+    trace_fwd_kernel<T, false, VolumeRule<T>><<<blocks_for(n_rays), kThreads, 0, stream>>>(
         make_grid<T>(rif, W, H, D, h), static_cast<T>(ds), static_cast<const T*>(x0),
         static_cast<const T*>(v0), order, static_cast<T*>(xt), static_cast<T*>(vt), nullptr,
-        nullptr, nullptr, n_rays, max_steps, 1);
+        nullptr, nullptr, VolumeRule<T>{}, Horizon<T>{}, n_rays, max_steps, 1);
   }
   return static_cast<int>(cudaGetLastError());
 }
@@ -123,11 +341,11 @@ int launch_trace_ckpt(const void* rif, int W, int H, int D, double h, double ds,
                       void* c, void* code, void* ckpts, int n_rays, int max_steps, int seg,
                       cudaStream_t stream) {
   if (n_rays > 0) {
-    trace_fwd_kernel<T, true><<<blocks_for(n_rays), kThreads, 0, stream>>>(
+    trace_fwd_kernel<T, true, VolumeRule<T>><<<blocks_for(n_rays), kThreads, 0, stream>>>(
         make_grid<T>(rif, W, H, D, h), static_cast<T>(ds), static_cast<const T*>(x0),
         static_cast<const T*>(v0), order, static_cast<T*>(xt), static_cast<T*>(vt),
         static_cast<int*>(c), static_cast<unsigned char*>(code), static_cast<T*>(ckpts),
-        n_rays, max_steps, seg);
+        VolumeRule<T>{}, Horizon<T>{}, n_rays, max_steps, seg);
   }
   return static_cast<int>(cudaGetLastError());
 }
@@ -160,4 +378,69 @@ extern "C" int anrt_trace_ckpt(int is_double, const void* rif, int W, int H, int
                                                      code, ckpts, n_rays, max_steps, seg, s)
                    : anrt::launch_trace_ckpt<float>(rif, W, H, D, h, ds, x0, v0, o, xt, vt, c,
                                                     code, ckpts, n_rays, max_steps, seg, s);
+}
+
+// K11.  pln_o, pln_d: (n_rays, 3) per ray; miss: n_rays bytes (1: never escaped).
+extern "C" int anrt_trace_plane(int is_double, const void* rif, int W, int H, int D, double h,
+                                double ds, const void* x0, const void* v0, const void* pln_o,
+                                const void* pln_d, const void* order, void* xt, void* vt,
+                                void* miss, int n_rays, int max_steps, void* stream) {
+  auto s = static_cast<cudaStream_t>(stream);
+  auto o = static_cast<const int*>(order);
+  auto m = static_cast<unsigned char*>(miss);
+  if (is_double) {
+    const anrt::PlaneRule<double> rule{static_cast<const double*>(pln_o),
+                                       static_cast<const double*>(pln_d), m};
+    return anrt::launch_variant(anrt::make_grid<double>(rif, W, H, D, h), ds, x0, v0, o, xt,
+                                vt, rule, anrt::Horizon<double>{}, n_rays, max_steps, 1, s);
+  }
+  const anrt::PlaneRule<float> rule{static_cast<const float*>(pln_o),
+                                    static_cast<const float*>(pln_d), m};
+  return anrt::launch_variant(anrt::make_grid<float>(rif, W, H, D, h), ds, x0, v0, o, xt, vt,
+                              rule, anrt::Horizon<float>{}, n_rays, max_steps, 1, s);
+}
+
+// K12, pass 1 or 2 (`pass`).  target: (n_rays, 3); d2: n_rays.  The horizon
+// state (hx, hv: n_rays x 3 of the grid's type; steps: int32; inside: bytes;
+// last: one int32, zero before pass 1) is indexed by thread slot; both passes
+// take the same buffers and order.
+extern "C" int anrt_trace_target(int is_double, const void* rif, int W, int H, int D, double h,
+                                 double ds, const void* x0, const void* v0, const void* target,
+                                 const void* order, void* xt, void* vt, void* d2, void* hx,
+                                 void* hv, void* steps, void* inside, void* last, int n_rays,
+                                 int max_steps, int pass, void* stream) {
+  auto s = static_cast<cudaStream_t>(stream);
+  auto o = static_cast<const int*>(order);
+  if (is_double) {
+    const anrt::TargetRule<double> rule{static_cast<const double*>(target),
+                                        static_cast<double*>(d2)};
+    return anrt::launch_variant(anrt::make_grid<double>(rif, W, H, D, h), ds, x0, v0, o, xt,
+                                vt, rule, anrt::make_horizon<double>(hx, hv, steps, inside, last),
+                                n_rays, max_steps, pass, s);
+  }
+  const anrt::TargetRule<float> rule{static_cast<const float*>(target), static_cast<float*>(d2)};
+  return anrt::launch_variant(anrt::make_grid<float>(rif, W, H, D, h), ds, x0, v0, o, xt, vt,
+                              rule, anrt::make_horizon<float>(hx, hv, steps, inside, last),
+                              n_rays, max_steps, pass, s);
+}
+
+// K13, pass 1 or 2.  sdf: a (D, H, W) grid of the same type and spacing; the
+// horizon state as for K12.
+extern "C" int anrt_trace_sdf(int is_double, const void* rif, int W, int H, int D, double h,
+                              double ds, const void* sdf, const void* x0, const void* v0,
+                              const void* order, void* xt, void* vt, void* hx, void* hv,
+                              void* steps, void* inside, void* last, int n_rays, int max_steps,
+                              int pass, void* stream) {
+  auto s = static_cast<cudaStream_t>(stream);
+  auto o = static_cast<const int*>(order);
+  if (is_double) {
+    const anrt::SdfRule<double> rule{anrt::make_grid<double>(sdf, W, H, D, h)};
+    return anrt::launch_variant(anrt::make_grid<double>(rif, W, H, D, h), ds, x0, v0, o, xt,
+                                vt, rule, anrt::make_horizon<double>(hx, hv, steps, inside, last),
+                                n_rays, max_steps, pass, s);
+  }
+  const anrt::SdfRule<float> rule{anrt::make_grid<float>(sdf, W, H, D, h)};
+  return anrt::launch_variant(anrt::make_grid<float>(rif, W, H, D, h), ds, x0, v0, o, xt, vt,
+                              rule, anrt::make_horizon<float>(hx, hv, steps, inside, last),
+                              n_rays, max_steps, pass, s);
 }

@@ -176,17 +176,19 @@ __device__ __forceinline__ void splat_terms(const Grid<T>& g, const Stencil<T>& 
 // time (neighbouring rays in a coherent order do) first sum them with
 // shuffles, and one of them issues the 8 atomicAdds.  The order of the adds
 // is not fixed, so the sum is reproducible to rounding only, not bitwise.
-template <typename T>
+// Acc is the type the run, the lanes' sums and the adds are in (the terms'
+// type T for K3 and K6; double for K14, whose f32 terms are summed in f64).
+template <typename T, typename Acc = T>
 struct SplatRun {
   int idx[2][2][2];
-  T sum[2][2][2];
+  Acc sum[2][2][2];
   bool open = false;
   int flushes = 0;  // runs this lane flushed (one a run)
   int issued = 0;   // flushes this lane issued for its group of lanes (8 adds each)
 
   // Called by every lane of the warp that is at this point; flushes the runs
   // of the lanes whose `cond` holds.
-  __device__ __forceinline__ void flush_if(T* acc, bool cond) {
+  __device__ __forceinline__ void flush_if(Acc* acc, bool cond) {
     const unsigned active = __activemask();
     if (!__any_sync(active, cond)) return;
     const unsigned long long key =
@@ -209,7 +211,7 @@ struct SplatRun {
         for (int b = 0; b < 2; ++b)
 #pragma unroll
           for (int c = 0; c < 2; ++c) {
-            const T t = __shfl_sync(active, sum[a][b][c], next < 0 ? lane : next);
+            const Acc t = __shfl_sync(active, sum[a][b][c], next < 0 ? lane : next);
             if (next >= 0) sum[a][b][c] = sum[a][b][c] + t;
           }
       peers &= ~__ballot_sync(active, rank & 1);  // odd ranks have been summed
@@ -233,7 +235,7 @@ struct SplatRun {
   // One step of the ray, called by every lane at this point of the step: adds
   // the step's terms to the run when `splat` holds and the stencil is the
   // run's, else flushes the run first and starts another with them.
-  __device__ __forceinline__ void step(T* acc, bool splat, const Stencil<T>& s,
+  __device__ __forceinline__ void step(Acc* acc, bool splat, const Stencil<T>& s,
                                        const T terms[2][2][2]) {
     const bool same =
         splat && open && idx[0][0][0] == s.idx[0][0][0] && idx[1][1][1] == s.idx[1][1][1];
@@ -246,9 +248,9 @@ struct SplatRun {
 #pragma unroll
         for (int c = 0; c < 2; ++c) {
           if (same) {
-            sum[a][b][c] = sum[a][b][c] + terms[a][b][c];
+            sum[a][b][c] = sum[a][b][c] + static_cast<Acc>(terms[a][b][c]);
           } else {
-            sum[a][b][c] = terms[a][b][c];
+            sum[a][b][c] = static_cast<Acc>(terms[a][b][c]);
             idx[a][b][c] = s.idx[a][b][c];
           }
         }
@@ -303,10 +305,11 @@ __device__ __forceinline__ bool forward_step(const Grid<T>& g, T ds, T x[3], T v
 // `splat` holds (every lane at this point calls it: the warp's lanes flush
 // together), then la += ds*(dn*grad n + n*H mu), mu += ds*la.  K3 and K6
 // call it; each evaluates the field itself, in its own branch.
-template <typename T>
+template <typename T, typename Acc>
 __device__ __forceinline__ void adjoint_update(const Grid<T>& g, T ds, const Stencil<T>& s, T n,
                                                const T grad[3], const T hess[3], bool splat,
-                                               T la[3], T mu[3], SplatRun<T>& run, T* acc) {
+                                               T la[3], T mu[3], SplatRun<T, Acc>& run,
+                                               Acc* acc) {
   const T dn = mu[0] * grad[0] + mu[1] * grad[1] + mu[2] * grad[2];
   T terms[2][2][2];
   if (splat) {
@@ -321,6 +324,18 @@ __device__ __forceinline__ void adjoint_update(const Grid<T>& g, T ds, const Ste
     la[k] = la[k] + ds * (dn * grad[k] + n * hmu[k]);
     mu[k] = mu[k] + ds * la[k];
   }
+}
+
+// The field's value at p, its corners clamped and read unmasked, as
+// value_grad gives it (the gradient is computed and dropped: the compiler
+// removes it).  K13 and K14 read the sdf grid with it.
+template <typename T>
+__device__ __forceinline__ T value_at(const Grid<T>& g, const T p[3]) {
+  const Stencil<T> s = stencil(g, p);
+  T c[2][2][2], n, grad[3];
+  fetch(g, s, true, c);
+  value_grad(g, c, s.w0, n, grad);
+  return n;
 }
 
 // Coordinates within tol cells of a node are moved onto it.

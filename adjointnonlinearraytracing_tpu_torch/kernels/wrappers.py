@@ -59,6 +59,29 @@ K6 ``backtrace_exact`` (csrc/backtrace_exact.cu)
     at every grid size (an H100 ran K6's first design 1.6-1.7 times slower
     on the shared path, at every fuel stage where K3 takes it).
 
+The variants of K2 and K3 (``csrc/trace_fwd.cu``, ``csrc/backtrace.cu``):
+K2's loop under another stop and capture rule, and K3's ray with another
+"active" rule; the same ray ``order`` and, for K14, K3's paths.
+
+K11 ``trace_plane``
+    replaces ``tracer/paired.py::trace_plane``: a ray also stops past its
+    plane; ``(xt, vt)`` as K2's and ``miss`` (never escaped).
+K12 ``trace_target``
+    replaces ``tracer/paired.py::trace_target``: the closest approach to a
+    target per ray.  An escaped ray goes on (straight) until the batch's last
+    ray escapes, so a call is two launches: pass 1 steps each ray to its
+    escape and keeps that step's maximum on the card, pass 2 steps the
+    escaped rays on to it; both counted in :data:`LAUNCHES`.
+K13 ``trace_sdf``
+    replaces ``tracer/paired.py::trace_sdf``: "inside" is ``sdf < 0`` on a
+    second grid; the same two passes as K12, pass 2 stepping only the rays
+    that escaped the grid while still inside the sdf.
+K14 ``backtrace_sdf``
+    replaces ``tracer/paired.py::backtrace_sdf``: K3 with the sdf-crossing
+    deactivation, summing in float64 whatever the grid's type (the wrapper
+    returns the float64 sum; callers cast); K3's paths by the float64 size
+    rule (:func:`backtrace_path`), counted in :data:`BACKTRACE_SDF_PATHS`.
+
 The cable kernels trace a radial profile (``fields/cylinder.py``) toward a
 target point per ray; their field code is ``csrc/cylinder.cuh``, one stepper
 for K7, K9 and K10's replay.  They take no ray order, and the adjoints sum the
@@ -115,6 +138,9 @@ from . import build
 LAUNCHES = {name: 0 for name in build.KERNELS}
 #: K3's launches by path (:func:`backtrace_path`), counted with ``LAUNCHES``
 BACKTRACE_PATHS = {"shared": 0, "global": 0}
+#: K14's launches by path (:func:`backtrace_path` of its float64 gradient), counted
+#: with ``LAUNCHES``
+BACKTRACE_SDF_PATHS = {"shared": 0, "global": 0}
 #: K8's launches by path (:func:`backtrace_cable_path`), counted with ``LAUNCHES``
 BACKTRACE_CABLE_PATHS = {"columns": 0, "block": 0}
 #: K10's launches by path (:func:`backtrace_cable_exact_path`), counted with ``LAUNCHES``
@@ -140,6 +166,14 @@ _ARGTYPES = {
                          _I, _I, _VP],
     "backtrace_cable_exact": [_I, _VP, _I, _D, _D, _D, _VP, _VP, _VP, _VP, _VP, _I, _I, _I,
                               _I, _VP, _I, _VP],
+    "trace_plane": [_I, _VP, _I, _I, _I, _D, _D, _VP, _VP, _VP, _VP, _VP, _VP, _VP, _VP, _I, _I,
+                    _VP],
+    "trace_target": [_I, _VP, _I, _I, _I, _D, _D, _VP, _VP, _VP, _VP, _VP, _VP, _VP, _VP, _VP,
+                     _VP, _VP, _VP, _I, _I, _I, _VP],
+    "trace_sdf": [_I, _VP, _I, _I, _I, _D, _D, _VP, _VP, _VP, _VP, _VP, _VP, _VP, _VP, _VP, _VP,
+                  _VP, _I, _I, _I, _VP],
+    "backtrace_sdf": [_I, _VP, _I, _I, _I, _D, _D, _D, _VP, _VP, _VP, _VP, _VP, _VP, _VP, _VP,
+                      _I, _I, _I, _VP],
 }
 #: the states a checkpoint holds: x, v, inside (the cable kernels: x, v, esc)
 CKPT_WIDTH = 7
@@ -154,7 +188,7 @@ _events: Optional[List[Tuple[str, "torch.cuda.Event", "torch.cuda.Event"]]] = No
 
 
 def reset_launches() -> None:
-    for counts in (LAUNCHES, BACKTRACE_PATHS, BACKTRACE_CABLE_PATHS,
+    for counts in (LAUNCHES, BACKTRACE_PATHS, BACKTRACE_SDF_PATHS, BACKTRACE_CABLE_PATHS,
                    BACKTRACE_CABLE_EXACT_PATHS):
         for name in counts:
             counts[name] = 0
@@ -321,6 +355,110 @@ def backtrace(data: torch.Tensor, h: float, xt: torch.Tensor, vt: torch.Tensor,
                         _ptr(order), g.data_ptr(), _ptr(tally), n_rays, int(max_steps),
                         int(path == "shared"))
         BACKTRACE_PATHS[path] += 1
+    return g
+
+
+def _check_sdf(sdf: torch.Tensor, data: torch.Tensor, name: str) -> None:
+    if sdf.device != data.device or sdf.dtype != data.dtype or sdf.shape != data.shape \
+            or not sdf.is_contiguous():
+        raise ValueError(f"{name}: sdf must be a contiguous {tuple(data.shape)} {data.dtype} "
+                         f"tensor on {data.device}, got {sdf.dtype} {tuple(sdf.shape)} on "
+                         f"{sdf.device}")
+
+
+def trace_plane(data: torch.Tensor, h: float, x0: torch.Tensor, v0: torch.Tensor,
+                pln_o: torch.Tensor, pln_d: torch.Tensor, ds: float, max_steps: int,
+                order: Optional[torch.Tensor] = None
+                ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """K11: ``(xt, vt, miss)`` of the rays ``(x0, v0)`` stopping past their planes
+    (``pln_o``, ``pln_d``: ``(N, 3)``); ``miss`` (bool) marks the rays that never
+    escaped.  ``order`` as for :func:`trace_fwd`."""
+    _check_grid(data, "trace_plane")
+    n_rays = _check_rays(data, "trace_plane", x0=x0, v0=v0, pln_o=pln_o, pln_d=pln_d)
+    _check_order(order, data, n_rays, "trace_plane")
+    xt, vt = torch.empty_like(x0), torch.empty_like(v0)
+    miss = torch.empty((n_rays,), dtype=torch.bool, device=data.device)
+    if n_rays:
+        _launch_on_grid("trace_plane", data, float(h), float(ds), x0.data_ptr(), v0.data_ptr(),
+                        pln_o.data_ptr(), pln_d.data_ptr(), _ptr(order), xt.data_ptr(),
+                        vt.data_ptr(), miss.data_ptr(), n_rays, int(max_steps))
+    return xt, vt, miss
+
+
+def _horizon(data: torch.Tensor, n_rays: int) -> List[torch.Tensor]:
+    """The state K12's and K13's pass 1 leaves for pass 2 (x, v, steps taken,
+    inside, at each thread slot) and the word for the batch's last escape
+    step (zeroed), in the order of the kernels' arguments."""
+    xv = torch.empty((2, n_rays, 3), dtype=data.dtype, device=data.device)
+    return [xv[0], xv[1], torch.empty((n_rays,), dtype=torch.int32, device=data.device),
+            torch.empty((n_rays,), dtype=torch.uint8, device=data.device),
+            torch.zeros((1,), dtype=torch.int32, device=data.device)]
+
+
+def trace_target(data: torch.Tensor, h: float, x0: torch.Tensor, v0: torch.Tensor,
+                 target: torch.Tensor, ds: float, max_steps: int,
+                 order: Optional[torch.Tensor] = None
+                 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """K12: closest approach ``(xt, vt, d2)`` of the rays ``(x0, v0)`` to their
+    ``target`` (``(N, 3)``), in two launches (to each ray's escape, then on to
+    the batch's last escape).  ``order`` as for :func:`trace_fwd`."""
+    _check_grid(data, "trace_target")
+    n_rays = _check_rays(data, "trace_target", x0=x0, v0=v0, target=target)
+    _check_order(order, data, n_rays, "trace_target")
+    xt, vt = torch.empty_like(x0), torch.empty_like(v0)
+    d2 = torch.empty((n_rays,), dtype=data.dtype, device=data.device)
+    if n_rays:
+        hz = _horizon(data, n_rays)
+        for pass_ in (1, 2):
+            _launch_on_grid("trace_target", data, float(h), float(ds), x0.data_ptr(),
+                            v0.data_ptr(), target.data_ptr(), _ptr(order), xt.data_ptr(),
+                            vt.data_ptr(), d2.data_ptr(), *map(_ptr, hz), n_rays, int(max_steps),
+                            pass_)
+    return xt, vt, d2
+
+
+def trace_sdf(data: torch.Tensor, sdf: torch.Tensor, h: float, x0: torch.Tensor,
+              v0: torch.Tensor, ds: float, max_steps: int,
+              order: Optional[torch.Tensor] = None) -> Tuple[torch.Tensor, torch.Tensor]:
+    """K13: ``(xt, vt)`` of the rays ``(x0, v0)`` at their crossing out of
+    ``sdf < 0`` (``sdf``: a grid of ``data``'s shape, type and spacing), in
+    two launches as :func:`trace_target`.  ``order`` as for :func:`trace_fwd`."""
+    _check_grid(data, "trace_sdf")
+    _check_sdf(sdf, data, "trace_sdf")
+    n_rays = _check_rays(data, "trace_sdf", x0=x0, v0=v0)
+    _check_order(order, data, n_rays, "trace_sdf")
+    xt, vt = torch.empty_like(x0), torch.empty_like(v0)
+    if n_rays:
+        hz = _horizon(data, n_rays)
+        for pass_ in (1, 2):
+            _launch_on_grid("trace_sdf", data, float(h), float(ds), sdf.data_ptr(),
+                            x0.data_ptr(), v0.data_ptr(), _ptr(order), xt.data_ptr(),
+                            vt.data_ptr(), *map(_ptr, hz), n_rays, int(max_steps), pass_)
+    return xt, vt
+
+
+def backtrace_sdf(data: torch.Tensor, sdf: torch.Tensor, h: float, xt: torch.Tensor,
+                  vt: torch.Tensor, dx: torch.Tensor, dv: torch.Tensor, ds: float,
+                  max_steps: int, snap_tol: float, order: Optional[torch.Tensor] = None,
+                  tally: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """K14: flat ``(D*H*W,)`` voxel gradient of ``data`` from the sdf trace's exit
+    state and cotangents, summed in float64 (returned so; callers cast);
+    ``sdf`` as for :func:`trace_sdf`; ``order`` and ``tally`` as for
+    :func:`backtrace`; the path :func:`backtrace_path` of a float64 gradient,
+    counted in :data:`BACKTRACE_SDF_PATHS`."""
+    _check_grid(data, "backtrace_sdf")
+    _check_sdf(sdf, data, "backtrace_sdf")
+    n_rays = _check_rays(data, "backtrace_sdf", xt=xt, vt=vt, dx=dx, dv=dv)
+    _check_order(order, data, n_rays, "backtrace_sdf")
+    _check_tally(tally, data, "backtrace_sdf")
+    g = torch.zeros((data.numel(),), dtype=torch.float64, device=data.device)
+    if n_rays:
+        path = backtrace_path(data.numel(), torch.float64)
+        _launch_on_grid("backtrace_sdf", data, float(h), float(ds), float(snap_tol),
+                        sdf.data_ptr(), xt.data_ptr(), vt.data_ptr(), dx.data_ptr(),
+                        dv.data_ptr(), _ptr(order), g.data_ptr(), _ptr(tally), n_rays,
+                        int(max_steps), int(path == "shared"))
+        BACKTRACE_SDF_PATHS[path] += 1
     return g
 
 

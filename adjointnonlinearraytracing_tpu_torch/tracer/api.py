@@ -1,18 +1,23 @@
-"""Differentiable tracing API: ``trace`` and ``trace_cable`` as
+"""Differentiable tracing API: ``trace``, the variants ``trace_plane``,
+``trace_target``, ``trace_sdf`` and ``trace_cable`` as
 ``torch.autograd.Function`` classes whose backward pass is the constant-memory
-adjoint sweep, and their taped twins ``trace_ad`` and ``trace_cable_ad``.
+adjoint sweep, and their taped twins ``trace_ad``, ``trace_plane_ad``,
+``trace_target_ad``, ``trace_sdf_ad`` and ``trace_cable_ad``.
 
-Twin of ``adjointnonlinearraytracing_tpu/tracer/api.py::trace``,
-``trace_cable``, ``trace_ad`` and ``trace_cable_ad`` (the plane, target and
-sdf variants wait for ``ROADMAP.md`` A5).
+Twin of the functions of these names in
+``adjointnonlinearraytracing_tpu/tracer/api.py``.
 
 Gradient contract: only the field data ``rif`` receives a gradient; the ray
-inputs ``x``, ``v`` get none.  ``h`` and ``ds`` are Python floats.
+inputs ``x``, ``v``, the planes and targets get none, ``miss`` and ``d2``
+carry none, and the sdf grid of ``trace_sdf`` gets a zero cotangent.
+``trace_plane``'s backward zeroes the position cotangent of the rays that
+missed (never escaped).  ``h`` and ``ds`` are Python floats.
 
 Where it runs: CUDA tensors go through the hand-written kernels
-(``kernels/csrc/trace_fwd.cu``, ``kernels/csrc/backtrace.cu``; for the cable,
-``trace_cable.cu`` and ``backtrace_cable.cu``) or raise; CPU tensors go
-through the plain steppers of ``tracer/eikonal.py``.  There is no
+(``kernels/csrc/trace_fwd.cu``, ``kernels/csrc/backtrace.cu``: K2 and K3; the
+variants K11-K13 forward, K3 backward for the plane and target, K14 for the
+sdf; for the cable, ``trace_cable.cu`` and ``backtrace_cable.cu``) or raise;
+CPU tensors go through the plain steppers of ``tracer/eikonal.py``.  There is no
 fallback from one to the other.  On the card the forward pass first puts the
 rays in a coherent order (``tracer/order.py``), hands it to K2 and keeps it for
 K3 in the backward pass; outputs are in the caller's order, and the CPU path
@@ -59,6 +64,27 @@ def _check_rif(rif, name="trace"):
             f"{name}: rif must be a 3D voxel grid, got shape {tuple(rif.shape)}")
 
 
+def _forward_order(rif, x, v, h):
+    """The ray order the card's forward pass makes and its backward keeps; None on the CPU."""
+    return O.ray_order(x, v, rif.shape, h) if rif.is_cuda else None
+
+
+def _adjoint(rif, h, ds, xt, vt, dxt, dvt, order, sdf=None):
+    """The flat voxel gradient by the adjoint sweep: K3 (K14 with ``sdf``) on the
+    card, the plain sweep on the CPU."""
+    steps = E.max_steps_bwd(max(rif.shape), h, ds)
+    dxt, dvt = dxt.contiguous(), dvt.contiguous()
+    if rif.is_cuda:
+        if sdf is None:
+            return K.backtrace(rif, h, xt, vt, dxt, dvt, ds, steps, G.snap_tol(rif.dtype), order)
+        return K.backtrace_sdf(rif, sdf, h, xt, vt, dxt, dvt, ds, steps, G.snap_tol(rif.dtype),
+                               order).to(rif.dtype)
+    field = G.GridField(rif, h)
+    if sdf is None:
+        return E.backtrace(field, xt, vt, dxt, dvt, ds, steps)
+    return E.backtrace_sdf(field, G.GridField(sdf, h), xt, vt, dxt, dvt, ds, steps)
+
+
 class _Trace(torch.autograd.Function):
     @staticmethod
     def forward(ctx, rif, x, v, h, ds):
@@ -66,9 +92,8 @@ class _Trace(torch.autograd.Function):
         # and the same call must work on both
         rif, x, v = (t.detach().contiguous() for t in (rif, x, v))
         steps = E.max_steps_fwd(max(rif.shape), h, ds)
-        order = None
+        order = _forward_order(rif, x, v, h)
         if rif.is_cuda:
-            order = O.ray_order(x, v, rif.shape, h)
             xt, vt = K.trace_fwd(rif, h, x, v, ds, steps, order)
         else:
             xt, vt = E.trace(G.GridField(rif, h), x, v, ds, steps)
@@ -79,13 +104,7 @@ class _Trace(torch.autograd.Function):
     @staticmethod
     def backward(ctx, dxt, dvt):
         rif, xt, vt, order = ctx.saved_tensors
-        h, ds = ctx.h, ctx.ds
-        steps = E.max_steps_bwd(max(rif.shape), h, ds)
-        if rif.is_cuda:
-            g = K.backtrace(rif, h, xt, vt, dxt.contiguous(), dvt.contiguous(), ds, steps,
-                            G.snap_tol(rif.dtype), order)
-        else:
-            g = E.backtrace(G.GridField(rif, h), xt, vt, dxt, dvt, ds, steps)
+        g = _adjoint(rif, ctx.h, ctx.ds, xt, vt, dxt, dvt, order)
         return g.reshape(rif.shape), None, None, None, None
 
 
@@ -130,6 +149,159 @@ def bcast_per_ray3(arr, x):
     """An accepted (3,) / (1, 3) / (N, 3) per-ray vector as a contiguous (N, 3)."""
     a = arr[None] if arr.ndim == 1 else arr
     return a.expand(x.shape[0], 3).contiguous()
+
+
+class _TracePlane(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, rif, x, v, pln_o, pln_d, h, ds):
+        rif, x, v = (t.detach().contiguous() for t in (rif, x, v))
+        o, d = bcast_per_ray3(pln_o.detach(), x), bcast_per_ray3(pln_d.detach(), x)
+        steps = E.max_steps_fwd(max(rif.shape), h, ds)
+        order = _forward_order(rif, x, v, h)
+        if rif.is_cuda:
+            xt, vt, miss = K.trace_plane(rif, h, x, v, o, d, ds, steps, order)
+        else:
+            xt, vt, miss = E.trace_plane(G.GridField(rif, h), x, v, o, d, ds, steps)
+        ctx.mark_non_differentiable(miss)
+        ctx.save_for_backward(rif, xt, vt, miss, order)
+        ctx.h, ctx.ds = h, ds
+        return xt, vt, miss
+
+    @staticmethod
+    def backward(ctx, dxt, dvt, dmiss):
+        rif, xt, vt, miss, order = ctx.saved_tensors
+        # the rays that missed pass no position cotangent (their velocity one stays)
+        dxt = torch.where(miss[:, None], torch.zeros_like(dxt), dxt)
+        g = _adjoint(rif, ctx.h, ctx.ds, xt, vt, dxt, dvt, order)
+        return g.reshape(rif.shape), None, None, None, None, None, None
+
+
+def trace_plane(rif: torch.Tensor, x: torch.Tensor, v: torch.Tensor, pln_o: torch.Tensor,
+                pln_d: torch.Tensor, h: float, ds: float):
+    """Trace stopping past each ray's plane (``pln_o``, ``pln_d``: ``(N, 3)`` or
+    ``(3,)`` / ``(1, 3)`` for every ray); returns ``(xt, vt, miss)``.
+
+    ``miss`` marks the rays that never exited; the backward pass zeroes their
+    position cotangent.  Only ``rif`` gets a gradient (the adjoint, K3 on the
+    card; the forward pass is K11)."""
+    _check_rif(rif, "trace_plane")
+    _check_rays(x, v, "trace_plane")
+    _check_per_ray3(pln_o, x, "pln_o", "trace_plane")
+    _check_per_ray3(pln_d, x, "pln_d", "trace_plane")
+    return _TracePlane.apply(rif, x, v, pln_o, pln_d, float(h), float(ds))
+
+
+class _TraceTarget(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, rif, x, v, target, h, ds):
+        rif, x, v = (t.detach().contiguous() for t in (rif, x, v))
+        tgt = bcast_per_ray3(target.detach(), x)
+        steps = E.max_steps_fwd(max(rif.shape), h, ds)
+        order = _forward_order(rif, x, v, h)
+        if rif.is_cuda:
+            xt, vt, d2 = K.trace_target(rif, h, x, v, tgt, ds, steps, order)
+        else:
+            xt, vt, d2 = E.trace_target(G.GridField(rif, h), x, v, tgt, ds, steps)
+        ctx.mark_non_differentiable(d2)
+        ctx.save_for_backward(rif, xt, vt, order)
+        ctx.h, ctx.ds = h, ds
+        return xt, vt, d2
+
+    @staticmethod
+    def backward(ctx, dxt, dvt, dd2):
+        rif, xt, vt, order = ctx.saved_tensors
+        g = _adjoint(rif, ctx.h, ctx.ds, xt, vt, dxt, dvt, order)
+        return g.reshape(rif.shape), None, None, None, None, None
+
+
+def trace_target(rif: torch.Tensor, x: torch.Tensor, v: torch.Tensor, target: torch.Tensor,
+                 h: float, ds: float):
+    """Trace recording each ray's closest approach to its ``target`` (``(N, 3)``,
+    or ``(3,)`` / ``(1, 3)`` for every ray); returns ``(xt, vt, d2)``.
+
+    A ray's result depends on its batch: the loop runs until the batch's last
+    ray escapes (``eikonal.trace_target``).  ``d2`` carries no gradient; only
+    ``rif`` gets one, by the adjoint from the closest-approach state (K12
+    forward, K3 backward on the card)."""
+    _check_rif(rif, "trace_target")
+    _check_rays(x, v, "trace_target")
+    _check_per_ray3(target, x, "target", "trace_target")
+    return _TraceTarget.apply(rif, x, v, target, float(h), float(ds))
+
+
+def sdf_steps(rif_shape, h: float, ds: float) -> int:
+    """The sdf trace's step bound, ``int(2 * h * max(res) / ds)``."""
+    return int(2.0 * h * max(rif_shape) / ds)
+
+
+class _TraceSdf(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, rif, sdf, x, v, h, ds):
+        rif, sdf, x, v = (t.detach().contiguous() for t in (rif, sdf, x, v))
+        steps = sdf_steps(rif.shape, h, ds)
+        order = _forward_order(rif, x, v, h)
+        if rif.is_cuda:
+            xt, vt = K.trace_sdf(rif, sdf, h, x, v, ds, steps, order)
+        else:
+            xt, vt = E.trace_sdf(G.GridField(rif, h), G.GridField(sdf, h), x, v, ds, steps)
+        ctx.save_for_backward(rif, sdf, xt, vt, order)
+        ctx.h, ctx.ds = h, ds
+        return xt, vt
+
+    @staticmethod
+    def backward(ctx, dxt, dvt):
+        rif, sdf, xt, vt, order = ctx.saved_tensors
+        g = _adjoint(rif, ctx.h, ctx.ds, xt, vt, dxt, dvt, order, sdf=sdf)
+        dsdf = torch.zeros_like(sdf) if ctx.needs_input_grad[1] else None
+        return g.reshape(rif.shape), dsdf, None, None, None, None
+
+
+def trace_sdf(rif: torch.Tensor, sdf: torch.Tensor, x: torch.Tensor, v: torch.Tensor,
+              h: float, ds: float):
+    """Trace where the medium is ``sdf < 0`` (``sdf``: a grid of ``rif``'s shape);
+    returns ``(xt, vt)``.  The step bound is ``int(2 * h * max(res) / ds)``.
+
+    Only ``rif`` gets a gradient (K13 forward, K14 backward on the card); the
+    sdf's cotangent is zero."""
+    _check_rif(rif, "trace_sdf")
+    _check_rays(x, v, "trace_sdf")
+    if sdf.shape != rif.shape:
+        raise ValueError(f"trace_sdf: sdf grid {tuple(sdf.shape)} must match rif "
+                         f"{tuple(rif.shape)}")
+    return _TraceSdf.apply(rif, sdf, x, v, float(h), float(ds))
+
+
+def trace_plane_ad(rif: torch.Tensor, x: torch.Tensor, v: torch.Tensor, pln_o: torch.Tensor,
+                   pln_d: torch.Tensor, h: float, ds: float):
+    """Tape twin of :func:`trace_plane`: autograd through the fixed-trip plain
+    stepper (``eikonal.trace_plane_scan``) where its tensors live; no kernel."""
+    _check_rif(rif, "trace_plane_ad")
+    _check_rays(x, v, "trace_plane_ad")
+    h, ds = float(h), float(ds)
+    return E.trace_plane_scan(G.GridField(rif, h), x, v, bcast_per_ray3(pln_o, x),
+                              bcast_per_ray3(pln_d, x), ds,
+                              E.max_steps_fwd(max(rif.shape), h, ds))
+
+
+def trace_target_ad(rif: torch.Tensor, x: torch.Tensor, v: torch.Tensor, target: torch.Tensor,
+                    h: float, ds: float):
+    """Tape twin of :func:`trace_target` (``eikonal.trace_target_scan``, its steps
+    gated on ``~all(esc)``); no kernel."""
+    _check_rif(rif, "trace_target_ad")
+    _check_rays(x, v, "trace_target_ad")
+    h, ds = float(h), float(ds)
+    return E.trace_target_scan(G.GridField(rif, h), x, v, bcast_per_ray3(target, x), ds,
+                               E.max_steps_fwd(max(rif.shape), h, ds))
+
+
+def trace_sdf_ad(rif: torch.Tensor, sdf: torch.Tensor, x: torch.Tensor, v: torch.Tensor,
+                 h: float, ds: float):
+    """Tape twin of :func:`trace_sdf` (``eikonal.trace_sdf_scan``); no kernel."""
+    _check_rif(rif, "trace_sdf_ad")
+    _check_rays(x, v, "trace_sdf_ad")
+    h, ds = float(h), float(ds)
+    return E.trace_sdf_scan(G.GridField(rif, h), G.GridField(sdf, h), x, v, ds,
+                            sdf_steps(rif.shape, h, ds))
 
 
 def _check_cable(rif, x, v, target, name):

@@ -66,10 +66,8 @@ def _where3(m, a, b):
 
 
 def _step(field: G.GridField, x, v, inside, ds_t):
-    """One forward step: the stepper's, operation for operation."""
-    n, nx = G.eval_grad_plain(field, x, inside)
-    v2 = v + (ds_t * n)[:, None] * nx
-    x2 = x + ds_t * v2
+    """One forward step (the stepper's) and ``inbounds`` at the new position."""
+    x2, v2 = E.forward_step(field, x, v, inside, ds_t)
     return x2, v2, G.inbounds(field, x2)
 
 

@@ -16,6 +16,20 @@ These are the **plain versions** of the CUDA kernels
 the oracle the kernels are held against and what CPU tensors run through;
 ``tracer/api.py`` sends CUDA tensors to the kernels instead.
 
+The volume variants, twins of the JAX functions of the same names, take
+K2's and K3's loops with another stop, capture or "inside" rule:
+``trace_plane`` (a ray stops past its plane; ``miss`` marks rays that never
+escaped), ``trace_target`` (closest approach to a target per ray, captured
+at every step it gets closer, while the batch runs: an escaped ray keeps
+stepping on a straight line until the last ray of the batch has escaped),
+``trace_sdf`` ("inside" is ``sdf < 0`` on a second grid, read at the new
+position under the previous step's inside) and ``backtrace_sdf`` (the
+adjoint, which stops a ray where it crosses out of the sdf going back).
+Their fixed-trip twins ``trace_plane_scan``, ``trace_target_scan`` and
+``trace_sdf_scan`` are what the tape differentiates.  Kernels:
+``kernels/csrc/trace_fwd.cu`` (K11-K13, rules of K2's loop) and
+``kernels/csrc/backtrace.cu`` (K14, K3's ray with the sdf rule).
+
 The cylinder variant (``trace_cable``, ``backtrace_cable``, and
 ``trace_cable_scan``, the fixed-trip loop the tape differentiates) traces a
 radial profile (``fields/cylinder.py``) toward a target point per ray and
@@ -47,6 +61,19 @@ def _where3(m, a, b):
     return torch.where(m[:, None], a, b)
 
 
+def dot3(a, b):
+    """Row-wise dot product of ``(N, 3)`` rows, summed in the kernels' order."""
+    return (a[:, 0] * b[:, 0] + a[:, 1] * b[:, 1]) + a[:, 2] * b[:, 2]
+
+
+def forward_step(field: G.GridField, x, v, inside, ds_t):
+    """One step of the volume stepper: the eval masked by ``inside``,
+    ``v += ds*n*grad n; x += ds*v``; returns the new ``x, v``."""
+    n, nx = G.eval_grad_plain(field, x, inside)
+    v = v + (ds_t * n)[:, None] * nx
+    return x + ds_t * v, v
+
+
 def trace(field: G.GridField, x0, v0, ds: float, max_steps: int,
           stats: Optional[dict] = None):
     """Basic volume trace; returns the exit state ``(xt, vt)``.
@@ -70,9 +97,7 @@ def trace(field: G.GridField, x0, v0, ds: float, max_steps: int,
         if stats is not None:
             ray_steps += int((~esc).sum())
             evals += int((inside & ~esc).sum())
-        n, nx = G.eval_grad_plain(field, x, inside)
-        v = v + (ds_t * n)[:, None] * nx
-        x = x + ds_t * v
+        x, v = forward_step(field, x, v, inside, ds_t)
 
         cur_inside = G.inbounds(field, x)
         cross = inside & ~cur_inside
@@ -90,8 +115,187 @@ def trace(field: G.GridField, x0, v0, ds: float, max_steps: int,
     return xt, vt
 
 
+def _plane_inside(field, x, pln_o, pln_d):
+    """In the grid and not past the plane ``(x - o) . d > 0``."""
+    return G.inbounds(field, x) & ~(dot3(x - pln_o, pln_d) > 0)
+
+
+def trace_plane(field: G.GridField, x0, v0, pln_o, pln_d, ds: float, max_steps: int,
+                stats: Optional[dict] = None):
+    """Trace with the extra stop past each ray's plane (``pln_o``, ``pln_d``:
+    (N, 3)); returns ``(xt, vt, miss)``, ``miss`` marking the rays that never
+    escaped.  As :func:`trace` otherwise ("inside" is in the grid and not
+    past the plane); ``stats`` as there.  A ray that escaped never crosses
+    again (it is outside the grid moving away, or past its plane moving on),
+    so leaving the loop per ray is exact."""
+    x, v, xt, vt = x0, v0, x0, v0
+    inside = G.inbounds(field, x0)
+    esc = torch.zeros_like(inside)
+    ds_t = G._scalar(ds, x0)
+    ray_steps = evals = 0
+
+    step = 0
+    while step < max_steps and not bool(esc.all()):
+        if stats is not None:
+            ray_steps += int((~esc).sum())
+            evals += int((inside & ~esc).sum())
+        x, v = forward_step(field, x, v, inside, ds_t)
+        cur_inside = _plane_inside(field, x, pln_o, pln_d)
+        cross = inside & ~cur_inside
+        esc = esc | cross | G.escaped(field, x, v)
+        xt = _where3(cross, x, xt)
+        vt = _where3(cross, v, vt)
+        inside = cur_inside
+        step += 1
+
+    xt = _where3(esc, xt, x)
+    if stats is not None:
+        stats["ray_steps"] = ray_steps
+        stats["evals"] = evals
+    return xt, vt, ~esc
+
+
+def trace_plane_scan(field: G.GridField, x0, v0, pln_o, pln_d, ds: float, max_steps: int):
+    """Fixed-trip twin of :func:`trace_plane` (always ``max_steps`` steps),
+    differentiable with plain autograd."""
+    x, v, xt, vt = x0, v0, x0, v0
+    inside = G.inbounds(field, x0)
+    esc = torch.zeros_like(inside)
+    ds_t = G._scalar(ds, x0)
+    for _ in range(max_steps):
+        x, v = forward_step(field, x, v, inside, ds_t)
+        cur_inside = _plane_inside(field, x, pln_o, pln_d)
+        cross = inside & ~cur_inside
+        esc = esc | cross | G.escaped(field, x, v)
+        xt = _where3(cross, x, xt)
+        vt = _where3(cross, v, vt)
+        inside = cur_inside
+    return _where3(esc, xt, x), vt, ~esc
+
+
+def _target_step(field, x, v, xt, vt, d2, inside, esc, target, ds_t):
+    """One step of the target stepper with its capture; returns the new state."""
+    x, v = forward_step(field, x, v, inside, ds_t)
+    cur_d2 = sum_sq3(x - target)
+    closer = cur_d2 < d2
+    cur_inside = G.inbounds(field, x)
+    esc = esc | (inside & ~cur_inside) | G.escaped(field, x, v)
+    xt = _where3(closer, x, xt)
+    vt = _where3(closer, v, vt)
+    d2 = torch.where(closer, cur_d2, d2)
+    return x, v, xt, vt, d2, cur_inside, esc
+
+
+def trace_target(field: G.GridField, x0, v0, target, ds: float, max_steps: int,
+                 stats: Optional[dict] = None):
+    """Trace recording each ray's closest approach to its ``target`` (N, 3);
+    returns ``(xt, vt, d2)`` at the step the squared distance last dropped
+    (``cur < d2``).  No fix-up of rays that never escaped.
+
+    The loop runs while any ray of the batch has not escaped (or to
+    ``max_steps``), and an escaped ray keeps stepping: outside the grid its
+    eval is masked, so it goes straight, and it is still captured whenever it
+    gets closer.  So a ray's result depends on when the last ray of its batch
+    escaped.  ``stats`` gets ``ray_steps`` (steps of rays not yet escaped),
+    ``evals`` (those inside the grid), ``horizon`` (the steps the loop ran)
+    and ``ballistic_steps`` (steps of rays already escaped)."""
+    x, v, xt, vt = x0, v0, x0, v0
+    inside = G.inbounds(field, x0)
+    esc = torch.zeros_like(inside)
+    ds_t = G._scalar(ds, x0)
+    d2 = sum_sq3(x0 - target)
+    ray_steps = evals = 0
+
+    step = 0
+    while step < max_steps and not bool(esc.all()):
+        if stats is not None:
+            ray_steps += int((~esc).sum())
+            evals += int((inside & ~esc).sum())
+        x, v, xt, vt, d2, inside, esc = _target_step(field, x, v, xt, vt, d2, inside, esc,
+                                                     target, ds_t)
+        step += 1
+    if stats is not None:
+        stats.update(ray_steps=ray_steps, evals=evals, horizon=step,
+                     ballistic_steps=step * x0.shape[0] - ray_steps)
+    return xt, vt, d2
+
+
+def trace_target_scan(field: G.GridField, x0, v0, target, ds: float, max_steps: int):
+    """Taped twin of :func:`trace_target`, differentiable with plain autograd:
+    its steps are gated on ``~all(esc)`` (the JAX ``lax.scan`` version masks
+    every step after that; here the loop ends there), so it captures exactly
+    where :func:`trace_target` does."""
+    x, v, xt, vt = x0, v0, x0, v0
+    inside = G.inbounds(field, x0)
+    esc = torch.zeros_like(inside)
+    ds_t = G._scalar(ds, x0)
+    d2 = sum_sq3(x0 - target)
+    for _ in range(max_steps):
+        if bool(esc.all()):
+            break
+        x, v, xt, vt, d2, inside, esc = _target_step(field, x, v, xt, vt, d2, inside, esc,
+                                                     target, ds_t)
+    return xt, vt, d2
+
+
+def _sdf_step(field, sdf, x, v, xt, vt, inside, esc, ds_t):
+    """One step of the sdf stepper: "inside" at the new ``x`` is ``sdf < 0``,
+    the sdf read under the previous ``inside`` (so a ray outside reads 0 and
+    stays outside); captured at the inside -> outside crossing."""
+    x, v = forward_step(field, x, v, inside, ds_t)
+    dist, _ = G.eval_grad_plain(sdf, x, inside)
+    cur_inside = dist < 0
+    cross = inside & ~cur_inside
+    esc = esc | cross | G.escaped(field, x, v)
+    return x, v, _where3(cross, x, xt), _where3(cross, v, vt), cur_inside, esc
+
+
+def trace_sdf(field: G.GridField, sdf: G.GridField, x0, v0, ds: float, max_steps: int,
+              stats: Optional[dict] = None):
+    """Trace where the medium is ``sdf < 0`` (``sdf`` on ``field``'s lattice);
+    returns ``(xt, vt)`` at the crossing out of it, ``(x0, v0)`` for a ray
+    that never crossed (no fix-up).  The first step's "inside" is
+    ``inbounds(x0)`` on the grid; escape is tested on the grid.  The loop runs
+    while any ray has not escaped: a ray that escaped the grid while still
+    inside the sdf (clamped corners can read ``sdf < 0`` outside the grid)
+    keeps stepping, and may still cross, until the last ray escapes.
+    ``stats`` gets ``ray_steps`` (steps of rays not yet escaped), ``evals``
+    (those that evaluated both grids), ``horizon`` (the steps the loop ran)
+    and ``late_steps`` (steps of escaped rays still inside the sdf)."""
+    x, v, xt, vt = x0, v0, x0, v0
+    inside = G.inbounds(field, x0)
+    esc = torch.zeros_like(inside)
+    ds_t = G._scalar(ds, x0)
+    ray_steps = evals = late = 0
+
+    step = 0
+    while step < max_steps and not bool(esc.all()):
+        if stats is not None:
+            ray_steps += int((~esc).sum())
+            evals += int((inside & ~esc).sum())
+            late += int((inside & esc).sum())
+        x, v, xt, vt, inside, esc = _sdf_step(field, sdf, x, v, xt, vt, inside, esc, ds_t)
+        step += 1
+    if stats is not None:
+        stats.update(ray_steps=ray_steps, evals=evals, horizon=step, late_steps=late)
+    return xt, vt
+
+
+def trace_sdf_scan(field: G.GridField, sdf: G.GridField, x0, v0, ds: float, max_steps: int):
+    """Fixed-trip twin of :func:`trace_sdf` (always ``max_steps`` steps, as
+    the JAX ``lax.scan`` version), differentiable with plain autograd."""
+    x, v, xt, vt = x0, v0, x0, v0
+    inside = G.inbounds(field, x0)
+    esc = torch.zeros_like(inside)
+    ds_t = G._scalar(ds, x0)
+    for _ in range(max_steps):
+        x, v, xt, vt, inside, esc = _sdf_step(field, sdf, x, v, xt, vt, inside, esc, ds_t)
+    return xt, vt
+
+
 def backtrace(field: G.GridField, xt, vt, dx, dv, ds: float, max_steps: int,
-              stats: Optional[dict] = None, acc_dtype: Optional[torch.dtype] = None):
+              stats: Optional[dict] = None, acc_dtype: Optional[torch.dtype] = None,
+              sdf: Optional[G.GridField] = None):
     """Adjoint reverse sweep; returns the flat voxel gradient.
 
     Eval and splat are masked by ``active & inbounds(snapped x)``, which makes
@@ -113,12 +317,16 @@ def backtrace(field: G.GridField, xt, vt, dx, dv, ds: float, max_steps: int,
     and returned in: float64 sums the same float32 terms with a rounding
     error far below theirs, a reference for how well a float32 sum of
     millions of terms came out.
+
+    With ``sdf`` (a grid on ``field``'s lattice) it is :func:`backtrace_sdf`.
     """
     ds_t = G._scalar(ds, xt)
     x, v = xt, vt
     la = dx
     mu = dv + ds_t * dx
     active = ~G.escaped(field, xt, -vt)
+    if sdf is not None:
+        outside = G.eval_grad_plain(sdf, xt, active)[0] >= 0
     g = torch.zeros((field.data.numel(),), dtype=acc_dtype or field.data.dtype,
                     device=field.data.device)
     ray_steps = 0
@@ -139,7 +347,12 @@ def backtrace(field: G.GridField, xt, vt, dx, dv, ds: float, max_steps: int,
         hess = G.eval_hess(field, xe, emask)
         v = v - (ds_t * n)[:, None] * nx
 
+        if sdf is not None:
+            dist = G.eval_grad_plain(sdf, xe, active)[0]
         active = active & ~G.escaped(field, xe, -v)
+        if sdf is not None:
+            active = active & ~(~outside & (dist >= 0))
+            outside = dist >= 0
 
         dn = mu[:, 0] * nx[:, 0] + mu[:, 1] * nx[:, 1] + mu[:, 2] * nx[:, 2]
         dnx = n[:, None] * mu
@@ -163,6 +376,23 @@ def backtrace(field: G.GridField, xt, vt, dx, dv, ds: float, max_steps: int,
         stats["splats"] = splats
         stats["flushes"] = flushes
     return g
+
+
+def backtrace_sdf(field: G.GridField, sdf: G.GridField, xt, vt, dx, dv, ds: float,
+                  max_steps: int, stats: Optional[dict] = None,
+                  acc_dtype: Optional[torch.dtype] = None):
+    """Adjoint sweep with sdf-crossing deactivation; returns the flat voxel
+    gradient of ``field`` (the sdf gets none).
+
+    :func:`backtrace` with a second state ``outside``: at the start
+    ``sdf(xt) >= 0`` (unsnapped, read where the ray is active); each step reads
+    ``dist = sdf`` at the snapped ``xe`` under the **old** ``active``, then
+    ``active &= !escaped(xe, -v)``, a ray that was inside and reads
+    ``dist >= 0`` (it crossed out going back) turns inactive, and
+    ``outside = dist >= 0``; the splat is masked by the **new** ``active``.
+    ``stats`` and ``acc_dtype`` as there."""
+    return backtrace(field, xt, vt, dx, dv, ds, max_steps, stats=stats, acc_dtype=acc_dtype,
+                     sdf=sdf)
 
 
 # ---------------------------------------------------------------------------

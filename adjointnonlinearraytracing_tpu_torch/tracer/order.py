@@ -66,8 +66,8 @@ def entry_cells(x: torch.Tensor, v: torch.Tensor, shape: Tuple[int, int, int],
     otherwise the start itself; the point's cell is clamped into the grid.
     An axis the ray does not move along admits every ``t`` (start between
     the faces) or none; a start exactly on a lower face with no speed along
-    that axis counts as none.  The order is a heuristic: such edge cases
-    only move a ray in it.
+    that axis counts as none; a ray at rest takes its start.  The order is a
+    heuristic: such edge cases only move a ray in it.
     """
     hi = _constants(x.device, x.dtype, tuple(shape), float(h))[0]
     inv = v.reciprocal()  # +-inf on an axis with no speed
@@ -75,7 +75,9 @@ def entry_cells(x: torch.Tensor, v: torch.Tensor, shape: Tuple[int, int, int],
     t1 = (hi - x).mul_(inv)
     t_in = torch.fmin(t0, t1).amax(dim=1).clamp_(min=0)  # fmin, fmax: 0 * inf is no side
     t_out = torch.fmax(t0, t1).amin(dim=1)
-    t_in.masked_fill_(t_in > t_out, 0)  # a line that misses the box: its start
+    # a line that misses the box, or a ray at rest outside it (t_in = t_out =
+    # inf, and inf * 0 is no point): its start
+    t_in.masked_fill_((t_in > t_out) | t_in.isinf(), 0)
     top = max(shape) - 2
     cell = torch.addcmul(x, t_in[:, None], v).div_(h).floor_().clamp_(0, max(top, 0))
     return cell.to(torch.int64)

@@ -73,7 +73,33 @@ result.  Phases (any failure is an uncaught exception):
       all, K10 on its column path; per stage as in h, and the final loss and
       L2 distance beside h's; then that mode in f64 at a small size on the
       card against the CPU.
-   Before the main paths, the cable kernels K7 ``trace_cable``, K8
+   v. the reference-style variants through ``compat`` at full width (the
+      bench scene, 128^3 f32, 2^18 rays): ``BackPlaneTracerC`` (planes at
+      y = 0.6 * span, normal +y: K11, then K3), ``BackTargetTracerC``
+      (targets past the far face's centre, y = 1.05 * span: K12's two
+      launches, then K3) and ``BackSDFTracerC`` (a sphere sdf of radius 0.4 *
+      span, 2^18 rays spawned on it by ``sdf_utils.get_pts_sdf``: K13's two
+      launches, then K14), forward and backward, four calls each; launches
+      asserted exactly, K3's and K14's paths too; ms a call and a launch.
+   p. the 2008 path-matrix baseline: ``pathmatrix.fuel2008.
+      fuel_reconstruction`` in the repo's configuration
+      ``combo_recon16_hermite`` (32 views of 64^2 x 4 = 524,288 rays through
+      the 65^3 fuel volume, f64, 16^3 reconstruction, hermite paths): one K2
+      and one K1 launch, the native marcher (asserted loaded), the trace,
+      path-matrix, solve and integration seconds, ``phi_nnz`` and
+      ``rel_norm``, which must lie in 0.82-0.91 (the JAX package's, on its
+      own rays: 0.86198); first a tiny run on the card against the CPU on the
+      same rays, 1e-12.
+   Before the main paths, the variants' kernels K11 ``trace_plane``, K12
+   ``trace_target``, K13 ``trace_sdf`` and K14 ``backtrace_sdf`` are held
+   against their plain versions (``variant_check``) at 17^3 x 512 in f64 and
+   on the bench scene in f32: K11-K13 bitwise, with the ray order and
+   without, K12 and K13 on the same batch on both sides (their horizon is
+   the batch's); K14 1e-9 in f64 and 1e-5 of the f64 sum of the same terms
+   in f32, its runs equal to the plain ``flushes``; the ragged case (one ray
+   at rest outside the grid: the horizon is max_steps) and the sdf's late
+   crossing (rays that leave the grid inside a half-space sdf and cross it
+   afterwards) bitwise, in f64 and f32.  The cable kernels K7 ``trace_cable``, K8
    ``backtrace_cable``, K9 ``trace_cable_ckpt`` and K10
    ``backtrace_cable_exact`` are held against their plain versions on the
    fiber source's rays (``cable_check``): at 17 bins and 512 rays in f64 and at
@@ -105,12 +131,13 @@ import subprocess
 import sys
 import time
 
+import numpy as np
 import torch
 
 if not torch.cuda.is_available():
     sys.exit("chip_smoke: no CUDA device; this check runs on the GPU only")
 
-from adjointnonlinearraytracing_tpu_torch import bench
+from adjointnonlinearraytracing_tpu_torch import bench, compat
 from adjointnonlinearraytracing_tpu_torch.benchmarks import probe_dma_gather
 from adjointnonlinearraytracing_tpu_torch.benchmarks.scenes import build_case
 from adjointnonlinearraytracing_tpu_torch import sensors
@@ -119,9 +146,12 @@ from adjointnonlinearraytracing_tpu_torch.experiments import fiber, focalstack, 
 from adjointnonlinearraytracing_tpu_torch.experiments import runner
 from adjointnonlinearraytracing_tpu_torch.fields import cylinder as cyl
 from adjointnonlinearraytracing_tpu_torch.fields import grid as G
+from adjointnonlinearraytracing_tpu_torch.fields import sdf_utils
 from adjointnonlinearraytracing_tpu_torch.fields.cylinder import CylinderField, cyl_eval_grad
 from adjointnonlinearraytracing_tpu_torch.kernels import build
 from adjointnonlinearraytracing_tpu_torch.kernels import wrappers as K
+from adjointnonlinearraytracing_tpu_torch.native import loader as native_loader
+from adjointnonlinearraytracing_tpu_torch.pathmatrix import fuel2008
 from adjointnonlinearraytracing_tpu_torch import tracer
 from adjointnonlinearraytracing_tpu_torch.tracer import api
 from adjointnonlinearraytracing_tpu_torch.tracer import checkpointed as CK
@@ -2043,6 +2073,445 @@ def fiber_small_check(gradient=None):
 
 
 BENCH_ITERS = 3
+# ---------------------------------------------------------------------------
+# the reference-style variants (compat): K11-K14, phase v
+# ---------------------------------------------------------------------------
+
+VARIANT_KERNELS = ("trace_plane", "trace_target", "trace_sdf", "backtrace_sdf")
+# Least arithmetic of the variants beyond K2's and K3's, counted as above: the
+# plane test (x - o) . d > 0 (3 subtractions, 3 products, 2 sums: 8) and the
+# squared distance to the target (8), a step each; the sdf's value at a point
+# (the stencil and the value's lerps: 9 + 21).
+FLOPS_PLANE_TEST = 8
+FLOPS_TARGET_D2 = 8
+FLOPS_SDF_VALUE = FLOPS_STENCIL + 21
+# the compat calls of the variants path: one warm-up and three timed, forward
+# and backward each
+VARIANT_PASSES = 4
+
+
+def sphere_sdf(res, span, dtype):
+    """Signed distance to the sphere of radius 0.4 * span about the centre, in
+    voxel units (the convention of ``sdf_utils.get_pts_sdf``), on the card."""
+    h = span / (res - 1)
+    idx = torch.arange(res, dtype=torch.float64, device="cuda") * h
+    z, y, x = torch.meshgrid(idx, idx, idx, indexing="ij")
+    c = span / 2
+    r = torch.sqrt((x - c) ** 2 + (y - c) ** 2 + (z - c) ** 2)
+    return ((r - 0.4 * span) / h).to(dtype).contiguous()
+
+
+def variant_scene(res, nrays, dtype, noise=0.0):
+    """The bench scene with the variants' inputs: per-ray planes at y = 0.6 *
+    span with normal +y (every ray stops mid-volume); per-ray targets at the
+    centre of the far face pushed out to y = 1.05 * span (rays escape first,
+    then go on straight toward them); a sphere sdf (radius 0.4 * span) and
+    ``nrays`` rays spawned on its surface heading in by ``sdf_utils.get_pts_sdf``."""
+    s = scene(res, nrays, dtype, noise)
+    span, n, dt = s["span"], s["x0"].shape[0], s["rif"].dtype
+
+    def per_ray(vec):
+        return torch.tensor(vec, dtype=dt, device="cuda").expand(n, 3).contiguous()
+
+    s.update(pln_o=per_ray([0.0, 0.6 * span, 0.0]), pln_d=per_ray([0.0, 1.0, 0.0]),
+             tgt=per_ray([span / 2, 1.05 * span, span / 2]), sdf=sphere_sdf(res, span, dt),
+             ns=api.sdf_steps(s["rif"].shape, s["h"], s["ds"]))
+    gen = torch.Generator(device="cuda").manual_seed(3)
+    xs, vs = sdf_utils.get_pts_sdf(gen, s["sdf"], n, span)
+    s["xs"], s["vs"] = xs.contiguous(), vs.contiguous()
+    s["sdf_field"] = G.GridField(s["sdf"], s["h"])
+    return s
+
+
+def variant_bounds(st, n, rif):
+    """The bounds of K11-K14 on ``n`` rays from the work the plain versions
+    counted: each input read once and each output written once, the
+    ray-steps, evaluations, ballistic and late steps and splats."""
+    item, grid = rif.element_size(), rif.numel() * rif.element_size()
+    p, t, f, b = (st[k] for k in VARIANT_KERNELS)
+    return {
+        "trace_plane": set_bound(dict(
+            bytes=6 * n * 3 * item + n + grid,
+            flops=(p["ray_steps"] * (FLOPS_FWD_STEP + FLOPS_PLANE_TEST)
+                   + p["evals"] * FLOPS_FWD_EVAL))),
+        "trace_target": set_bound(dict(
+            bytes=(5 * 3 + 1) * n * item + grid,
+            flops=((t["ray_steps"] + t["ballistic_steps"]) * (FLOPS_FWD_STEP + FLOPS_TARGET_D2)
+                   + t["evals"] * FLOPS_FWD_EVAL))),
+        "trace_sdf": set_bound(dict(
+            bytes=4 * n * 3 * item + 2 * grid,
+            flops=(f["ray_steps"] * FLOPS_FWD_STEP + f["evals"] * (FLOPS_FWD_EVAL + FLOPS_SDF_VALUE)
+                   + f["late_steps"] * (FLOPS_FWD_STEP + FLOPS_FWD_EVAL + FLOPS_SDF_VALUE)))),
+        "backtrace_sdf": set_bound(dict(
+            bytes=4 * n * 3 * item + 2 * grid + 8 * rif.numel(),  # the f64 gradient out
+            flops=(b["ray_steps"] * (FLOPS_BWD_STEP + FLOPS_SDF_VALUE)
+                   + b["evals"] * FLOPS_BWD_EVAL + b["splats"] * FLOPS_BWD_SPLAT))),
+    }
+
+
+def backtrace_on_variants(s, plane, target, order):
+    """K3 where ``BackPlaneTracerC`` and ``BackTargetTracerC`` launch it: from
+    the plane's mid-volume exit states (the missed rays' position cotangent
+    zeroed) and the target's closest-approach states, with the cotangents of
+    ``variants_path``'s loss, ordered and not, against the plain version (in
+    f32 summed in f64 from the same f32 terms).  Yields the name, K3's error
+    and, in f32, the plain version's own f32 sum's distance."""
+    f, rif, h, ds, nb = s["field"], s["rif"], s["h"], s["ds"], s["nb"]
+    f32 = rif.dtype == torch.float32
+    tgt = s["tgt"][0]
+    for name, (xt, vt), missed in (("plane", plane[:2], plane[2]), ("target", target[:2], None)):
+        dx = 2.0 * (xt - tgt)
+        if missed is not None:
+            dx = torch.where(missed[:, None], torch.zeros_like(dx), dx)
+        dv = torch.ones_like(vt)
+        g_p = E.backtrace(f, xt, vt, dx, dv, ds, nb, acc_dtype=torch.float64 if f32 else None)
+        got = [K.backtrace(rif, h, xt, vt, dx, dv, ds, nb, G.snap_tol(rif.dtype), o_)
+               for o_ in (order, None)]
+        own = (rel_err(E.backtrace(f, xt, vt, dx, dv, ds, nb).double(), g_p)[0]
+               if f32 else 0.0)
+        torch.cuda.synchronize()
+        if not float(g_p.abs().max()) > 0:
+            raise AssertionError(f"the {name}'s cotangents give a zero gradient")
+        yield name, max(rel_err(g.double(), g_p.double())[0] for g in got), own
+
+
+def variant_check(s, label, tol, times=False):
+    """K11, K12 and K13 bitwise against their plain versions (the whole batch on
+    both sides: K12's and K13's horizon is the batch's), with the ray order
+    ``api`` makes and without; K14 (which sums in f64) within ``tol`` of the
+    plain version (in f32 summed in f64 from the same f32 terms), ordered and
+    not, its runs (counted in the kernel) equal to the plain version's
+    ``flushes``.  With ``times``,
+    the kernels' times (the order given, as the API launches them), the plain
+    versions' and the bounds.  Returns the row of the report and failures."""
+    f, rif, h, ds = s["field"], s["rif"], s["h"], s["ds"]
+    x0, v0, xs, vs, sdf = s["x0"], s["v0"], s["xs"], s["vs"], s["sdf"]
+    o, d, tgt, nf, nb, ns = s["pln_o"], s["pln_d"], s["tgt"], s["nf"], s["nb"], s["ns"]
+    order = O.ray_order(x0, v0, rif.shape, h)
+    order_s = O.ray_order(xs, vs, rif.shape, h)
+    st = {k: {} for k in VARIANT_KERNELS}
+    plane = E.trace_plane(f, x0, v0, o, d, ds, nf, stats=st["trace_plane"])
+    target = E.trace_target(f, x0, v0, tgt, ds, nf, stats=st["trace_target"])
+    sdf_out = E.trace_sdf(f, s["sdf_field"], xs, vs, ds, ns, stats=st["trace_sdf"])
+    calls = {
+        "trace_plane": (plane, lambda o_: K.trace_plane(rif, h, x0, v0, o, d, ds, nf, o_), order),
+        "trace_target": (target, lambda o_: K.trace_target(rif, h, x0, v0, tgt, ds, nf, o_),
+                         order),
+        "trace_sdf": (sdf_out, lambda o_: K.trace_sdf(rif, sdf, h, xs, vs, ds, ns, o_), order_s),
+    }
+    bitwise = {}
+    for name, (want, call, o_ord) in calls.items():
+        for lab, o_ in (("ordered", o_ord), ("unordered", None)):
+            got = call(o_)
+            bitwise[f"{name} {lab}"] = all(torch.equal(a, b) for a, b in zip(got, want))
+    centre = torch.full((3,), s["span"] / 2, dtype=rif.dtype, device="cuda")
+    dx, dv = 2.0 * (sdf_out[0] - centre), torch.ones_like(sdf_out[1])
+    f32 = rif.dtype == torch.float32
+    g_p = E.backtrace_sdf(f, s["sdf_field"], *sdf_out, dx, dv, ds, nb,
+                          stats=st["backtrace_sdf"], acc_dtype=torch.float64 if f32 else None)
+    tally = torch.zeros(3, dtype=torch.int64, device="cuda")
+    tol_snap = G.snap_tol(rif.dtype)
+    g_k = K.backtrace_sdf(rif, sdf, h, *sdf_out, dx, dv, ds, nb, tol_snap, order_s, tally)
+    g_u = K.backtrace_sdf(rif, sdf, h, *sdf_out, dx, dv, ds, nb, tol_snap)
+    # in f32, how far the plain version's own f32 sum lies from the f64 one
+    plain_f32 = (rel_err(E.backtrace_sdf(f, s["sdf_field"], *sdf_out, dx, dv, ds, nb).double(),
+                         g_p)[0] if f32 else 0.0)
+    torch.cuda.synchronize()
+    (e1, a1), (e2, a2) = (rel_err(g.double(), g_p.double()) for g in (g_k, g_u))
+    n, ns_rays = x0.shape[0], xs.shape[0]
+    row = dict(label=label, bitwise=bitwise, backtrace_sdf_rel_err=max(e1, e2),
+               backtrace_sdf_abs_err=max(a1, a2), plain_f32_rel_err=plain_f32, tol=tol,
+               runs=int(tally[0]),
+               issued=int(tally[1]), path=K.backtrace_path(rif.numel(), torch.float64),
+               plane_missed=int(plane[2].sum()), target_horizon=st["trace_target"]["horizon"],
+               sdf_horizon=st["trace_sdf"]["horizon"],
+               sdf_crossed=int((sdf_out[0] != xs).any(dim=1).sum()),
+               work={k: dict(v) for k, v in st.items()})
+    print(f"variants[{label}, {n} rays, {ns_rays} on the sdf] bitwise equal to the plain "
+          f"versions: {bitwise}; plane missed {row['plane_missed']}; target horizon "
+          f"{row['target_horizon']} of {nf} steps, ballistic steps "
+          f"{st['trace_target']['ballistic_steps']}; sdf horizon {row['sdf_horizon']} of {ns}, "
+          f"rays crossed {row['sdf_crossed']}, late steps {st['trace_sdf']['late_steps']}; "
+          f"backtrace_sdf ({row['path']} path) rel_err {row['backtrace_sdf_rel_err']:.3e} "
+          + (f"against the f64 sum of the same terms (the plain version's own f32 sum: "
+             f"{plain_f32:.3e}) " if f32 else "")
+          + f"(tol {tol:g}, ordered and unordered), max |g| {float(g_p.abs().max()):.4g}, runs "
+          f"flushed {row['runs']} (plain flushes {st['backtrace_sdf']['flushes']})", flush=True)
+    failures = []
+    if not all(bitwise.values()):
+        failures.append(f"K11-K13 are not bitwise equal to their plain versions at {label}: "
+                        f"{bitwise}")
+    if not (row["backtrace_sdf_rel_err"] <= tol and float(g_p.abs().max()) > 0):
+        failures.append(f"K14 disagrees with its plain version at {label}: "
+                        f"{row['backtrace_sdf_rel_err']:.3e}")
+    if row["runs"] != st["backtrace_sdf"]["flushes"]:
+        failures.append(f"K14 flushed {row['runs']} runs at {label}, the plain version counts "
+                        f"{st['backtrace_sdf']['flushes']}")
+    if row["sdf_crossed"] < ns_rays // 2:
+        failures.append(f"only {row['sdf_crossed']} of {ns_rays} sdf rays crossed at {label}")
+    row["backtrace_on_variants"] = k3 = {}
+    for name, err, own in backtrace_on_variants(s, plane, target, order):
+        k3[name] = dict(rel_err=err, plain_f32_rel_err=own)
+        print(f"variants[{label}] backtrace (K3) from the {name}'s exit states with the compat "
+              f"loss's cotangents: rel_err {err:.3e} "
+              + (f"against the f64 sum of the same terms (the plain version's own f32 sum: "
+                 f"{own:.3e}) " if f32 else "")
+              + f"(tol {tol:g}, ordered and unordered)", flush=True)
+        if not err <= tol:
+            failures.append(f"K3 disagrees with its plain version on the {name}'s exit states "
+                            f"at {label}: {err:.3e}")
+    if not times:
+        return row, failures
+    bounds = variant_bounds(st, n, rif)  # the sdf's rays are as many (variant_scene)
+    timed = {
+        "trace_plane": (lambda: calls["trace_plane"][1](order),
+                        lambda: E.trace_plane(f, x0, v0, o, d, ds, nf)),
+        "trace_target": (lambda: calls["trace_target"][1](order),
+                         lambda: E.trace_target(f, x0, v0, tgt, ds, nf)),
+        "trace_sdf": (lambda: calls["trace_sdf"][1](order_s),
+                      lambda: E.trace_sdf(f, s["sdf_field"], xs, vs, ds, ns)),
+        "backtrace_sdf": (lambda: K.backtrace_sdf(rif, sdf, h, *sdf_out, dx, dv, ds, nb,
+                                                  tol_snap, order_s),
+                          lambda: E.backtrace_sdf(f, s["sdf_field"], *sdf_out, dx, dv, ds, nb)),
+    }
+    row["times"] = {}
+    for name, (kernel, plain) in timed.items():
+        rec = dict(bounds[name], ms=time_ms(kernel, 5), plain_ms=time_ms(plain, 1),
+                   library_ms=None)
+        rec["share_of_bound"] = rec["bound_ms"] / rec["ms"]
+        row["times"][name] = rec
+        print(f"variants[{label}] {name}: {rec['ms']:.4f} ms a call (bound {rec['bound_ms']:.4f}, "
+              f"{rec['bound_by']}: {100 * rec['share_of_bound']:.2f} % of it), plain version "
+              f"{rec['plain_ms']:.1f} ms", flush=True)
+    return row, failures
+
+
+def variant_ragged_check(s, label):
+    """K12 and K13 on a batch with one more ray that never escapes (outside the
+    grid, at rest): the batch's horizon is then max_steps, and every escaped
+    ray goes on to it; bitwise against the plain versions."""
+    rif, h, ds, f = s["rif"], s["h"], s["ds"], s["field"]
+    still = torch.full((1, 3), -h, dtype=rif.dtype, device="cuda")
+    rest = torch.zeros_like(still)
+    x0, v0 = torch.cat([s["x0"], still]), torch.cat([s["v0"], rest])
+    xs, vs = torch.cat([s["xs"], still]), torch.cat([s["vs"], rest])
+    tgt = torch.cat([s["tgt"], s["tgt"][:1]])
+    order, order_s = (O.ray_order(a, b, rif.shape, h) for a, b in ((x0, v0), (xs, vs)))
+    st_t, st_f = {}, {}
+    want_t = E.trace_target(f, x0, v0, tgt, ds, s["nf"], stats=st_t)
+    want_f = E.trace_sdf(f, s["sdf_field"], xs, vs, ds, s["ns"], stats=st_f)
+    got_t = K.trace_target(rif, h, x0, v0, tgt, ds, s["nf"], order)
+    got_f = K.trace_sdf(rif, s["sdf"], h, xs, vs, ds, s["ns"], order_s)
+    torch.cuda.synchronize()
+    row = dict(target=all(torch.equal(a, b) for a, b in zip(got_t, want_t)),
+               sdf=all(torch.equal(a, b) for a, b in zip(got_f, want_f)),
+               target_horizon=st_t["horizon"], sdf_horizon=st_f["horizon"])
+    print(f"variants[{label}, ragged: one ray never escapes] bitwise equal: K12 {row['target']} "
+          f"(horizon {row['target_horizon']} of {s['nf']}), K13 {row['sdf']} (horizon "
+          f"{row['sdf_horizon']} of {s['ns']})", flush=True)
+    failures = []
+    if not (row["target"] and row["sdf"]):
+        failures.append(f"K12 or K13 is not bitwise equal in the ragged case at {label}: {row}")
+    if row["target_horizon"] != s["nf"] or row["sdf_horizon"] != s["ns"]:
+        failures.append(f"the ragged case did not run to max_steps at {label}: {row}")
+    return row, failures
+
+
+def sdf_late_check(dtype):
+    """K13 where rays leave the grid while still inside the sdf (a half-space
+    sdf, x < span / 2, reaching the y = 0 face) and cross it afterwards, the
+    field read at clamped corners, while a slow ray holds the batch's loop
+    open: bitwise against the plain version, and K14 from that state."""
+    s = scene(17, 64, dtype)
+    rif, h, ds, span = s["rif"], s["h"], s["ds"], s["span"]
+    idx = torch.arange(17, dtype=torch.float64, device="cuda") * h
+    sdf = ((idx - span / 2) / h).to(rif.dtype).expand(17, 17, 17).contiguous()
+    gen = torch.Generator(device="cuda").manual_seed(4)
+    n = 64
+    u = torch.rand((n, 3), generator=gen, dtype=torch.float64, device="cuda")
+    x0 = torch.stack([0.2 + 0.15 * u[:, 0], 0.15 + 0.15 * u[:, 1], 0.3 + 0.4 * u[:, 2]], -1) * span
+    v0 = torch.stack([torch.full_like(u[:, 0], 0.3), -torch.ones_like(u[:, 0]),
+                      0.1 * (u[:, 2] - 0.5)], -1)
+    v0 = v0 / torch.linalg.norm(v0, dim=-1, keepdim=True)
+    x0[-1] = torch.tensor([0.3, 0.5, 0.5], dtype=torch.float64, device="cuda") * span
+    v0[-1] = torch.tensor([0.0, 0.1, 0.0], dtype=torch.float64, device="cuda")
+    x0, v0 = x0.to(rif.dtype).contiguous(), v0.to(rif.dtype).contiguous()
+    ns = api.sdf_steps(rif.shape, h, ds)
+    st = {}
+    sdf_f = G.GridField(sdf, h)
+    want = E.trace_sdf(s["field"], sdf_f, x0, v0, ds, ns, stats=st)
+    order = O.ray_order(x0, v0, rif.shape, h)
+    got = K.trace_sdf(rif, sdf, h, x0, v0, ds, ns, order)
+    dx, dv = torch.ones_like(want[0]), torch.ones_like(want[1])
+    f32 = rif.dtype == torch.float32
+    g_p = E.backtrace_sdf(s["field"], sdf_f, *want, dx, dv, ds, s["nb"],
+                          acc_dtype=torch.float64 if f32 else None)
+    g_k = K.backtrace_sdf(rif, sdf, h, *want, dx, dv, ds, s["nb"], G.snap_tol(rif.dtype), order)
+    torch.cuda.synchronize()
+    bitwise = all(torch.equal(a, b) for a, b in zip(got, want))
+    crossed_late = int(((want[0][:, 1] < 0) & (want[0][:, 0] >= span / 2)).sum())
+    err = rel_err(g_k.double(), g_p.double())[0]
+    tol = TOL_F32_GRAD if f32 else TOL_F64
+    print(f"variants[sdf late crossing, {dtype}, 17^3 x {n}] K13 bitwise equal {bitwise}; late "
+          f"steps {st['late_steps']}, rays that crossed outside the grid {crossed_late}; K14 "
+          f"rel_err {err:.3e} (tol {tol:g})", flush=True)
+    failures = []
+    if not bitwise or not err <= tol:
+        failures.append(f"K13 / K14 disagree in the late-crossing case ({dtype}): bitwise "
+                        f"{bitwise}, K14 {err:.3e}")
+    if not (st["late_steps"] > 0 and crossed_late > 0):
+        failures.append(f"the late-crossing case has no late crossing ({dtype})")
+    return failures
+
+
+def variants_path(s):
+    """The slice's main path: the reference's class names from ``compat`` at
+    full width, forward and backward, as a user coming from the reference
+    calls them: ``BackPlaneTracerC`` (K11, then K3 with the missed rays'
+    position cotangent zeroed), ``BackTargetTracerC`` (K12's two launches,
+    K3), ``BackSDFTracerC`` (K13's two launches, K14), each
+    :data:`VARIANT_PASSES` times; a plane and a target given once for every
+    ray.  Launch counts asserted exactly; ms a call (host clock, forward and
+    backward, synchronised) and a launch (CUDA events)."""
+    rif0, h, ds, span = s["rif"], s["h"], s["ds"], s["span"]
+    x0, v0, xs, vs, sdf = s["x0"], s["v0"], s["xs"], s["vs"], s["sdf"]
+    tgt = s["tgt"][0]
+
+    def plane(r):
+        xt, vt, miss = compat.BackPlaneTracerC(r, x0, v0, s["pln_o"][0], s["pln_d"][0], h, ds)
+        return ((xt - tgt) ** 2).sum() + vt.sum(), miss
+
+    def target(r):
+        xt, vt, d2 = compat.BackTargetTracerC(r, x0, v0, tgt, h, ds)
+        if d2.requires_grad:
+            raise AssertionError("BackTargetTracerC: d2 carries a gradient")
+        return ((xt - tgt) ** 2).sum() + vt.sum(), d2
+
+    def sdf_call(r):
+        xt, vt = compat.BackSDFTracerC(r, sdf, xs, vs, h, ds)
+        return ((xt - span / 2) ** 2).sum() + vt.sum(), None
+
+    rec = {}
+    events = []
+    K.reset_launches()
+    K.record_events(events)
+    try:
+        for name, call in (("plane", plane), ("target", target), ("sdf", sdf_call)):
+            ms = []
+            for _ in range(VARIANT_PASSES):
+                r = rif0.detach().clone().requires_grad_(True)
+                torch.cuda.synchronize()
+                t0 = time.time()
+                loss, extra = call(r)
+                loss.backward()
+                torch.cuda.synchronize()
+                ms.append(1e3 * (time.time() - t0))
+                g = r.grad
+                if g is None or not bool(torch.isfinite(g).all()) or not float(g.abs().max()) > 0:
+                    raise AssertionError(f"compat {name}: the gradient is missing, not finite "
+                                         "or zero")
+            rec[name] = dict(ms_per_call=median(ms[1:]), loss=float(loss.detach()))
+            if name == "plane":
+                rec[name]["missed"] = int(extra.sum())
+    finally:
+        K.record_events(None)
+    torch.cuda.synchronize()
+    launches = dict(K.LAUNCHES)
+    paths = {"backtrace": dict(K.BACKTRACE_PATHS), "backtrace_sdf": dict(K.BACKTRACE_SDF_PATHS)}
+    want = {**{name: 0 for name in build.KERNELS}, "trace_plane": VARIANT_PASSES,
+            "trace_target": 2 * VARIANT_PASSES, "trace_sdf": 2 * VARIANT_PASSES,
+            "backtrace": 2 * VARIANT_PASSES, "backtrace_sdf": VARIANT_PASSES}
+    if launches != want:
+        raise AssertionError(f"the compat calls must launch {want}, counted {launches}")
+    path = K.backtrace_path(rif0.numel(), rif0.dtype)
+    path_sdf = K.backtrace_path(rif0.numel(), torch.float64)  # K14 sums in f64
+    if paths["backtrace"][path] != 2 * VARIANT_PASSES or \
+            paths["backtrace_sdf"][path_sdf] != VARIANT_PASSES:
+        raise AssertionError(f"K3 and K14 must take the {path} and {path_sdf} paths, counted "
+                             f"{paths}")
+    by_name = {}
+    for n_, a, b in events:
+        by_name.setdefault(n_, []).append(a.elapsed_time(b))
+    per_launch = {}
+    for name, ms in by_name.items():
+        if name in ("trace_target", "trace_sdf"):  # pass 1 and pass 2 in turn
+            per_launch[f"{name} pass 1"] = median(ms[2::2])
+            per_launch[f"{name} pass 2"] = median(ms[3::2])
+        elif name == "backtrace":  # the plane's, then the target's
+            per_launch["backtrace (plane)"] = median(ms[1:VARIANT_PASSES])
+            per_launch["backtrace (target)"] = median(ms[VARIANT_PASSES + 1:])
+        else:
+            per_launch[name] = median(ms[1:])
+    rec.update(launches=launches, paths=paths, ms_per_launch=per_launch)
+    print(f"variants path (compat at {tuple(rif0.shape)}, {x0.shape[0]} rays, "
+          f"{VARIANT_PASSES} calls each): ms a call forward + backward "
+          + ", ".join(f"{k} {rec[k]['ms_per_call']:.3f}" for k in ("plane", "target", "sdf"))
+          + "; ms a launch " + ", ".join(f"{k} {v:.4f}" for k, v in per_launch.items())
+          + f"; launches {launches}", flush=True)
+    return rec
+
+
+# ---------------------------------------------------------------------------
+# the 2008 path-matrix baseline (pathmatrix.fuel2008), phase p
+# ---------------------------------------------------------------------------
+
+# the repo's configuration combo_recon16_hermite (run_fuel2008_finish.py): 32
+# views of 64^2 x 4 = 524,288 rays through the 65^3 fuel volume, a 16^3
+# reconstruction, hermite paths; the JAX package's rel_norm on its own rays
+# (results/fuel2008_sweep/sweep.jsonl) and the band outside which a run on the
+# port's rays is a fault, not a number
+F2008_CONFIG = dict(nviews=32, nbins=64, spp=4, int_res=256, recon_res=16, spline="hermite",
+                    seed=0)
+F2008_JAX_REL_NORM = 0.8619833885451604
+F2008_BAND = (0.82, 0.91)
+
+
+def fuel2008_small_check():
+    """A tiny ``fuel_reconstruction`` on the card against ``device="cpu"`` on the
+    same rays, f64: the reconstruction within 1e-12 of its largest entry."""
+    params = dict(nviews=4, nbins=8, spp=2, int_res=64, recon_res=8)
+    gt = voxel_scenes.gaussian_bump(17, 1.0, amp=5e-4, dtype=torch.float64, device="cuda")
+    rays = fuel2008.gen_rays(params, device="cpu")
+    rec_gpu, rep_gpu = fuel2008.fuel_reconstruction(gt, params, rays=rays)
+    rec_cpu, rep_cpu = fuel2008.fuel_reconstruction(gt.cpu(), params, rays=rays, device="cpu")
+    err = float(abs(rec_gpu - rec_cpu).max() / max(1.0, abs(rec_cpu).max()))
+    print(f"fuel2008[f64 17^3, {rays.x.shape[0]} rays] card against CPU: reconstruction "
+          f"rel_err {err:.3e} (tol 1e-12), rel_norm {rep_gpu['rel_err_norm']:.6g} / "
+          f"{rep_cpu['rel_err_norm']:.6g}", flush=True)
+    if not err <= 1e-12 or rep_gpu["phi_nnz"] != rep_cpu["phi_nnz"]:
+        raise AssertionError("fuel_reconstruction on the card disagrees with the CPU")
+
+
+def fuel2008_path():
+    """``fuel2008.fuel_reconstruction`` on the card in the configuration
+    ``combo_recon16_hermite`` (:data:`F2008_CONFIG`) on the 65^3 fuel volume in
+    f64, as the JAX driver runs it: one K2 launch (the ground-truth trace) and
+    one K1 (the error's field evaluation), the native marcher, LSQR on the
+    host."""
+    gt = voxel_scenes.fuel_injection_rif(dtype=torch.float64, device="cuda")
+    K.reset_launches()
+    recon, rep = fuel2008.fuel_reconstruction(gt, F2008_CONFIG)
+    launches = dict(K.LAUNCHES)
+    want = {**{name: 0 for name in build.KERNELS}, "trace_fwd": 1, "eval_grad": 1}
+    if launches != want:
+        raise AssertionError(f"fuel_reconstruction must launch {want}, counted {launches}")
+    if native_loader._lib is None:
+        raise AssertionError("fuel_reconstruction did not load the native marcher")
+    if recon.shape != (16, 16, 16) or not np.isfinite(recon).all():
+        raise AssertionError("fuel_reconstruction: the reconstruction is misshapen or not finite")
+    lo, hi = F2008_BAND
+    rec = dict(launches=launches, **{k: rep[k] for k in (
+        "num_rays", "trace_time", "phi_time", "phi_nnz", "solve_time", "integration_time",
+        "total_time", "rel_err_norm", "max_err", "l1_err", "process_peak_rss_mb")},
+        jax_rel_norm=F2008_JAX_REL_NORM)
+    print("fuel2008[combo_recon16_hermite, f64 65^3, 524,288 rays]: " + json.dumps(rec),
+          flush=True)
+    if not lo <= rep["rel_err_norm"] <= hi:
+        raise AssertionError(f"fuel_reconstruction's rel_norm {rep['rel_err_norm']:.4f} lies "
+                             f"outside {F2008_BAND} (the JAX package's: {F2008_JAX_REL_NORM:.5f})")
+    return rec
+
+
 # forward + adjoint passes of the main path: bench.run's warm-up and timed
 # iterations, and the pass made here through api.trace
 MAIN_PATH_PASSES = 1 + BENCH_ITERS + 1
@@ -2187,6 +2656,22 @@ def main():
     cable_api_check()
     failures += cable_block_path_check()
 
+    # phase v: the variants K11-K14 against their plain versions
+    t_v = time.time()
+    var_small = variant_scene(17, 512, "float64", noise=0.02)
+    var_small_row, var_failures = variant_check(var_small, "f64 17^3", TOL_F64)
+    failures += var_failures
+    failures += variant_ragged_check(var_small, "f64 17^3")[1]
+    var_full = variant_scene(RES, NRAYS, "float32")
+    var_row, var_failures = variant_check(var_full, f"f32 {RES}^3", TOL_F32_GRAD, times=True)
+    failures += var_failures
+    var_ragged, var_failures = variant_ragged_check(var_full, f"f32 {RES}^3")
+    failures += var_failures
+    for dtype in ("float64", "float32"):
+        failures += sdf_late_check(dtype)
+    times.update(var_row["times"])
+    phase_v_checks_s = time.time() - t_v
+
     gather = gather_check_and_time()
     times["gather_rows"] = gather
 
@@ -2241,16 +2726,27 @@ def main():
         for k in ("loss_last", "l2_to_ground_truth", "seconds")), flush=True)
     fiber_small_check()
     fiber_small_check("exact")
+    t_v = time.time()
+    variants = variants_path(var_full)
+    phase_v_s = phase_v_checks_s + time.time() - t_v
+    t_p = time.time()
+    fuel2008_small_check()
+    f2008 = fuel2008_path()
+    phase_p_s = time.time() - t_p
+    print(f"phases: v (variants) {phase_v_s:.1f} s, p (fuel2008) {phase_p_s:.1f} s", flush=True)
     full_run = fuel_path(FUEL_ITERS_SHIPPED, "f32 full width, shipped optim_iters", work)
     print(f"fuel[shipped] {full_run['steps']} steps in {full_run['seconds']:.1f} s, escalated "
           f"at stage {full_run['escalated']}, rel_norm {full_run['rel_norm']:.4f}", flush=True)
     print("drivers: " + json.dumps(drivers), flush=True)
     print("fiber: " + json.dumps(fiber_rec), flush=True)
     print("fiber exact: " + json.dumps(fiber_exact), flush=True)
+    print("variants: " + json.dumps({k: v for k, v in variants.items() if k != "launches"}),
+          flush=True)
 
     paths = {"bench": bench_launches, "probe": probe_launches, "fuel": fuel["launches"],
              **{name: d["launches"] for name, d in drivers.items()},
-             "fiber": fiber_rec["launches"], "fiber_exact": fiber_exact["launches"]}
+             "fiber": fiber_rec["launches"], "fiber_exact": fiber_exact["launches"],
+             "variants": variants["launches"], "fuel2008": f2008["launches"]}
     replaces = {
         "eval_grad": "adjointnonlinearraytracing_tpu/benchmarks/probe_evalmath.py:107",
         "trace_fwd": "adjointnonlinearraytracing_tpu/tracer/paired.py:64",
@@ -2262,6 +2758,10 @@ def main():
         "backtrace_cable": "adjointnonlinearraytracing_tpu/tracer/eikonal.py:327",
         "trace_cable_ckpt": "adjointnonlinearraytracing_tpu/tracer/checkpointed.py:724",
         "backtrace_cable_exact": "adjointnonlinearraytracing_tpu/tracer/checkpointed.py:780",
+        "trace_plane": "adjointnonlinearraytracing_tpu/tracer/paired.py:90",
+        "trace_target": "adjointnonlinearraytracing_tpu/tracer/paired.py:140",
+        "trace_sdf": "adjointnonlinearraytracing_tpu/tracer/paired.py:201",
+        "backtrace_sdf": "adjointnonlinearraytracing_tpu/tracer/paired.py:336",
     }
     errs = dict(zip(("eval_grad", "trace_fwd", "backtrace"), zip(cmp["abs_err"], cmp["rel_err"])))
     errs["gather_rows"] = (gather["max_abs_err"], gather["max_abs_err"])
@@ -2270,6 +2770,9 @@ def main():
     for name in CABLE_KERNELS:  # K7 and K9 bitwise, asserted
         e = cable_full["errs"].get(name, dict(abs_err=0.0, rel_err=0.0))
         errs[name] = (e["abs_err"], e["rel_err"])
+    for name in ("trace_plane", "trace_target", "trace_sdf"):  # bitwise, asserted
+        errs[name] = (0.0, 0.0)
+    errs["backtrace_sdf"] = (var_row["backtrace_sdf_abs_err"], var_row["backtrace_sdf_rel_err"])
     stage_rows.append(big_row)
     exact_rows = [row.pop("exact") for row in stage_rows if "exact" in row]
     fuel_stage_ms = {}
@@ -2301,9 +2804,14 @@ def main():
                       "launches_by_k3_path": {"bench": bench_paths["backtrace"],
                                               "fuel": fuel["paths"]["backtrace"]},
                       "stage_checks": stage_rows,
+                      "variant_checks": {
+                          "f64 17^3": var_small_row["backtrace_on_variants"],
+                          f"f32 {RES}^3 (against the f64 sum of the same terms)":
+                              var_row["backtrace_on_variants"]},
                       "launched_by": "bench.run, tracer.api.trace, the spot checks, "
                                      "experiments.fuel_injection.run_opt, the drivers "
-                                     "before their escalation"},
+                                     "before their escalation, compat.BackPlaneTracerC and "
+                                     "BackTargetTracerC (backward)"},
         "trace_ckpt": {"rel_tol": 0.0, **ex_bench["fwd"],
                        "fuel_ms_by_stage": fuel_stage_ms["trace_ckpt"],
                        "fuel_ms_by_stage_alone": {r["label"]: r["k5_ms"] for r in exact_rows},
@@ -2339,6 +2847,27 @@ def main():
                                     "the steps from the escalation on (every step with "
                                     "gradient exact) and the stage checks")}
            for name in CABLE_KERNELS},
+        **{name: {"rel_tol": TOL_F32_GRAD if name == "backtrace_sdf" else 0.0,
+                  "rel_tol_against": ("the f64 sum of the plain version's f32 terms"
+                                      if name == "backtrace_sdf" else "bitwise"),
+                  "scene": (f"bench scene {RES}^3 f32; " + (
+                      f"{NRAYS} rays spawned on a sphere sdf (radius 0.4 span) by get_pts_sdf"
+                      if name.endswith("sdf") else
+                      f"{NRAYS} bench rays, planes at y = 0.6 span, targets at y = 1.05 span")),
+                  "work": var_row["work"][name], "f64_check": var_small_row["bitwise"]
+                  if name != "backtrace_sdf" else var_small_row["backtrace_sdf_rel_err"],
+                  "ragged": var_ragged,
+                  "launches_per_call": variants["launches"][name] // VARIANT_PASSES,
+                  "ms_per_launch_on_path": {k: v for k, v in variants["ms_per_launch"].items()
+                                            if k.startswith(name)},
+                  **({"launches_by_k14_path": variants["paths"]["backtrace_sdf"]}
+                     if name == "backtrace_sdf" else {}),
+                  "launched_by": "compat." + {"trace_plane": "BackPlaneTracerC",
+                                              "trace_target": "BackTargetTracerC",
+                                              "trace_sdf": "BackSDFTracerC",
+                                              "backtrace_sdf": "BackSDFTracerC (backward)"}[name]
+                                 + " (tracer.api." + name.replace("backtrace", "trace") + ")"}
+           for name in VARIANT_KERNELS},
         "gather_rows": {"rel_tol": 0.0, "rows": GATHER_N, "table_rows": GATHER_ROWS,
                         "ms_dirty_flush": gather["ms_dirty_flush"],
                         "library_ms_dirty_flush": gather["library_ms_dirty_flush"],

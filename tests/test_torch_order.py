@@ -62,6 +62,19 @@ def test_entry_cells_of_hand_made_rays():
     assert octant == [0, 2, 3, 3, 4]
 
 
+def test_a_ray_at_rest_takes_its_start_cell():
+    """A ray with no speed on any axis, outside the box or inside it, gets its
+    start's clamped cell (outside, the slab parameters are all infinite and
+    the entry point was 0 * inf: no cell at all)."""
+    h = 0.25
+    x = torch.tensor([[-0.5, -0.5, -0.5], [0.3, 0.6, 0.8], [2.0, 0.6, 0.3]],
+                     dtype=torch.float64)
+    v = torch.zeros_like(x)
+    assert O.entry_cells(x, v, (5, 5, 5), h).tolist() == [[0, 0, 0], [1, 2, 3], [3, 2, 1]]
+    order = O.ray_order(x, v, (5, 5, 5), h)
+    assert sorted(order.tolist()) == [0, 1, 2]
+
+
 def test_neighbours_in_key_order_are_neighbours_in_the_grid():
     """The bench scene's entry points are drawn at random: in key order the
     next ray's entry cell is far closer than in the given order."""
