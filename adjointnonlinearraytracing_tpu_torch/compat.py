@@ -20,9 +20,10 @@ BackCableTracerC       tracer.trace_cable
 =====================  ==========================================
 
 The tracers run where their tensors live: on the card through the kernels
-(K2/K3, K11-K14, K7/K8), on the CPU through the plain steppers.  ``Grid`` and
-``Cable`` keep a torch tensor where it lies and put anything else (a numpy
-array, a list) on ``device``, the card unless the caller asks for the CPU.
+(K2/K3, K11-K14, K7/K8), on the CPU through the plain steppers.  ``Grid``,
+``Cable`` and ``upres_volume`` keep a torch tensor where it lies and put
+anything else (a numpy array, a list) on ``device``, the card unless the
+caller asks for the CPU.
 """
 
 from __future__ import annotations
@@ -31,8 +32,8 @@ import torch
 
 from .convert import require_device
 from .fields import cylinder as C
+from .fields import grid as G
 from .fields import rbf
-from .fields.grid import upres_volume  # noqa: F401
 from .tracer import (trace, trace_ad, trace_cable, trace_cable_ad,  # noqa: F401
                      trace_plane, trace_plane_ad, trace_sdf, trace_sdf_ad, trace_target)
 
@@ -53,6 +54,13 @@ def _as_field_tensor(arr, device):
     if isinstance(arr, torch.Tensor):
         return arr
     return torch.as_tensor(arr, device=require_device(device))
+
+
+def upres_volume(n, new_res, *, device="cuda"):
+    """``fields.grid.upres_volume`` of ``n``: a torch tensor where it lies, anything
+    else (a numpy volume, a list) on ``device``, the card unless the caller
+    asks for the CPU (the JAX function takes a numpy volume as it is)."""
+    return G.upres_volume(_as_field_tensor(n, device), new_res)
 
 
 class Grid:

@@ -3,10 +3,13 @@
 Each ``csrc/*.cu`` has a plain C interface (no PyTorch headers), so ``nvcc``
 compiles it in seconds; all of them compile in parallel into one shared library
 each.  A source may hold more than one kernel (``SOURCE``: K2 ``trace_fwd``,
-K5 ``trace_ckpt`` and the variants K11-K13 ``trace_plane``, ``trace_target``,
-``trace_sdf`` are one stepper loop in ``trace_fwd.cu``; K3 ``backtrace`` and
-K14 ``backtrace_sdf`` one adjoint ray in ``backtrace.cu``; K7 ``trace_cable``
-and K9 ``trace_cable_ckpt`` one loop in ``trace_cable.cu``).  Libraries go to
+K5 ``trace_ckpt``, the variants K11-K13 ``trace_plane``, ``trace_target``,
+``trace_sdf`` and their exact forward passes K15-K17 ``trace_*_ckpt`` are one
+stepper loop in ``trace_fwd.cu``; K6 ``backtrace_exact`` and K18, K19
+``backtrace_plane_exact``, ``backtrace_sdf_exact`` one replaying ray in
+``backtrace_exact.cu``; K3 ``backtrace`` and K14 ``backtrace_sdf`` one
+adjoint ray in ``backtrace.cu``; K7 ``trace_cable`` and K9
+``trace_cable_ckpt`` one loop in ``trace_cable.cu``).  Libraries go to
 ``kernels/_build/`` (git-ignored) under a name that carries a hash of the
 sources and flags, so an edited source is rebuilt and an unchanged one is
 reused.
@@ -33,11 +36,14 @@ BUILD_DIR = Path(__file__).resolve().parent / "_build"
 KERNELS = ("eval_grad", "trace_fwd", "backtrace", "gather_rows", "trace_ckpt",
            "backtrace_exact", "trace_cable", "backtrace_cable", "trace_cable_ckpt",
            "backtrace_cable_exact", "trace_plane", "trace_target", "trace_sdf",
-           "backtrace_sdf")
+           "backtrace_sdf", "trace_plane_ckpt", "trace_target_ckpt", "trace_sdf_ckpt",
+           "backtrace_plane_exact", "backtrace_sdf_exact")
 #: the source (``csrc/<name>.cu``) that holds each kernel
 SOURCE = {**{k: k for k in KERNELS}, "trace_ckpt": "trace_fwd",
           "trace_cable_ckpt": "trace_cable", "trace_plane": "trace_fwd",
-          "trace_target": "trace_fwd", "trace_sdf": "trace_fwd", "backtrace_sdf": "backtrace"}
+          "trace_target": "trace_fwd", "trace_sdf": "trace_fwd", "backtrace_sdf": "backtrace",
+          **{f"trace_{v}_ckpt": "trace_fwd" for v in ("plane", "target", "sdf")},
+          **{f"backtrace_{v}_exact": "backtrace_exact" for v in ("plane", "sdf")}}
 NVCC_FLAGS = (
     "-gencode=arch=compute_90a,code=sm_90a", "-std=c++17", "-O3", "-fmad=false",
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",

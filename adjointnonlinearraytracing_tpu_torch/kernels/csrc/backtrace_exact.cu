@@ -44,7 +44,25 @@
 // registers), n and grad n kept per replayed step, stretches of 16 steps, a
 // kernel held to 4 blocks an SM.  The order of the adds varies from run to
 // run, so the gradient is reproducible to rounding only, not bitwise.
+//
+// K18 backtrace_plane_exact and K19 backtrace_sdf_exact are the same ray
+// under the plane's and the sdf's rule (rules.cuh), replacing
+// _backward_segments of the JAX package under those hooks: the replay takes
+// K2's step and then the rule's "inside" (inbounds and not past the ray's
+// plane; sdf < 0 read under the previous inside, one more grid read a
+// replayed step), as K15 and K17 did when they wrote the checkpoints.  A ray
+// that left the grid while still inside the sdf reads the field at clamped
+// corners and splats into the edge voxels, as K14's does.  The target's
+// backward pass is K6 itself: its "inside" is inbounds, and K16 writes the
+// checkpoints on past a ray's escape up to the batch's horizon, so a capture
+// made there is replayed like any other.  K6 and K18 sum in the grid's type
+// (in f32 on the bench scene K18 read 3.9e-7 of the largest entry from the
+// f64 sum of the same terms, an H100; limit 1e-5).  K19 sums in f64 whatever
+// the grid's type, as K14 does on the same sphere-sdf rays: its f32 sum read
+// 2.0-3.8e-6 there, from adds whose order changes from run to run, and
+// K14's f32 sum read 1.06e-5.
 #include "adjoint.cuh"
+#include "rules.cuh"
 
 namespace anrt {
 
@@ -52,15 +70,25 @@ namespace anrt {
 // replayed once
 constexpr int kReplay = 32;
 
+// One replayed forward step: K2's step, then the rule's "inside" at the new x.
+template <typename T, typename Rule>
+__device__ __forceinline__ bool replay_step(const Grid<T>& g, const Rule& rule,
+                                            typename Rule::Ray& rr, T ds, T x[3], T v[3],
+                                            bool inside) {
+  return rule.inside(rr, x, inside, forward_step(g, ds, x, v, inside));
+}
+
 // One ray of the backward pass.  The lanes of a warp walk the segments and
 // the steps in step with each other: segment s of every lane at once (from
 // the warp's last segment down, a lane idle in the segments past its own last
 // one), and step j of a segment at once (a lane idle in the steps past its
 // capture step), so that lanes whose rays are neighbours in the ray order are
 // at neighbouring positions at every step.
-template <typename T>
+// Acc: the accumulator's type (the grid's for K6 and K18, double for K19).
+template <typename T, typename Rule, typename Acc>
 struct ExactRay {
   Grid<T> g;
+  Rule rule;
   T ds;
   const T* ckpts;  // (nseg, 7, n_slots)
   const int* order;
@@ -69,9 +97,10 @@ struct ExactRay {
   const T *dx, *dv;
   int n_slots, nseg, seg;
 
-  __device__ __forceinline__ void operator()(int i, T* acc, unsigned long long counts[2]) const {
+  __device__ __forceinline__ void operator()(int i, Acc* acc, unsigned long long counts[2]) const {
     const unsigned lanes = __activemask();  // the lanes of the warp that have a ray slot
     const int r = ray_of(order, i);
+    typename Rule::Ray rr = rule.start(r, nullptr);
     const int steps = __ldg(code + r) == 2 ? 0 : __ldg(c + r);  // the gated-on steps
     const int last = steps <= 0 ? -1 : ((steps - 1) / seg < nseg - 1 ? (steps - 1) / seg
                                                                      : nseg - 1);
@@ -81,7 +110,7 @@ struct ExactRay {
     load3(dv, r, mu);
 #pragma unroll
     for (int k = 0; k < 3; ++k) mu[k] = mu[k] + ds * la[k];
-    SplatRun<T> run;
+    SplatRun<T, Acc> run;
     T xs[kReplay][3];
     const size_t field = static_cast<size_t>(n_slots);
 
@@ -102,7 +131,7 @@ struct ExactRay {
             v[k] = row[(k + 3) * field];
           }
           inside = row[6 * field] > static_cast<T>(0.5);
-          for (int j = 0; j < b0; ++j) inside = forward_step(g, ds, x, v, inside);
+          for (int j = 0; j < b0; ++j) inside = replay_step(g, rule, rr, ds, x, v, inside);
         }
         unsigned ins = 0u;  // bit j: inside at the stretch's step j
         for (int j = 0; j < nb_warp; ++j) {
@@ -110,7 +139,7 @@ struct ExactRay {
 #pragma unroll
             for (int k = 0; k < 3; ++k) xs[j][k] = x[k];
             if (inside) ins |= 1u << j;
-            inside = forward_step(g, ds, x, v, inside);
+            inside = replay_step(g, rule, rr, ds, x, v, inside);
           }
         }
         // reverse over the stretch; the next position is read from local memory
@@ -148,17 +177,19 @@ struct ExactRay {
   }
 };
 
-template <typename T>
-int launch_backtrace_exact(const void* rif, int W, int H, int D, double h, double ds,
-                           const void* ckpts, const int* order, const void* c,
+// K6, K18, K19 over n_slots thread slots (the rule's inputs in `rule`);
+// grad_out holds Acc
+template <typename T, typename Acc = T, typename Rule>
+int launch_backtrace_exact(const Rule& rule, const void* rif, int W, int H, int D, double h,
+                           double ds, const void* ckpts, const int* order, const void* c,
                            const void* code, const void* dx, const void* dv, void* grad_out,
                            unsigned long long* tally, int n_slots, int nseg, int seg,
                            cudaStream_t stream) {
-  const ExactRay<T> ray{
-      make_grid<T>(rif, W, H, D, h), static_cast<T>(ds), static_cast<const T*>(ckpts), order,
-      static_cast<const int*>(c), static_cast<const unsigned char*>(code),
+  const ExactRay<T, Rule, Acc> ray{
+      make_grid<T>(rif, W, H, D, h), rule, static_cast<T>(ds), static_cast<const T*>(ckpts),
+      order, static_cast<const int*>(c), static_cast<const unsigned char*>(code),
       static_cast<const T*>(dx), static_cast<const T*>(dv), n_slots, nseg, seg};
-  return launch_adjoint<T>(ray, W * H * D, grad_out, tally, n_slots, 0, stream);
+  return launch_adjoint<Acc>(ray, W * H * D, grad_out, tally, n_slots, 0, stream);
 }
 
 }  // namespace anrt
@@ -176,10 +207,56 @@ extern "C" int anrt_backtrace_exact(int is_double, const void* rif, int W, int H
   auto s = static_cast<cudaStream_t>(stream);
   auto o = static_cast<const int*>(order);
   auto t = static_cast<unsigned long long*>(tally);
-  return is_double ? anrt::launch_backtrace_exact<double>(rif, W, H, D, h, ds, ckpts, o, c, code,
-                                                          dx, dv, grad_out, t, n_slots, nseg,
-                                                          seg, s)
-                   : anrt::launch_backtrace_exact<float>(rif, W, H, D, h, ds, ckpts, o, c, code,
-                                                         dx, dv, grad_out, t, n_slots, nseg, seg,
-                                                         s);
+  return is_double
+             ? anrt::launch_backtrace_exact<double>(
+                   anrt::VolumeRule<double>{}, rif, W, H, D, h, ds, ckpts, o, c, code, dx, dv,
+                   grad_out, t, n_slots, nseg, seg, s)
+             : anrt::launch_backtrace_exact<float>(
+                   anrt::VolumeRule<float>{}, rif, W, H, D, h, ds, ckpts, o, c, code, dx, dv,
+                   grad_out, t, n_slots, nseg, seg, s);
+}
+
+// K18: as anrt_backtrace_exact, from K15's checkpoints, with the rays' planes
+// (pln_o, pln_d: (N, 3) at the rays' own indices); grad_out of the grid's type.
+extern "C" int anrt_backtrace_plane_exact(int is_double, const void* rif, int W, int H, int D,
+                                          double h, double ds, const void* ckpts,
+                                          const void* order, const void* c, const void* code,
+                                          const void* pln_o, const void* pln_d, const void* dx,
+                                          const void* dv, void* grad_out, void* tally,
+                                          int n_slots, int nseg, int seg, void* stream) {
+  auto s = static_cast<cudaStream_t>(stream);
+  auto o = static_cast<const int*>(order);
+  auto t = static_cast<unsigned long long*>(tally);
+  if (is_double) {
+    const anrt::PlaneRule<double> rule{static_cast<const double*>(pln_o),
+                                       static_cast<const double*>(pln_d), nullptr};
+    return anrt::launch_backtrace_exact<double>(rule, rif, W, H, D, h, ds, ckpts, o, c, code,
+                                                dx, dv, grad_out, t, n_slots, nseg, seg, s);
+  }
+  const anrt::PlaneRule<float> rule{static_cast<const float*>(pln_o),
+                                    static_cast<const float*>(pln_d), nullptr};
+  return anrt::launch_backtrace_exact<float>(rule, rif, W, H, D, h, ds, ckpts, o, c, code, dx,
+                                             dv, grad_out, t, n_slots, nseg, seg, s);
+}
+
+// K19: as anrt_backtrace_exact, from K17's checkpoints, with the sdf grid (the
+// same shape, type and spacing); grad_out is double whatever the grid's type.
+extern "C" int anrt_backtrace_sdf_exact(int is_double, const void* rif, int W, int H, int D,
+                                        double h, double ds, const void* sdf, const void* ckpts,
+                                        const void* order, const void* c, const void* code,
+                                        const void* dx, const void* dv, void* grad_out,
+                                        void* tally, int n_slots, int nseg, int seg,
+                                        void* stream) {
+  auto s = static_cast<cudaStream_t>(stream);
+  auto o = static_cast<const int*>(order);
+  auto t = static_cast<unsigned long long*>(tally);
+  if (is_double) {
+    const anrt::SdfRule<double> rule{anrt::make_grid<double>(sdf, W, H, D, h)};
+    return anrt::launch_backtrace_exact<double>(rule, rif, W, H, D, h, ds, ckpts, o, c, code,
+                                                dx, dv, grad_out, t, n_slots, nseg, seg, s);
+  }
+  const anrt::SdfRule<float> rule{anrt::make_grid<float>(sdf, W, H, D, h)};
+  return anrt::launch_backtrace_exact<float, double>(rule, rif, W, H, D, h, ds, ckpts, o, c,
+                                                     code, dx, dv, grad_out, t, n_slots, nseg,
+                                                     seg, s);
 }

@@ -72,109 +72,39 @@
 //     nothing of it can change) or S.
 // The horizon costs K12 and K13 a second launch and 60 B (f32) of state a
 // ray in device memory between them; the launch is cheap where no ray
-// continues (K13 on most scenes).
-#include "trilinear.cuh"
+// continues (K13 on most scenes).  The rules live in rules.cuh, which the
+// exact gradient's backward pass (backtrace_exact.cu) shares.
+//
+// K15 trace_plane_ckpt, K16 trace_target_ckpt and K17 trace_sdf_ckpt are the
+// forward passes of the variants' exact gradients (the JAX package's
+// tracer/checkpointed.py::_forward_with_ckpts under the plane, target and
+// sdf hooks of _make_volume_variant): K11-K13 compiled with kCkpt, writing
+// K5's checkpoints (x, v, inside) at every segment start the ray steps
+// through, its capture step c (c0: max_steps for the plane, 0 for the target
+// and the sdf) and K5's code.  The exact forward differs from K12 and K13 in
+// its horizon, and pass 2 writes the checkpoints of the steps it takes, so
+// that the backward pass can replay a capture made after the ray escaped:
+//   * K16: the batch's last escape step, as K12 (the JAX per-step gate
+//     ~all(esc), or the whole batch's stop step when it is chunked); the
+//     backward pass of a chunk recomputes its checkpoints with `last` set to
+//     the batch's beforehand (pass 1's atomicMax then leaves it);
+//   * K17: per ray (`hor`), the first segment boundary at or after the last
+//     escape of the ray's chunk of the JAX package's ray chunks (the whole
+//     batch unchunked; the padded last chunk holds copies of ray 0), capped
+//     at max_steps: the JAX forward skips a segment only once every ray of
+//     its chunk has escaped, and steps on to the segment's end.  The wrapper
+//     computes it between the passes from pass 1's escape steps.
+// K15 takes K11's one pass: an escaped plane ray never crosses again, so it
+// has nothing left to capture or checkpoint.
+#include "rules.cuh"
 
 namespace anrt {
 
-// The stop and capture rules.  A rule holds its per-ray inputs and outputs;
-// `Ray` is its per-ray state: start(i, x0) makes it, inside(r, x, was,
-// in_grid) is "inside" at the new x (in_grid = inbounds(x), was = the
-// previous step's inside), capture(r, x, cross) says whether (x, v) becomes
-// the output, finish(r, i, esc) writes the rule's own outputs.  kFixup: a ray
-// that never escaped reports its last x; kHorizon: escaped rays step on to
-// the batch's last escape (two launches), while continues(inside) holds,
-// from the state resume(i) rebuilds.
-template <typename T>
-struct VolumeRule {  // K2 and K5
-  static constexpr bool kFixup = true, kHorizon = false;
-  struct Ray {};
-  __device__ __forceinline__ Ray start(int, const T*) const { return {}; }
-  __device__ __forceinline__ bool inside(Ray&, const T*, bool, bool in_grid) const {
-    return in_grid;
-  }
-  __device__ __forceinline__ bool capture(Ray&, const T*, bool cross) const { return cross; }
-  __device__ __forceinline__ void finish(const Ray&, int, bool) const {}
-};
-
-template <typename T>
-struct PlaneRule {  // K11
-  const T* __restrict__ o;
-  const T* __restrict__ d;
-  unsigned char* __restrict__ miss;
-  static constexpr bool kFixup = true, kHorizon = false;
-  struct Ray { T o[3], d[3]; };
-  __device__ __forceinline__ Ray start(int i, const T*) const {
-    Ray r;
-    load3(o, i, r.o);
-    load3(d, i, r.d);
-    return r;
-  }
-  __device__ __forceinline__ bool inside(Ray& r, const T x[3], bool, bool in_grid) const {
-    const T past = (x[0] - r.o[0]) * r.d[0] + (x[1] - r.o[1]) * r.d[1] +
-                   (x[2] - r.o[2]) * r.d[2];
-    return in_grid && !(past > static_cast<T>(0));
-  }
-  __device__ __forceinline__ bool capture(Ray&, const T*, bool cross) const { return cross; }
-  __device__ __forceinline__ void finish(const Ray&, int i, bool esc) const { miss[i] = !esc; }
-};
-
-template <typename T>
-__device__ __forceinline__ T dist2(const T x[3], const T y[3]) {
-  const T d[3] = {x[0] - y[0], x[1] - y[1], x[2] - y[2]};
-  return d[0] * d[0] + d[1] * d[1] + d[2] * d[2];
-}
-
-template <typename T>
-struct TargetRule {  // K12
-  const T* __restrict__ target;
-  T* __restrict__ d2;
-  static constexpr bool kFixup = false, kHorizon = true;
-  struct Ray { T tgt[3]; T d2; };
-  __device__ __forceinline__ Ray start(int i, const T* x0) const {
-    Ray r;
-    load3(target, i, r.tgt);
-    r.d2 = dist2(x0, r.tgt);
-    return r;
-  }
-  // pass 2 starts from pass 1's output
-  __device__ __forceinline__ Ray resume(int i) const {
-    Ray r;
-    load3(target, i, r.tgt);
-    r.d2 = d2[i];
-    return r;
-  }
-  __device__ __forceinline__ bool inside(Ray&, const T*, bool, bool in_grid) const {
-    return in_grid;
-  }
-  __device__ __forceinline__ bool capture(Ray& r, const T x[3], bool) const {
-    const T cur = dist2(x, r.tgt);
-    const bool closer = cur < r.d2;
-    if (closer) r.d2 = cur;
-    return closer;
-  }
-  __device__ __forceinline__ void finish(const Ray& r, int i, bool) const { d2[i] = r.d2; }
-  __device__ __forceinline__ bool continues(bool) const { return true; }
-};
-
-template <typename T>
-struct SdfRule {  // K13
-  Grid<T> sdf;  // on the grid's lattice
-  static constexpr bool kFixup = false, kHorizon = true;
-  struct Ray {};
-  __device__ __forceinline__ Ray start(int, const T*) const { return {}; }
-  __device__ __forceinline__ Ray resume(int) const { return {}; }
-  __device__ __forceinline__ bool inside(Ray&, const T x[3], bool was, bool) const {
-    return was && value_at(sdf, x) < static_cast<T>(0);
-  }
-  __device__ __forceinline__ bool capture(Ray&, const T*, bool cross) const { return cross; }
-  __device__ __forceinline__ void finish(const Ray&, int, bool) const {}
-  __device__ __forceinline__ bool continues(bool inside) const { return inside; }
-};
-
 // The state pass 1 of a horizon rule leaves for pass 2, at the thread's slot:
 // x, v (3 each), the steps taken, inside; `last` is the batch's last escape
-// step (zeroed by the caller).
+// step (zeroed by the caller, or set to a batch's beforehand); `hor`: null,
+// or a horizon per ray (at the ray's index) that pass 2 takes instead of
+// `last` (K17).
 template <typename T>
 struct Horizon {
   T* x;
@@ -182,7 +112,17 @@ struct Horizon {
   int* steps;
   unsigned char* inside;
   int* last;
+  const int* hor;
 };
+
+// The checkpoint (x, v, inside) of one ray: field k at ck[k * field].
+template <typename T>
+__device__ __forceinline__ void store_ckpt(T* ck, size_t field, const T x[3], const T v[3],
+                                           bool inside) {
+  const T row[7] = {x[0], x[1], x[2], v[0], v[1], v[2], static_cast<T>(inside ? 1 : 0)};
+#pragma unroll
+  for (int k = 0; k < 7; ++k) ck[k * field] = row[k];
+}
 
 template <typename T, bool kCkpt, typename Rule>
 __global__ void trace_fwd_kernel(Grid<T> g, T ds, const T* __restrict__ x0,
@@ -202,7 +142,7 @@ __global__ void trace_fwd_kernel(Grid<T> g, T ds, const T* __restrict__ x0,
   typename Rule::Ray r = rule.start(i, x);
   bool inside = inbounds(g, x);
   bool esc = false;
-  int c = max_steps;
+  int c = Rule::c0(max_steps);
   bool captured = false;
   // this thread's column of the next segment's checkpoints (field k at
   // ck[k * n_rays]), and the steps until it starts
@@ -214,9 +154,7 @@ __global__ void trace_fwd_kernel(Grid<T> g, T ds, const T* __restrict__ x0,
   for (; step < max_steps && !esc; ++step) {
     if (kCkpt && ck != nullptr) {
       if (until_ck == 0) {
-        const T row[7] = {x[0], x[1], x[2], v[0], v[1], v[2], static_cast<T>(inside ? 1 : 0)};
-#pragma unroll
-        for (int k = 0; k < 7; ++k) ck[k * field] = row[k];
+        store_ckpt(ck, field, x, v, inside);
         ck += 7 * field;
         until_ck = seg;
       }
@@ -259,56 +197,93 @@ __global__ void trace_fwd_kernel(Grid<T> g, T ds, const T* __restrict__ x0,
   }
 }
 
-// Pass 2 of a horizon rule (K12, K13): each escaped ray that the rule
-// continues steps on from where pass 1 left it to the batch's last escape
-// step, with K2's step and the rule's inside and capture, and rewrites its
-// outputs.  Every ray here has escaped (one that never did took max_steps).
-template <typename T, typename Rule>
+// Pass 2 of a horizon rule (K12, K13; K16, K17 with kCkpt): each escaped ray
+// that the rule continues steps on from where pass 1 left it to the horizon
+// (the batch's last escape step, or the ray's own in `hor`), with K2's step
+// and the rule's inside and capture, and rewrites its outputs; with kCkpt
+// also the checkpoint of each segment it starts (null ckpts: none), its
+// capture step and code.  Every ray here has escaped (one that never did
+// took max_steps).
+template <typename T, bool kCkpt, typename Rule>
 __global__ void trace_horizon_kernel(Grid<T> g, T ds, const int* __restrict__ order,
-                                     T* __restrict__ xt_out, T* __restrict__ vt_out, Rule rule,
-                                     Horizon<T> hz, int n_rays) {
+                                     T* __restrict__ xt_out, T* __restrict__ vt_out,
+                                     int* __restrict__ c_out, unsigned char* __restrict__ code_out,
+                                     T* __restrict__ ckpts, Rule rule, Horizon<T> hz, int n_rays,
+                                     int seg) {
   const int t = blockIdx.x * blockDim.x + threadIdx.x;
   if (t >= n_rays) return;
   int step = hz.steps[t];
   bool inside = hz.inside[t];
-  const int last = *hz.last;
-  if (step >= last || !rule.continues(inside)) return;
   const int i = ray_of(order, t);
+  const int last = hz.hor != nullptr ? __ldg(hz.hor + i) : *hz.last;
+  if (step >= last || !rule.continues(inside)) return;
   T x[3], v[3], xt[3], vt[3];
   load3(hz.x, t, x);
   load3(hz.v, t, v);
   load3(xt_out, i, xt);
   load3(vt_out, i, vt);
   typename Rule::Ray r = rule.resume(i);
+  int c = 0;
+  bool captured = false;
+  // the column of the first segment that starts at or after `step`
+  const size_t field = static_cast<size_t>(n_rays);
+  T* ck = nullptr;
+  int until_ck = 0;
+  if (kCkpt) {
+    c = c_out[i];
+    captured = code_out[i] == 1;
+    if (ckpts != nullptr) {
+      ck = ckpts + t + static_cast<size_t>((step + seg - 1) / seg) * 7 * field;
+      until_ck = (seg - step % seg) % seg;
+    }
+  }
   for (; step < last && rule.continues(inside); ++step) {
+    if (kCkpt && ck != nullptr) {
+      if (until_ck == 0) {
+        store_ckpt(ck, field, x, v, inside);
+        ck += 7 * field;
+        until_ck = seg;
+      }
+      --until_ck;
+    }
     const bool cur_inside = rule.inside(r, x, inside, forward_step(g, ds, x, v, inside));
     if (rule.capture(r, x, inside && !cur_inside)) {
 #pragma unroll
       for (int k = 0; k < 3; ++k) { xt[k] = x[k]; vt[k] = v[k]; }
+      c = step + 1;
+      captured = true;
     }
     inside = cur_inside;
   }
   store3(xt_out, i, xt);
   store3(vt_out, i, vt);
   rule.finish(r, i, true);
+  if (kCkpt) {
+    c_out[i] = c;
+    code_out[i] = captured ? 1 : 2;
+  }
 }
 
 // One pass of a variant: pass 1 (or the only one) with trace_fwd_kernel,
-// pass 2 with trace_horizon_kernel.
-template <typename T, typename Rule>
+// pass 2 with trace_horizon_kernel; kCkpt with c, code and ckpts (may be
+// null) as K5 takes them.
+template <typename T, bool kCkpt, typename Rule>
 int launch_variant(const Grid<T>& g, double ds, const void* x0, const void* v0,
-                   const int* order, void* xt, void* vt, const Rule& rule, const Horizon<T>& hz,
-                   int n_rays, int max_steps, int pass, cudaStream_t stream) {
+                   const int* order, void* xt, void* vt, void* c, void* code, void* ckpts,
+                   const Rule& rule, const Horizon<T>& hz, int n_rays, int max_steps, int seg,
+                   int pass, cudaStream_t stream) {
   if (n_rays > 0) {
     if (pass == 1) {
-      trace_fwd_kernel<T, false, Rule><<<blocks_for(n_rays), kThreads, 0, stream>>>(
+      trace_fwd_kernel<T, kCkpt, Rule><<<blocks_for(n_rays), kThreads, 0, stream>>>(
           g, static_cast<T>(ds), static_cast<const T*>(x0), static_cast<const T*>(v0), order,
-          static_cast<T*>(xt), static_cast<T*>(vt), nullptr, nullptr, nullptr, rule, hz, n_rays,
-          max_steps, 1);
+          static_cast<T*>(xt), static_cast<T*>(vt), static_cast<int*>(c),
+          static_cast<unsigned char*>(code), static_cast<T*>(ckpts), rule, hz, n_rays,
+          max_steps, seg);
     } else if constexpr (Rule::kHorizon) {
-      trace_horizon_kernel<T, Rule><<<blocks_for(n_rays), kThreads, 0, stream>>>(
-          g, static_cast<T>(ds), order, static_cast<T*>(xt), static_cast<T*>(vt), rule, hz,
-          n_rays);
+      trace_horizon_kernel<T, kCkpt, Rule><<<blocks_for(n_rays), kThreads, 0, stream>>>(
+          g, static_cast<T>(ds), order, static_cast<T*>(xt), static_cast<T*>(vt),
+          static_cast<int*>(c), static_cast<unsigned char*>(code), static_cast<T*>(ckpts), rule,
+          hz, n_rays, seg);
     } else {
       return static_cast<int>(cudaErrorInvalidValue);  // a rule without a horizon has one pass
     }
@@ -317,9 +292,11 @@ int launch_variant(const Grid<T>& g, double ds, const void* x0, const void* v0,
 }
 
 template <typename T>
-Horizon<T> make_horizon(void* x, void* v, void* steps, void* inside, void* last) {
+Horizon<T> make_horizon(void* x, void* v, void* steps, void* inside, void* last,
+                        const void* hor = nullptr) {
   return Horizon<T>{static_cast<T*>(x), static_cast<T*>(v), static_cast<int*>(steps),
-                    static_cast<unsigned char*>(inside), static_cast<int*>(last)};
+                    static_cast<unsigned char*>(inside), static_cast<int*>(last),
+                    static_cast<const int*>(hor)};
 }
 
 template <typename T>
@@ -380,24 +357,111 @@ extern "C" int anrt_trace_ckpt(int is_double, const void* rif, int W, int H, int
                                                     code, ckpts, n_rays, max_steps, seg, s);
 }
 
+// K15 (c, code and ckpts given) and K11 (all three null): one pass.  order:
+// n_rays thread slots, each a ray index (may be a chunk of the rays); xt, vt,
+// miss, c (int32) and code (uint8) at the ray's own index; ckpts null or
+// (ceil(max_steps/seg), 7, n_rays), column i slot i's, as K5's.
+extern "C" int anrt_trace_plane_ckpt(int is_double, const void* rif, int W, int H, int D,
+                                     double h, double ds, const void* x0, const void* v0,
+                                     const void* pln_o, const void* pln_d, const void* order,
+                                     void* xt, void* vt, void* miss, void* c, void* code,
+                                     void* ckpts, int n_rays, int max_steps, int seg,
+                                     void* stream) {
+  auto s = static_cast<cudaStream_t>(stream);
+  auto o = static_cast<const int*>(order);
+  auto m = static_cast<unsigned char*>(miss);
+  const bool ckpt = c != nullptr;
+  if (is_double) {
+    const anrt::PlaneRule<double> rule{static_cast<const double*>(pln_o),
+                                       static_cast<const double*>(pln_d), m};
+    const auto g = anrt::make_grid<double>(rif, W, H, D, h);
+    return ckpt ? anrt::launch_variant<double, true>(g, ds, x0, v0, o, xt, vt, c, code, ckpts,
+                                                     rule, anrt::Horizon<double>{}, n_rays,
+                                                     max_steps, seg, 1, s)
+                : anrt::launch_variant<double, false>(g, ds, x0, v0, o, xt, vt, c, code, ckpts,
+                                                      rule, anrt::Horizon<double>{}, n_rays,
+                                                      max_steps, seg, 1, s);
+  }
+  const anrt::PlaneRule<float> rule{static_cast<const float*>(pln_o),
+                                    static_cast<const float*>(pln_d), m};
+  const auto g = anrt::make_grid<float>(rif, W, H, D, h);
+  return ckpt ? anrt::launch_variant<float, true>(g, ds, x0, v0, o, xt, vt, c, code, ckpts, rule,
+                                                  anrt::Horizon<float>{}, n_rays, max_steps, seg,
+                                                  1, s)
+              : anrt::launch_variant<float, false>(g, ds, x0, v0, o, xt, vt, c, code, ckpts, rule,
+                                                   anrt::Horizon<float>{}, n_rays, max_steps,
+                                                   seg, 1, s);
+}
+
+// K16 (c and code given) and K12 (c, code, ckpts null), pass 1 or 2: the
+// horizon state as for K12, `last` zero before pass 1 or set to the batch's
+// last escape step (a chunk's recomputation).
+extern "C" int anrt_trace_target_ckpt(int is_double, const void* rif, int W, int H, int D,
+                                      double h, double ds, const void* x0, const void* v0,
+                                      const void* target, const void* order, void* xt, void* vt,
+                                      void* d2, void* c, void* code, void* ckpts, void* hx,
+                                      void* hv, void* steps, void* inside, void* last,
+                                      int n_rays, int max_steps, int seg, int pass,
+                                      void* stream) {
+  auto s = static_cast<cudaStream_t>(stream);
+  auto o = static_cast<const int*>(order);
+  const bool ckpt = c != nullptr;
+  if (is_double) {
+    const anrt::TargetRule<double> rule{static_cast<const double*>(target),
+                                        static_cast<double*>(d2)};
+    const auto g = anrt::make_grid<double>(rif, W, H, D, h);
+    const auto hz = anrt::make_horizon<double>(hx, hv, steps, inside, last);
+    return ckpt ? anrt::launch_variant<double, true>(g, ds, x0, v0, o, xt, vt, c, code, ckpts,
+                                                     rule, hz, n_rays, max_steps, seg, pass, s)
+                : anrt::launch_variant<double, false>(g, ds, x0, v0, o, xt, vt, c, code, ckpts,
+                                                      rule, hz, n_rays, max_steps, seg, pass, s);
+  }
+  const anrt::TargetRule<float> rule{static_cast<const float*>(target), static_cast<float*>(d2)};
+  const auto g = anrt::make_grid<float>(rif, W, H, D, h);
+  const auto hz = anrt::make_horizon<float>(hx, hv, steps, inside, last);
+  return ckpt ? anrt::launch_variant<float, true>(g, ds, x0, v0, o, xt, vt, c, code, ckpts, rule,
+                                                  hz, n_rays, max_steps, seg, pass, s)
+              : anrt::launch_variant<float, false>(g, ds, x0, v0, o, xt, vt, c, code, ckpts,
+                                                   rule, hz, n_rays, max_steps, seg, pass, s);
+}
+
+// K17 (c and code given) and K13 (c, code, ckpts, hor null), pass 1 or 2:
+// the horizon state as for K12; hor: null (the batch's last escape step), or
+// pass 2's horizon per ray (int32 at the ray's index).
+extern "C" int anrt_trace_sdf_ckpt(int is_double, const void* rif, int W, int H, int D,
+                                   double h, double ds, const void* sdf, const void* x0,
+                                   const void* v0, const void* order, void* xt, void* vt, void* c,
+                                   void* code, void* ckpts, void* hx, void* hv, void* steps,
+                                   void* inside, void* last, const void* hor, int n_rays,
+                                   int max_steps, int seg, int pass, void* stream) {
+  auto s = static_cast<cudaStream_t>(stream);
+  auto o = static_cast<const int*>(order);
+  const bool ckpt = c != nullptr;
+  if (is_double) {
+    const anrt::SdfRule<double> rule{anrt::make_grid<double>(sdf, W, H, D, h)};
+    const auto g = anrt::make_grid<double>(rif, W, H, D, h);
+    const auto hz = anrt::make_horizon<double>(hx, hv, steps, inside, last, hor);
+    return ckpt ? anrt::launch_variant<double, true>(g, ds, x0, v0, o, xt, vt, c, code, ckpts,
+                                                     rule, hz, n_rays, max_steps, seg, pass, s)
+                : anrt::launch_variant<double, false>(g, ds, x0, v0, o, xt, vt, c, code, ckpts,
+                                                      rule, hz, n_rays, max_steps, seg, pass, s);
+  }
+  const anrt::SdfRule<float> rule{anrt::make_grid<float>(sdf, W, H, D, h)};
+  const auto g = anrt::make_grid<float>(rif, W, H, D, h);
+  const auto hz = anrt::make_horizon<float>(hx, hv, steps, inside, last, hor);
+  return ckpt ? anrt::launch_variant<float, true>(g, ds, x0, v0, o, xt, vt, c, code, ckpts, rule,
+                                                  hz, n_rays, max_steps, seg, pass, s)
+              : anrt::launch_variant<float, false>(g, ds, x0, v0, o, xt, vt, c, code, ckpts,
+                                                   rule, hz, n_rays, max_steps, seg, pass, s);
+}
+
 // K11.  pln_o, pln_d: (n_rays, 3) per ray; miss: n_rays bytes (1: never escaped).
 extern "C" int anrt_trace_plane(int is_double, const void* rif, int W, int H, int D, double h,
                                 double ds, const void* x0, const void* v0, const void* pln_o,
                                 const void* pln_d, const void* order, void* xt, void* vt,
                                 void* miss, int n_rays, int max_steps, void* stream) {
-  auto s = static_cast<cudaStream_t>(stream);
-  auto o = static_cast<const int*>(order);
-  auto m = static_cast<unsigned char*>(miss);
-  if (is_double) {
-    const anrt::PlaneRule<double> rule{static_cast<const double*>(pln_o),
-                                       static_cast<const double*>(pln_d), m};
-    return anrt::launch_variant(anrt::make_grid<double>(rif, W, H, D, h), ds, x0, v0, o, xt,
-                                vt, rule, anrt::Horizon<double>{}, n_rays, max_steps, 1, s);
-  }
-  const anrt::PlaneRule<float> rule{static_cast<const float*>(pln_o),
-                                    static_cast<const float*>(pln_d), m};
-  return anrt::launch_variant(anrt::make_grid<float>(rif, W, H, D, h), ds, x0, v0, o, xt, vt,
-                              rule, anrt::Horizon<float>{}, n_rays, max_steps, 1, s);
+  return anrt_trace_plane_ckpt(is_double, rif, W, H, D, h, ds, x0, v0, pln_o, pln_d, order, xt,
+                               vt, miss, nullptr, nullptr, nullptr, n_rays, max_steps, 1, stream);
 }
 
 // K12, pass 1 or 2 (`pass`).  target: (n_rays, 3); d2: n_rays.  The horizon
@@ -409,19 +473,9 @@ extern "C" int anrt_trace_target(int is_double, const void* rif, int W, int H, i
                                  const void* order, void* xt, void* vt, void* d2, void* hx,
                                  void* hv, void* steps, void* inside, void* last, int n_rays,
                                  int max_steps, int pass, void* stream) {
-  auto s = static_cast<cudaStream_t>(stream);
-  auto o = static_cast<const int*>(order);
-  if (is_double) {
-    const anrt::TargetRule<double> rule{static_cast<const double*>(target),
-                                        static_cast<double*>(d2)};
-    return anrt::launch_variant(anrt::make_grid<double>(rif, W, H, D, h), ds, x0, v0, o, xt,
-                                vt, rule, anrt::make_horizon<double>(hx, hv, steps, inside, last),
-                                n_rays, max_steps, pass, s);
-  }
-  const anrt::TargetRule<float> rule{static_cast<const float*>(target), static_cast<float*>(d2)};
-  return anrt::launch_variant(anrt::make_grid<float>(rif, W, H, D, h), ds, x0, v0, o, xt, vt,
-                              rule, anrt::make_horizon<float>(hx, hv, steps, inside, last),
-                              n_rays, max_steps, pass, s);
+  return anrt_trace_target_ckpt(is_double, rif, W, H, D, h, ds, x0, v0, target, order, xt, vt,
+                                d2, nullptr, nullptr, nullptr, hx, hv, steps, inside, last,
+                                n_rays, max_steps, 1, pass, stream);
 }
 
 // K13, pass 1 or 2.  sdf: a (D, H, W) grid of the same type and spacing; the
@@ -431,16 +485,7 @@ extern "C" int anrt_trace_sdf(int is_double, const void* rif, int W, int H, int 
                               const void* order, void* xt, void* vt, void* hx, void* hv,
                               void* steps, void* inside, void* last, int n_rays, int max_steps,
                               int pass, void* stream) {
-  auto s = static_cast<cudaStream_t>(stream);
-  auto o = static_cast<const int*>(order);
-  if (is_double) {
-    const anrt::SdfRule<double> rule{anrt::make_grid<double>(sdf, W, H, D, h)};
-    return anrt::launch_variant(anrt::make_grid<double>(rif, W, H, D, h), ds, x0, v0, o, xt,
-                                vt, rule, anrt::make_horizon<double>(hx, hv, steps, inside, last),
-                                n_rays, max_steps, pass, s);
-  }
-  const anrt::SdfRule<float> rule{anrt::make_grid<float>(sdf, W, H, D, h)};
-  return anrt::launch_variant(anrt::make_grid<float>(rif, W, H, D, h), ds, x0, v0, o, xt, vt,
-                              rule, anrt::make_horizon<float>(hx, hv, steps, inside, last),
-                              n_rays, max_steps, pass, s);
+  return anrt_trace_sdf_ckpt(is_double, rif, W, H, D, h, ds, sdf, x0, v0, order, xt, vt, nullptr,
+                             nullptr, nullptr, hx, hv, steps, inside, last, nullptr, n_rays,
+                             max_steps, 1, pass, stream);
 }

@@ -82,6 +82,28 @@ K14 ``backtrace_sdf``
     returns the float64 sum; callers cast); K3's paths by the float64 size
     rule (:func:`backtrace_path`), counted in :data:`BACKTRACE_SDF_PATHS`.
 
+The variants' exact gradients (``tracer/checkpointed.py``'s
+``trace_plane_exact``, ``trace_target_exact``, ``trace_sdf_exact``): K11-K13
+compiled with K5's checkpoints, and K6's replaying ray under the plane's and
+the sdf's rule (``csrc/rules.cuh``); the target's backward pass is K6.
+
+K15 ``trace_plane_ckpt``
+    replaces ``tracer/checkpointed.py::_forward_with_ckpts`` (plane): K11's
+    one pass, writing K5's checkpoints, capture step and code.
+K16 ``trace_target_ckpt``
+    the same (target): K12's two passes, pass 2 writing the checkpoints of
+    the steps an escaped ray takes on to the batch's horizon.
+K17 ``trace_sdf_ckpt``
+    the same (sdf): K13's two passes, pass 2 stepping each ray that is still
+    inside the sdf on to its own horizon (given, or the caller's function of
+    pass 1's escape steps, computed between the passes), writing checkpoints.
+K18 ``backtrace_plane_exact``
+    replaces ``tracer/checkpointed.py::_backward_segments`` (plane): K6 whose
+    replay applies the plane's rule.
+K19 ``backtrace_sdf_exact``
+    the same (sdf): K6 whose replay reads the sdf, summing in float64
+    whatever the grid's type, as K14 does (``out`` is float64; callers cast).
+
 The cable kernels trace a radial profile (``fields/cylinder.py``) toward a
 target point per ray; their field code is ``csrc/cylinder.cuh``, one stepper
 for K7, K9 and K10's replay.  They take no ray order, and the adjoints sum the
@@ -127,7 +149,7 @@ K10 ``backtrace_cable_exact`` (csrc/backtrace_cable_exact.cu)
 from __future__ import annotations
 
 import ctypes
-from typing import List, Optional, Tuple
+from typing import Callable, List, Optional, Tuple, Union
 
 import torch
 
@@ -174,6 +196,11 @@ _ARGTYPES = {
                   _VP, _I, _I, _I, _VP],
     "backtrace_sdf": [_I, _VP, _I, _I, _I, _D, _D, _D, _VP, _VP, _VP, _VP, _VP, _VP, _VP, _VP,
                       _I, _I, _I, _VP],
+    "trace_plane_ckpt": [_I, _VP, _I, _I, _I, _D, _D] + [_VP] * 11 + [_I, _I, _I, _VP],
+    "trace_target_ckpt": [_I, _VP, _I, _I, _I, _D, _D] + [_VP] * 15 + [_I, _I, _I, _I, _VP],
+    "trace_sdf_ckpt": [_I, _VP, _I, _I, _I, _D, _D] + [_VP] * 15 + [_I, _I, _I, _I, _VP],
+    "backtrace_plane_exact": [_I, _VP, _I, _I, _I, _D, _D] + [_VP] * 10 + [_I, _I, _I, _VP],
+    "backtrace_sdf_exact": [_I, _VP, _I, _I, _I, _D, _D] + [_VP] * 9 + [_I, _I, _I, _VP],
 }
 #: the states a checkpoint holds: x, v, inside (the cable kernels: x, v, esc)
 CKPT_WIDTH = 7
@@ -508,44 +535,233 @@ def trace_ckpt(data: torch.Tensor, h: float, x0: torch.Tensor, v0: torch.Tensor,
     return tuple(out)
 
 
+def _check_exact_inputs(name: str, data: torch.Tensor, ckpts: torch.Tensor, c: torch.Tensor,
+                        code: torch.Tensor, n: int, n_rays: int) -> None:
+    """The checkpoints of ``n`` slots, and ``c``, ``code`` of all ``n_rays`` rays,
+    as the exact forward passes write them."""
+    if (ckpts.device != data.device or ckpts.dtype != data.dtype or ckpts.ndim != 3
+            or ckpts.shape[1:] != (CKPT_WIDTH, n) or not ckpts.is_contiguous()):
+        raise ValueError(f"{name}: ckpts must be a contiguous (nseg, {CKPT_WIDTH}, "
+                         f"{n}) {data.dtype} tensor on {data.device}, got "
+                         f"{ckpts.dtype} {tuple(ckpts.shape)} on {ckpts.device}")
+    for label, t, dtype in (("c", c, torch.int32), ("code", code, torch.uint8)):
+        if t.device != data.device or t.dtype != dtype or t.shape != (n_rays,) \
+                or not t.is_contiguous():
+            raise ValueError(f"{name}: {label} must be a contiguous {dtype} "
+                             f"({n_rays},) tensor on {data.device}, got {t.dtype} "
+                             f"{tuple(t.shape)} on {t.device}")
+
+
+def _exact_out(data: torch.Tensor, out: Optional[torch.Tensor], name: str,
+               dtype: Optional[torch.dtype] = None) -> torch.Tensor:
+    """The flat ``(D*H*W,)`` sum an exact backward pass adds into (zeros when
+    not given), of ``dtype`` (the grid's type unless given)."""
+    dtype = dtype or data.dtype
+    if out is None:
+        return torch.zeros((data.numel(),), dtype=dtype, device=data.device)
+    if (out.device != data.device or out.dtype != dtype
+            or out.shape != (data.numel(),) or not out.is_contiguous()):
+        raise ValueError(f"{name}: out must be a contiguous ({data.numel()},) "
+                         f"{dtype} tensor on {data.device}")
+    return out
+
+
 def backtrace_exact(data: torch.Tensor, h: float, ckpts: torch.Tensor, c: torch.Tensor,
                     code: torch.Tensor, dx: torch.Tensor, dv: torch.Tensor, ds: float,
                     seg: int, order: torch.Tensor, out: Optional[torch.Tensor] = None,
                     tally: Optional[torch.Tensor] = None) -> torch.Tensor:
     """K6: the exact path's flat ``(D*H*W,)`` voxel gradient, added into ``out``.
 
-    ``ckpts``, ``c``, ``code`` as :func:`trace_ckpt` returned them for the
-    same ``order``; ``dx, dv`` the cotangents of all ``N`` rays in their own
-    order (``dv`` already zeroed for rays that never escaped).  ``out`` (made
+    ``ckpts``, ``c``, ``code`` as :func:`trace_ckpt` (or
+    :func:`trace_target_ckpt`) returned them for the same ``order``; ``dx,
+    dv`` the cotangents of all ``N`` rays in their own order (``dv`` already
+    zeroed for rays that never escaped, in the volume trace).  ``out`` (made
     zero when not given) takes the sum; ``tally`` as for :func:`backtrace`
     (K6 takes the global path at every grid size: no block-private adds).
     """
     _check_grid(data, "backtrace_exact")
     n_rays = _check_rays(data, "backtrace_exact", dx=dx, dv=dv)
     n = _check_slots(order, data, n_rays, "backtrace_exact")
-    if (ckpts.device != data.device or ckpts.dtype != data.dtype or ckpts.ndim != 3
-            or ckpts.shape[1:] != (CKPT_WIDTH, n) or not ckpts.is_contiguous()):
-        raise ValueError(f"backtrace_exact: ckpts must be a contiguous (nseg, {CKPT_WIDTH}, "
-                         f"{n}) {data.dtype} tensor on {data.device}, got "
-                         f"{ckpts.dtype} {tuple(ckpts.shape)} on {ckpts.device}")
-    for label, t, dtype in (("c", c, torch.int32), ("code", code, torch.uint8)):
-        if t.device != data.device or t.dtype != dtype or t.shape != (n_rays,) \
-                or not t.is_contiguous():
-            raise ValueError(f"backtrace_exact: {label} must be a contiguous {dtype} "
-                             f"({n_rays},) tensor on {data.device}, got {t.dtype} "
-                             f"{tuple(t.shape)} on {t.device}")
-    if out is None:
-        out = torch.zeros((data.numel(),), dtype=data.dtype, device=data.device)
-    elif (out.device != data.device or out.dtype != data.dtype
-          or out.shape != (data.numel(),) or not out.is_contiguous()):
-        raise ValueError(f"backtrace_exact: out must be a contiguous ({data.numel()},) "
-                         f"{data.dtype} tensor on {data.device}")
+    _check_exact_inputs("backtrace_exact", data, ckpts, c, code, n, n_rays)
+    out = _exact_out(data, out, "backtrace_exact")
     _check_tally(tally, data, "backtrace_exact")
     if n:
         _launch_on_grid("backtrace_exact", data, float(h), float(ds), ckpts.data_ptr(),
                         order.data_ptr(), c.data_ptr(), code.data_ptr(), dx.data_ptr(),
                         dv.data_ptr(), out.data_ptr(), _ptr(tally), n, ckpts.shape[0],
                         int(seg))
+    return out
+
+
+def _ckpt_outputs(data: torch.Tensor, x0: torch.Tensor, n: int, max_steps: int, seg: int,
+                  store_ckpts: bool, name: str):
+    """``xt, vt, c, code`` of all the rays and the ``(nseg, 7, n)`` checkpoints
+    (``None`` unless ``store_ckpts``) of an exact variant's forward pass."""
+    if int(seg) < 1 or int(max_steps) < 0:
+        raise ValueError(f"{name}: seg {seg} and max_steps {max_steps} must be positive")
+    nseg = -(-int(max_steps) // int(seg))
+    n_rays = x0.shape[0]
+    return (torch.empty_like(x0), torch.empty_like(x0),
+            torch.empty((n_rays,), dtype=torch.int32, device=data.device),
+            torch.empty((n_rays,), dtype=torch.uint8, device=data.device),
+            torch.empty((nseg, CKPT_WIDTH, n), dtype=data.dtype, device=data.device)
+            if store_ckpts else None)
+
+
+def trace_plane_ckpt(data: torch.Tensor, h: float, x0: torch.Tensor, v0: torch.Tensor,
+                     pln_o: torch.Tensor, pln_d: torch.Tensor, ds: float, max_steps: int,
+                     seg: int, order: torch.Tensor, store_ckpts: bool = True):
+    """K15: the plane variant's exact forward pass over the rays ``order``.
+
+    Returns ``(xt, vt, miss, c, code, ckpts)``: K11's ``(xt, vt, miss)``,
+    ``c`` and ``code`` as :func:`trace_ckpt`'s (``c`` is ``max_steps`` for a
+    ray never captured), all at the rays' own indices (written for the rays
+    of ``order`` only, which may be a chunk); ``ckpts`` as
+    :func:`trace_ckpt`'s, ``None`` unless ``store_ckpts``."""
+    _check_grid(data, "trace_plane_ckpt")
+    n_rays = _check_rays(data, "trace_plane_ckpt", x0=x0, v0=v0, pln_o=pln_o, pln_d=pln_d)
+    n = _check_slots(order, data, n_rays, "trace_plane_ckpt")
+    xt, vt, c, code, ckpts = _ckpt_outputs(data, x0, n, max_steps, seg, store_ckpts,
+                                           "trace_plane_ckpt")
+    miss = torch.empty((n_rays,), dtype=torch.bool, device=data.device)
+    if n:
+        _launch_on_grid("trace_plane_ckpt", data, float(h), float(ds), x0.data_ptr(),
+                        v0.data_ptr(), pln_o.data_ptr(), pln_d.data_ptr(), order.data_ptr(),
+                        xt.data_ptr(), vt.data_ptr(), miss.data_ptr(), c.data_ptr(),
+                        code.data_ptr(), _ptr(ckpts), n, int(max_steps), int(seg))
+    return xt, vt, miss, c, code, ckpts
+
+
+def trace_target_ckpt(data: torch.Tensor, h: float, x0: torch.Tensor, v0: torch.Tensor,
+                      target: torch.Tensor, ds: float, max_steps: int, seg: int,
+                      order: torch.Tensor, store_ckpts: bool = True,
+                      horizon: Optional[torch.Tensor] = None):
+    """K16: the target variant's exact forward pass over the rays ``order``, in
+    K12's two launches.
+
+    Returns ``(xt, vt, d2, c, code, ckpts, horizon)``: K12's ``(xt, vt, d2)``,
+    ``c`` (0 for a ray never captured) and ``code``, as :func:`trace_plane_ckpt`;
+    the checkpoints run on past a ray's escape to the horizon; ``horizon`` is
+    the int32 ``(1,)`` step at which the last ray escaped.  For a chunk of the
+    rays, pass the whole batch's ``horizon`` (from the call on all of them):
+    its rays then step on to it, as they do in the whole batch."""
+    _check_grid(data, "trace_target_ckpt")
+    n_rays = _check_rays(data, "trace_target_ckpt", x0=x0, v0=v0, target=target)
+    n = _check_slots(order, data, n_rays, "trace_target_ckpt")
+    xt, vt, c, code, ckpts = _ckpt_outputs(data, x0, n, max_steps, seg, store_ckpts,
+                                           "trace_target_ckpt")
+    d2 = torch.empty((n_rays,), dtype=data.dtype, device=data.device)
+    hz = _horizon(data, n)
+    if horizon is not None:
+        if horizon.device != data.device or horizon.dtype != torch.int32 \
+                or horizon.shape != (1,):
+            raise ValueError(f"trace_target_ckpt: horizon must be an int32 (1,) tensor on "
+                             f"{data.device}, got {horizon.dtype} {tuple(horizon.shape)} on "
+                             f"{horizon.device}")
+        hz[4] = horizon.clone()
+    if n:
+        for pass_ in (1, 2):
+            _launch_on_grid("trace_target_ckpt", data, float(h), float(ds), x0.data_ptr(),
+                            v0.data_ptr(), target.data_ptr(), order.data_ptr(), xt.data_ptr(),
+                            vt.data_ptr(), d2.data_ptr(), c.data_ptr(), code.data_ptr(),
+                            _ptr(ckpts), *map(_ptr, hz), n, int(max_steps), int(seg), pass_)
+    return xt, vt, d2, c, code, ckpts, hz[4]
+
+
+def _check_horizons(horizons: torch.Tensor, data: torch.Tensor, n_rays: int) -> torch.Tensor:
+    if (not isinstance(horizons, torch.Tensor) or horizons.device != data.device
+            or horizons.dtype != torch.int32 or horizons.shape != (n_rays,)
+            or not horizons.is_contiguous()):
+        raise ValueError(f"trace_sdf_ckpt: horizons must be a contiguous int32 ({n_rays},) "
+                         f"tensor on {data.device}")
+    return horizons
+
+
+def trace_sdf_ckpt(data: torch.Tensor, sdf: torch.Tensor, h: float, x0: torch.Tensor,
+                   v0: torch.Tensor, ds: float, max_steps: int, seg: int, order: torch.Tensor,
+                   horizons: Union[torch.Tensor, Callable[[torch.Tensor], torch.Tensor]],
+                   store_ckpts: bool = True):
+    """K17: the sdf variant's exact forward pass over the rays ``order``, in
+    K13's two launches.
+
+    Returns ``(xt, vt, c, code, ckpts, horizons)`` as :func:`trace_plane_ckpt`
+    (``c`` 0 for a ray never captured); ``horizons`` (int32 ``(N,)``) the step
+    each ray runs to while it is inside the sdf.  Given as a tensor, or as a
+    function that makes it from every ray's escape step (int32 ``(N,)``, the
+    step at which the ray first escaped, ``max_steps`` if never; pass 1 finds
+    them, and the function runs between the two launches), which needs
+    ``order`` to hold every ray."""
+    _check_grid(data, "trace_sdf_ckpt")
+    _check_sdf(sdf, data, "trace_sdf_ckpt")
+    n_rays = _check_rays(data, "trace_sdf_ckpt", x0=x0, v0=v0)
+    n = _check_slots(order, data, n_rays, "trace_sdf_ckpt")
+    xt, vt, c, code, ckpts = _ckpt_outputs(data, x0, n, max_steps, seg, store_ckpts,
+                                           "trace_sdf_ckpt")
+    make = None if isinstance(horizons, torch.Tensor) else horizons
+    if make is None:
+        _check_horizons(horizons, data, n_rays)
+    elif n != n_rays:
+        raise ValueError("trace_sdf_ckpt: a chunk of the rays needs the horizons of the whole "
+                         "batch, not a function of its escape steps")
+    hz = _horizon(data, n)
+    for pass_ in (1, 2):  # pass 1 reads no horizon
+        if pass_ == 2 and make is not None:
+            esc_steps = torch.empty((n_rays,), dtype=torch.int32, device=data.device)
+            esc_steps[order.long()] = hz[2]
+            horizons = _check_horizons(make(esc_steps), data, n_rays)
+        if n:
+            _launch_on_grid("trace_sdf_ckpt", data, float(h), float(ds), sdf.data_ptr(),
+                            x0.data_ptr(), v0.data_ptr(), order.data_ptr(), xt.data_ptr(),
+                            vt.data_ptr(), c.data_ptr(), code.data_ptr(), _ptr(ckpts),
+                            *map(_ptr, hz), _ptr(horizons) if pass_ == 2 else None, n,
+                            int(max_steps), int(seg), pass_)
+    return xt, vt, c, code, ckpts, horizons
+
+
+def backtrace_plane_exact(data: torch.Tensor, h: float, ckpts: torch.Tensor, c: torch.Tensor,
+                          code: torch.Tensor, pln_o: torch.Tensor, pln_d: torch.Tensor,
+                          dx: torch.Tensor, dv: torch.Tensor, ds: float, seg: int,
+                          order: torch.Tensor, out: Optional[torch.Tensor] = None,
+                          tally: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """K18: the plane variant's exact flat voxel gradient, added into ``out``
+    (the grid's type); ``ckpts``, ``c``, ``code`` as :func:`trace_plane_ckpt`
+    returned them for the same ``order``, ``pln_o, pln_d, dx, dv`` ``(N, 3)``
+    at the rays' own indices (``dx`` and ``dv`` already zeroed for the rays
+    that missed); ``tally`` as for :func:`backtrace_exact`."""
+    _check_grid(data, "backtrace_plane_exact")
+    n_rays = _check_rays(data, "backtrace_plane_exact", pln_o=pln_o, pln_d=pln_d, dx=dx, dv=dv)
+    n = _check_slots(order, data, n_rays, "backtrace_plane_exact")
+    _check_exact_inputs("backtrace_plane_exact", data, ckpts, c, code, n, n_rays)
+    out = _exact_out(data, out, "backtrace_plane_exact")
+    _check_tally(tally, data, "backtrace_plane_exact")
+    if n:
+        _launch_on_grid("backtrace_plane_exact", data, float(h), float(ds), ckpts.data_ptr(),
+                        order.data_ptr(), c.data_ptr(), code.data_ptr(), pln_o.data_ptr(),
+                        pln_d.data_ptr(), dx.data_ptr(), dv.data_ptr(), out.data_ptr(),
+                        _ptr(tally), n, ckpts.shape[0], int(seg))
+    return out
+
+
+def backtrace_sdf_exact(data: torch.Tensor, sdf: torch.Tensor, h: float, ckpts: torch.Tensor,
+                        c: torch.Tensor, code: torch.Tensor, dx: torch.Tensor, dv: torch.Tensor,
+                        ds: float, seg: int, order: torch.Tensor,
+                        out: Optional[torch.Tensor] = None,
+                        tally: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """K19: the sdf variant's exact flat voxel gradient, added into ``out``
+    (float64 whatever the grid's type), from :func:`trace_sdf_ckpt`'s
+    checkpoints for the same ``order``; otherwise as :func:`backtrace_exact`."""
+    _check_grid(data, "backtrace_sdf_exact")
+    _check_sdf(sdf, data, "backtrace_sdf_exact")
+    n_rays = _check_rays(data, "backtrace_sdf_exact", dx=dx, dv=dv)
+    n = _check_slots(order, data, n_rays, "backtrace_sdf_exact")
+    _check_exact_inputs("backtrace_sdf_exact", data, ckpts, c, code, n, n_rays)
+    out = _exact_out(data, out, "backtrace_sdf_exact", torch.float64)
+    _check_tally(tally, data, "backtrace_sdf_exact")
+    if n:
+        _launch_on_grid("backtrace_sdf_exact", data, float(h), float(ds), sdf.data_ptr(),
+                        ckpts.data_ptr(), order.data_ptr(), c.data_ptr(), code.data_ptr(),
+                        dx.data_ptr(), dv.data_ptr(), out.data_ptr(), _ptr(tally), n,
+                        ckpts.shape[0], int(seg))
     return out
 
 

@@ -1,7 +1,7 @@
 """Eikonal ODE integrators in plain torch: forward stepper and adjoint sweep.
 
 Twin of ``adjointnonlinearraytracing_tpu/tracer/eikonal.py`` (``trace``,
-``backtrace``, ``max_steps_fwd``, ``max_steps_bwd``).  Rays follow
+``trace_scan``, ``backtrace``, ``max_steps_fwd``, ``max_steps_bwd``).  Rays follow
 ``dx/ds = v, dv/ds = n * grad(n)``, integrated with fixed-step symplectic
 Euler — ``v += ds * n * grad_n;  x += ds * v`` — with per-ray masks and
 exit-state capture at the inside->outside crossing.  The backward pass is the
@@ -113,6 +113,27 @@ def trace(field: G.GridField, x0, v0, ds: float, max_steps: int,
         stats["ray_steps"] = ray_steps
         stats["evals"] = evals
     return xt, vt
+
+
+def trace_scan(field: G.GridField, x0, v0, ds: float, max_steps: int):
+    """Fixed-trip twin of :func:`trace` (always ``max_steps`` steps, as the JAX
+    ``lax.scan`` version), differentiable with plain autograd: the tape the
+    reference's ``ADTracerC`` keeps, used to cross-validate the adjoint.
+    The same ``(xt, vt)`` as :func:`trace`: an escaped ray is outside and
+    moving away, so its later steps change nothing it reports."""
+    x, v, xt, vt = x0, v0, x0, v0
+    inside = G.inbounds(field, x0)
+    esc = torch.zeros_like(inside)
+    ds_t = G._scalar(ds, x0)
+    for _ in range(max_steps):
+        x, v = forward_step(field, x, v, inside, ds_t)
+        cur_inside = G.inbounds(field, x)
+        cross = inside & ~cur_inside
+        esc = esc | cross | G.escaped(field, x, v)
+        xt = _where3(cross, x, xt)
+        vt = _where3(cross, v, vt)
+        inside = cur_inside
+    return _where3(esc, xt, x), vt
 
 
 def _plane_inside(field, x, pln_o, pln_d):

@@ -81,6 +81,23 @@ result.  Phases (any failure is an uncaught exception):
       span, 2^18 rays spawned on it by ``sdf_utils.get_pts_sdf``: K13's two
       launches, then K14), forward and backward, four calls each; launches
       asserted exactly, K3's and K14's paths too; ms a call and a launch.
+   x. the variants' exact gradients as a user calls them:
+      ``tracer.trace_plane_exact`` (K15, then K18), ``trace_target_exact``
+      (K16's two launches, then K6) and ``trace_sdf_exact`` (K17's two
+      launches, then K19), forward and backward, four calls each on
+      configuration v's scene (2^18 rays: one chunk, the checkpoints kept),
+      then once each on 2^20 rays (four chunks of ``ANRT_EXACT_CHUNK``: the
+      backward pass recomputes each chunk's checkpoints, the target with the
+      batch's horizon, the sdf with its chunks' horizons); launches asserted
+      exactly; ms a call and a launch.  Before it, ``exact_variant_check``
+      holds K15-K17 bitwise (outputs, capture steps, codes, horizon, the
+      checkpoint rows the backward pass reads) and K18, K6, K19 within 1e-9
+      in f64 and 1e-5 of the f64 sum of the same terms in f32, their runs
+      equal to the plain ``flushes``, against ``tracer/checkpointed.py``'s
+      plain versions, whole and in chunks (the last padded), at 17^3 x 512
+      f64 and on the bench scene f32, on the ragged target batch and on the
+      sdf's late crossing; ``exact_variants_api_check`` the three functions
+      card against CPU in f64, chunked.
    p. the 2008 path-matrix baseline: ``pathmatrix.fuel2008.
       fuel_reconstruction`` in the repo's configuration
       ``combo_recon16_hermite`` (32 views of 64^2 x 4 = 524,288 rays through
@@ -466,6 +483,7 @@ def exact_check(rif, h, ds, x0, v0, cot, label, tol, times=False):
         capture_steps=bool(torch.equal(c_k, c_p) and torch.equal(code_k, code_p)),
         checkpoints=bool(torch.equal(ck_k.transpose(1, 2)[need],
                                      ck_p[:, :, order.long()].transpose(1, 2)[need])))
+    fwd_abs = max(float((a - b).abs().max()) for a, b in ((xt_k, xt_p), (vt_k, vt_p)))
     dx, dv = cot(xt_p, vt_p)
     dv_k = torch.where(esc_p[:, None], dv, torch.zeros_like(dv))
     bw["captured"] = cap_p
@@ -479,6 +497,8 @@ def exact_check(rif, h, ds, x0, v0, cot, label, tol, times=False):
     path = "global"  # K6's one path
     row = dict(label=label, path=path, rel_err=err, abs_err=abs_err, tol=tol,
                max_abs_g=float(g_ref.abs().max()), bitwise=state, runs=int(tally[0]),
+               fwd_abs_err=fwd_abs, fwd_rel_err=fwd_abs / max(1.0, float(xt_p.abs().max()),
+                                                              float(vt_p.abs().max())),
                issued=int(tally[1]), block_adds=int(tally[2]), fwd=fw,
                bwd={k: bw[k] for k in ("ray_steps", "evals", "splats", "flushes")},
                ckpt_rows=int(need.sum()), ckpt_mb=ck_k.numel() * ck_k.element_size() / 1e6,
@@ -543,6 +563,23 @@ def exact_plain_ms(rif, h, ds, x0, v0, cot):
     return 1e3 * (t1 - t0), 1e3 * (time.time() - t1)
 
 
+class exact_chunk:
+    """``ANRT_EXACT_CHUNK`` set to ``chunk`` inside a ``with`` block."""
+
+    def __init__(self, chunk):
+        self.chunk, self.saved = chunk, None
+
+    def __enter__(self):
+        self.saved = os.environ.get("ANRT_EXACT_CHUNK")
+        os.environ["ANRT_EXACT_CHUNK"] = str(self.chunk)
+
+    def __exit__(self, *exc):
+        if self.saved is None:
+            os.environ.pop("ANRT_EXACT_CHUNK", None)
+        else:
+            os.environ["ANRT_EXACT_CHUNK"] = self.saved
+
+
 def exact_api_check():
     """``tracer.trace_exact`` on the card (K5, K6) against the taped plain stepper
     (``api.trace_ad``, the exact discrete gradient by definition) in f64, with
@@ -559,17 +596,10 @@ def exact_api_check():
         (((xt - target) ** 2).sum() + vt.sum()).backward()
         return xt.detach(), r.grad
 
-    saved = os.environ.get("ANRT_EXACT_CHUNK")
     K.reset_launches()
-    try:
-        xt_e, g_e = grad(CK.trace_exact)
-        os.environ["ANRT_EXACT_CHUNK"] = "100"  # 6 chunks, the last one short
+    xt_e, g_e = grad(CK.trace_exact)
+    with exact_chunk(100):  # 6 chunks, the last one short
         xt_c, g_c = grad(CK.trace_exact)
-    finally:
-        if saved is None:
-            os.environ.pop("ANRT_EXACT_CHUNK", None)
-        else:
-            os.environ["ANRT_EXACT_CHUNK"] = saved
     launches = dict(K.LAUNCHES)
     xt_a, g_a = grad(api.trace_ad)
     xt_d, g_d = grad(api.trace)
@@ -1581,6 +1611,11 @@ def cable_check(s, label, times=False):
                                             ck_p.transpose(1, 2)[need])),
         exact_forward_is_adjoints=bool(torch.equal(xt_e, xt_p) and torch.equal(d2_e, d2_p)))
     errs = {}
+    for name, got, want in (("trace_cable", (xt_k, vt_k, d2_k), (xt_p, vt_p, d2_p)),
+                            ("trace_cable_ckpt", (xt_9, vt_9, d2_9), (xt_p, vt_p, d2_p))):
+        scale = max(float(b.abs().max()) for b in want)
+        err = max(float((a - b).abs().max()) for a, b in zip(got, want))
+        errs[name] = dict(abs_err=err, rel_err=err / max(scale, 1e-300), max_abs_g=scale)
     for name, got, want in (("backtrace_cable", g_k, g_p), ("backtrace_cable_exact", g_10, g_ep)):
         scale = float(want.abs().max())
         err = float((got - want.to(got.dtype)).abs().max())
@@ -1698,18 +1733,11 @@ def cable_api_check():
         ((xt ** 2 + xt * vt).sum() + d2.sum()).backward()
         return xt.detach().cpu(), p.grad.cpu()
 
-    saved = os.environ.get("ANRT_EXACT_CHUNK")
     K.reset_launches()
-    try:
-        xt_a, g_a = grad(api.trace_cable)
-        xt_e, g_e = grad(CK.trace_cable_exact)
-        os.environ["ANRT_EXACT_CHUNK"] = "100"  # 6 chunks, the last one short
+    xt_a, g_a = grad(api.trace_cable)
+    xt_e, g_e = grad(CK.trace_cable_exact)
+    with exact_chunk(100):  # 6 chunks, the last one short
         xt_c, g_c = grad(CK.trace_cable_exact)
-    finally:
-        if saved is None:
-            os.environ.pop("ANRT_EXACT_CHUNK", None)
-        else:
-            os.environ["ANRT_EXACT_CHUNK"] = saved
     launches = {k: K.LAUNCHES[k] for k in CABLE_KERNELS}
     xt_cpu, g_cpu = grad(api.trace_cable, "cpu")
     e_ex, e_chunk, e_cpu = rel_err(g_a, g_e)[0], rel_err(g_c, g_e)[0], rel_err(g_a, g_cpu)[0]
@@ -2199,11 +2227,15 @@ def variant_check(s, label, tol, times=False):
                          order),
         "trace_sdf": (sdf_out, lambda o_: K.trace_sdf(rif, sdf, h, xs, vs, ds, ns, o_), order_s),
     }
-    bitwise = {}
+    bitwise, fwd_err = {}, {}
     for name, (want, call, o_ord) in calls.items():
+        scale = max(1.0, max(float(b.double().abs().max()) for b in want))
         for lab, o_ in (("ordered", o_ord), ("unordered", None)):
             got = call(o_)
             bitwise[f"{name} {lab}"] = all(torch.equal(a, b) for a, b in zip(got, want))
+            err = max(float((a.double() - b.double()).abs().max()) for a, b in zip(got, want))
+            prev = fwd_err.get(name, (0.0, 0.0))
+            fwd_err[name] = (max(prev[0], err), max(prev[1], err / scale))
     centre = torch.full((3,), s["span"] / 2, dtype=rif.dtype, device="cuda")
     dx, dv = 2.0 * (sdf_out[0] - centre), torch.ones_like(sdf_out[1])
     f32 = rif.dtype == torch.float32
@@ -2221,6 +2253,7 @@ def variant_check(s, label, tol, times=False):
     n, ns_rays = x0.shape[0], xs.shape[0]
     row = dict(label=label, bitwise=bitwise, backtrace_sdf_rel_err=max(e1, e2),
                backtrace_sdf_abs_err=max(a1, a2), plain_f32_rel_err=plain_f32, tol=tol,
+               fwd_err=fwd_err,
                runs=int(tally[0]),
                issued=int(tally[1]), path=K.backtrace_path(rif.numel(), torch.float64),
                plane_missed=int(plane[2].sum()), target_horizon=st["trace_target"]["horizon"],
@@ -2317,13 +2350,13 @@ def variant_ragged_check(s, label):
     return row, failures
 
 
-def sdf_late_check(dtype):
-    """K13 where rays leave the grid while still inside the sdf (a half-space
-    sdf, x < span / 2, reaching the y = 0 face) and cross it afterwards, the
-    field read at clamped corners, while a slow ray holds the batch's loop
-    open: bitwise against the plain version, and K14 from that state."""
+def late_sdf_scene(dtype):
+    """The sdf's late-crossing batch at 17^3: a half-space sdf (x < span / 2)
+    reaching the y = 0 face, 64 rays that leave the grid through it while
+    still inside and drift across x = span / 2 afterwards, the last one slow
+    (it holds the batch's loop open)."""
     s = scene(17, 64, dtype)
-    rif, h, ds, span = s["rif"], s["h"], s["ds"], s["span"]
+    rif, h, span = s["rif"], s["h"], s["span"]
     idx = torch.arange(17, dtype=torch.float64, device="cuda") * h
     sdf = ((idx - span / 2) / h).to(rif.dtype).expand(17, 17, 17).contiguous()
     gen = torch.Generator(device="cuda").manual_seed(4)
@@ -2335,8 +2368,19 @@ def sdf_late_check(dtype):
     v0 = v0 / torch.linalg.norm(v0, dim=-1, keepdim=True)
     x0[-1] = torch.tensor([0.3, 0.5, 0.5], dtype=torch.float64, device="cuda") * span
     v0[-1] = torch.tensor([0.0, 0.1, 0.0], dtype=torch.float64, device="cuda")
-    x0, v0 = x0.to(rif.dtype).contiguous(), v0.to(rif.dtype).contiguous()
-    ns = api.sdf_steps(rif.shape, h, ds)
+    s.update(sdf=sdf, sdf_field=G.GridField(sdf, h), x0=x0.to(rif.dtype).contiguous(),
+             v0=v0.to(rif.dtype).contiguous(), ns=api.sdf_steps(rif.shape, h, s["ds"]))
+    return s
+
+
+def sdf_late_check(dtype):
+    """K13 where rays leave the grid while still inside the sdf (a half-space
+    sdf, x < span / 2, reaching the y = 0 face) and cross it afterwards, the
+    field read at clamped corners, while a slow ray holds the batch's loop
+    open: bitwise against the plain version, and K14 from that state."""
+    s = late_sdf_scene(dtype)
+    rif, h, ds, span = s["rif"], s["h"], s["ds"], s["span"]
+    sdf, x0, v0, ns, n = s["sdf"], s["x0"], s["v0"], s["ns"], s["x0"].shape[0]
     st = {}
     sdf_f = G.GridField(sdf, h)
     want = E.trace_sdf(s["field"], sdf_f, x0, v0, ds, ns, stats=st)
@@ -2447,6 +2491,367 @@ def variants_path(s):
           f"{VARIANT_PASSES} calls each): ms a call forward + backward "
           + ", ".join(f"{k} {rec[k]['ms_per_call']:.3f}" for k in ("plane", "target", "sdf"))
           + "; ms a launch " + ", ".join(f"{k} {v:.4f}" for k, v in per_launch.items())
+          + f"; launches {launches}", flush=True)
+    return rec
+
+
+# ---------------------------------------------------------------------------
+# the variants' exact gradients (K15-K19, and K6 for the target), phase x
+# ---------------------------------------------------------------------------
+
+EXACT_VARIANT_KERNELS = ("trace_plane_ckpt", "trace_target_ckpt", "trace_sdf_ckpt",
+                         "backtrace_plane_exact", "backtrace_sdf_exact")
+#: each variant's forward kernel and backward kernel (the target's is K6)
+EXACT_VARIANTS = {"plane": ("trace_plane_ckpt", "backtrace_plane_exact"),
+                  "target": ("trace_target_ckpt", "backtrace_exact"),
+                  "sdf": ("trace_sdf_ckpt", "backtrace_sdf_exact")}
+#: the chunked full-width call of phase x: 4 chunks of ANRT_EXACT_CHUNK's default
+EXACT_CHUNKED_RAYS = 1 << 20
+#: the chunk of the checks' chunked runs: the last chunk is padded (2^18 = 2 x
+#: 100,000 + 62,144; 512 = 5 x 100 + 12)
+EXACT_CHECK_CHUNK = {"float64": 100, "float32": 100_000}
+
+
+def exact_case(s, variant, x=None, v=None, tgt=None):
+    """One exact variant's batch on the variant scene ``s``: the rays (the
+    scene's, or ``x, v``), the per-ray inputs, the plain version's ``vargs``
+    and the loss's cotangents' anchor (the target, or the scene's centre)."""
+    case = dict(variant=variant, rif=s["rif"], h=s["h"], ds=s["ds"])
+    if variant == "sdf":
+        case.update(x=s["xs"] if x is None else x, v=s["vs"] if v is None else v,
+                    sdf=s["sdf"], vargs=dict(sdf=s["sdf_field"]))
+        case["anchor"] = torch.full((3,), s["span"] / 2, dtype=s["rif"].dtype, device="cuda")
+        return case
+    x, v = (s["x0"], s["v0"]) if x is None else (x, v)
+    tgt = s["tgt"][:1].expand(x.shape[0], 3).contiguous() if tgt is None else tgt
+    case.update(x=x, v=v, tgt=tgt, anchor=tgt[0])
+    if variant == "plane":
+        o = s["pln_o"][:1].expand(x.shape[0], 3).contiguous()
+        d = s["pln_d"][:1].expand(x.shape[0], 3).contiguous()
+        case.update(o=o, d=d, vargs=dict(pln_o=o, pln_d=d))
+    else:
+        case["vargs"] = dict(target=tgt)
+    return case
+
+
+def exact_forward_kernel(case, order, store, chunk=0, stop=None):
+    """K15, K16 (two launches) or K17 (two) over the rays ``order``: returns
+    (the outputs the API returns, c, code, ckpts, the horizon)."""
+    rif, h, ds, x, v = case["rif"], case["h"], case["ds"], case["x"], case["v"]
+    steps = CK.variant_steps(case["variant"], rif.shape, h, ds)
+    if case["variant"] == "plane":
+        xt, vt, miss, c, code, ck = K.trace_plane_ckpt(rif, h, x, v, case["o"], case["d"], ds,
+                                                       steps, SEG, order, store)
+        return (xt, vt, miss), c, code, ck, None
+    if case["variant"] == "target":
+        xt, vt, d2, c, code, ck, hz = K.trace_target_ckpt(rif, h, x, v, case["tgt"], ds, steps,
+                                                          SEG, order, store, horizon=stop)
+        return (xt, vt, d2), c, code, ck, hz
+    horizons = stop if stop is not None else (
+        lambda e: CK._index_chunk_horizons(e, chunk, SEG, steps))
+    xt, vt, c, code, ck, hz = K.trace_sdf_ckpt(rif, case["sdf"], h, x, v, ds, steps, SEG, order,
+                                               horizons, store)
+    return (xt, vt), c, code, ck, hz
+
+
+def exact_backward_kernel(case, ck, c, code, dx, dv, order, out, tally=None):
+    """K18, K6 or K19 over the rays ``order``, added into ``out`` (K19's in f64)."""
+    rif, h, ds = case["rif"], case["h"], case["ds"]
+    if case["variant"] == "plane":
+        return K.backtrace_plane_exact(rif, h, ck, c, code, case["o"], case["d"], dx, dv, ds, SEG,
+                                       order, out=out, tally=tally)
+    if case["variant"] == "target":
+        return K.backtrace_exact(rif, h, ck, c, code, dx, dv, ds, SEG, order, out=out,
+                                 tally=tally)
+    return K.backtrace_sdf_exact(rif, case["sdf"], h, ck, c, code, dx, dv, ds, SEG, order,
+                                 out=out, tally=tally)
+
+
+def exact_variant_bounds(case, fw, bw, rows):
+    """The bounds of the variant's forward and backward kernels from the work
+    the plain versions counted on this run's rays: each input read once, each
+    output and each checkpoint row the backward pass reads written once."""
+    rif, variant = case["rif"], case["variant"]
+    n, item, grid = case["x"].shape[0], rif.element_size(), rif.numel() * rif.element_size()
+    per_ray_in = {"plane": 4, "target": 3, "sdf": 2}[variant] * 3 * item  # x, v, planes, target
+    out_extra = {"plane": 1, "target": item, "sdf": 0}[variant]           # miss, d2
+    rows_bytes = rows * 7 * item
+    sdf_grid = grid if variant == "sdf" else 0
+    grad_out = rif.numel() * (8 if variant == "sdf" else item)  # K19 sums in f64
+    step_extra = {"plane": FLOPS_PLANE_TEST, "target": FLOPS_TARGET_D2, "sdf": 0}[variant]
+    eval_extra = FLOPS_SDF_VALUE if variant == "sdf" else 0
+    fwd = set_bound(dict(
+        bytes=per_ray_in * n + (6 * item + 5 + out_extra) * n + rows_bytes + grid + sdf_grid,
+        flops=fw["ray_steps"] * (FLOPS_FWD_STEP + step_extra) + fw["evals"] * (FLOPS_FWD_EVAL
+                                                                               + eval_extra)))
+    replay_extra = FLOPS_PLANE_TEST if variant == "plane" else 0
+    bwd = set_bound(dict(
+        bytes=(rows_bytes + 5 * n + 6 * n * item + (6 * n * item if variant == "plane" else 0)
+               + grid + grad_out + sdf_grid),
+        flops=(bw["ray_steps"] * (FLOPS_EXACT_STEP + replay_extra)
+               + bw["evals"] * (FLOPS_EXACT_EVAL + eval_extra) + bw["splats"] * FLOPS_BWD_SPLAT)))
+    return fwd, bwd
+
+
+def exact_variant_check(case, label, tol, chunk=0, times=False):
+    """One variant's exact forward and backward kernels against the plain
+    versions (``tracer/checkpointed.py``) on the card, as ``trace_*_exact``
+    runs them: the whole batch with its checkpoints, or (``chunk``) the
+    forward pass over all the rays without them and the backward pass chunk
+    by chunk of the ray order, each chunk recomputing its checkpoints (the
+    target with the batch's horizon, the sdf with the horizons of its JAX
+    chunks, ``chunk`` rays each, the last padded with ray 0).  The outputs,
+    the capture steps and exit codes, the horizon and (whole) the checkpoint
+    rows the backward pass reads bitwise; the gradient within ``tol`` of the
+    plain version's (in f32 summed in f64 from the same f32 terms); the
+    backward kernel's runs equal to the plain ``flushes``.  With ``times``,
+    the kernels' times, the plain versions' and the bounds.  Returns the row
+    of the report and the failures."""
+    variant, rif, h, ds, x, v = (case[k] for k in ("variant", "rif", "h", "ds", "x", "v"))
+    f = G.GridField(rif, h)
+    va = case["vargs"]
+    steps = CK.variant_steps(variant, rif.shape, h, ds)
+    n = x.shape[0]
+    chunked = len(CK._chunks(n, chunk)) > 1
+    f32 = rif.dtype == torch.float32
+    order = O.ray_order(x, v, rif.shape, h)
+    # the plain versions: the horizon, the forward pass, the backward pass
+    esc_steps = CK._escape_steps(f, x, v, ds, steps, variant=variant, **va)
+    stop = None
+    if chunked and variant == "target":
+        stop = torch.full((n,), CK._target_stop_step(f, x, v, ds, steps, chunk),
+                          dtype=torch.int32, device="cuda")
+    elif chunked and variant == "sdf":
+        stop = CK._index_chunk_horizons(esc_steps, chunk, SEG, steps)
+    fw, bw = {}, {}
+    torch.cuda.synchronize()
+    t0 = time.time()
+    xt_p, vt_p, esc_p, c_p, cap_p, ck_p = CK._forward_with_ckpts(
+        f, x, v, ds, steps, SEG, not chunked, stats=fw, variant=variant, stop=stop, **va)
+    torch.cuda.synchronize()
+    plain_fwd_ms = 1e3 * (time.time() - t0)
+    code_p = torch.where(esc_p, torch.where(cap_p, 1, 2), 0).to(torch.uint8)
+    want = {"plane": (xt_p, vt_p, ~esc_p), "target": (xt_p, vt_p, E.sum_sq3(xt_p - case.get(
+        "tgt", xt_p))), "sdf": (xt_p, vt_p)}[variant]
+    # the kernels' forward pass over all the rays
+    got, c_k, code_k, ck_k, hz_k = exact_forward_kernel(case, order, not chunked,
+                                                        chunk if chunked else 0)
+    horizon_p = (int(esc_steps.max()) if variant == "target" else
+                 CK._index_chunk_horizons(esc_steps, chunk if chunked else 0, SEG, steps))
+    # the outputs' largest difference (the plane's miss as 0/1)
+    fwd_abs = max(float((a.double() - b.double()).abs().max()) if a.numel() else 0.0
+                  for a, b in zip(got, want))
+    fwd_scale = max(float(b.double().abs().max()) if b.numel() else 0.0 for b in want)
+    state = dict(outputs=all(torch.equal(a, b) for a, b in zip(got, want)),
+                 capture_steps=bool(torch.equal(c_k, c_p) and torch.equal(code_k, code_p)))
+    if variant == "target":
+        state["horizon"] = int(hz_k) == horizon_p
+    elif variant == "sdf":
+        state["horizon"] = bool(torch.equal(hz_k, horizon_p))
+    live_steps = torch.where(code_p == 2, 0, c_p)[order.long()]
+    need = (torch.arange(-(-steps // SEG), device="cuda")[:, None] * SEG) < live_steps[None, :]
+    rows = int(need.sum())
+    if not chunked:
+        state["checkpoints"] = bool(torch.equal(ck_k.transpose(1, 2)[need],
+                                                ck_p[:, :, order.long()].transpose(1, 2)[need]))
+    # the loss's cotangents; the plane's missed rays pass none
+    dx, dv = 2.0 * (xt_p - case["anchor"]), torch.ones_like(vt_p)
+    if variant == "plane":
+        dx = torch.where(esc_p[:, None], dx, torch.zeros_like(dx))
+        dv = torch.where(esc_p[:, None], dv, torch.zeros_like(dv))
+    bw["captured"] = cap_p
+    torch.cuda.synchronize()
+    t0 = time.time()
+    with exact_chunk(chunk):
+        g_p = CK.backtrace_plain(rif, x, v, esc_p, c_p, ck_p, dx, dv, h, ds, SEG,
+                                 acc_dtype=torch.float64 if f32 else None, stats=bw,
+                                 variant=variant, stop=stop, **va)
+    torch.cuda.synchronize()
+    plain_bwd_ms = 1e3 * (time.time() - t0)
+    tally = torch.zeros(3, dtype=torch.int64, device="cuda")
+    g_k = torch.zeros((rif.numel(),), device="cuda",
+                      dtype=torch.float64 if variant == "sdf" else rif.dtype)
+    for sl in CK._chunks(n, chunk if chunked else 0):
+        ck = ck_k
+        if ck is None:  # recompute this chunk's checkpoints, as the API does
+            ck = exact_forward_kernel(case, order[sl], True, stop=hz_k)[3]
+        exact_backward_kernel(case, ck, c_k, code_k, dx, dv, order[sl], g_k, tally)
+    torch.cuda.synchronize()
+    err, abs_err = rel_err(g_k.double(), g_p.double())
+    fname, bname = EXACT_VARIANTS[variant]
+    row = dict(label=label, variant=variant, chunk=chunk if chunked else None, bitwise=state,
+               rel_err=err, abs_err=abs_err, tol=tol, max_abs_g=float(g_p.abs().max()),
+               fwd_abs_err=fwd_abs, fwd_rel_err=fwd_abs / max(1.0, fwd_scale),
+               runs=int(tally[0]), issued=int(tally[1]), fwd=fw,
+               bwd={k: bw[k] for k in ("ray_steps", "evals", "splats", "flushes")},
+               ckpt_rows_read=rows, rays_code=[int((code_k == k).sum()) for k in range(3)],
+               horizon=horizon_p if variant == "target" else (
+                   [int(horizon_p.min()), int(horizon_p.max())] if variant == "sdf" else None))
+    print(f"exact {variant}[{label}, {n} rays" + (f", chunks of {chunk}" if chunked else "")
+          + f"] {fname} bitwise equal {state}; {bname} rel_err {err:.3e} against the plain "
+          f"version" + (" summed in f64 from the same f32 terms" if f32 else "")
+          + f" (tol {tol:g}), max |g| {row['max_abs_g']:.4g}; runs flushed {row['runs']} (plain "
+          f"flushes {bw['flushes']}); rays never escaped / captured / not {row['rays_code']}; "
+          f"horizon {row['horizon']}; checkpoint rows read {rows}", flush=True)
+    failures = []
+    if not all(state.values()):
+        failures.append(f"{fname} is not bitwise equal to its plain version at {label} "
+                        f"({variant}, chunk {chunk}): {state}")
+    if not (err <= tol and row["max_abs_g"] > 0):
+        failures.append(f"{bname} disagrees with its plain version at {label} ({variant}, chunk "
+                        f"{chunk}): {err:.3e}")
+    if row["runs"] != bw["flushes"]:
+        failures.append(f"{bname} flushed {row['runs']} runs at {label} ({variant}), the plain "
+                        f"version counts {bw['flushes']}")
+    if not times:
+        return row, failures
+    fwd_b, bwd_b = exact_variant_bounds(case, fw, bw, rows)
+    fwd_b.update(ms=time_ms(lambda: exact_forward_kernel(case, order, True), 3),
+                 plain_ms=plain_fwd_ms, library_ms=None)
+    bwd_b.update(ms=time_ms(lambda: exact_backward_kernel(
+        case, ck_k, c_k, code_k, dx, dv, order, torch.zeros_like(g_k)), 3),
+        plain_ms=plain_bwd_ms, library_ms=None)
+    for rec in (fwd_b, bwd_b):
+        rec["share_of_bound"] = rec["bound_ms"] / rec["ms"]
+    row["times"] = {fname: fwd_b, bname: bwd_b}
+    print(f"exact {variant}[{label}] {fname} {fwd_b['ms']:.4f} ms (bound {fwd_b['bound_ms']:.4f}, "
+          f"{fwd_b['bound_by']}: {100 * fwd_b['share_of_bound']:.2f} % of it; plain "
+          f"{plain_fwd_ms:.1f} ms), {bname} {bwd_b['ms']:.4f} ms (bound {bwd_b['bound_ms']:.4f}, "
+          f"{bwd_b['bound_by']}: {100 * bwd_b['share_of_bound']:.2f} % of it; plain "
+          f"{plain_bwd_ms:.1f} ms); checkpoints {ck_k.numel() * ck_k.element_size() / 1e6:.1f} MB",
+          flush=True)
+    return row, failures
+
+
+def exact_variants_api_check(s):
+    """``trace_plane_exact``, ``trace_target_exact`` and ``trace_sdf_exact`` on
+    the card (K15-K19, K6) against the same functions on the CPU (the plain
+    versions the CPU tests hold to JAX) in f64, on 200 of the small scene's
+    rays in chunks of 64 (the last padded): outputs 1e-12, gradient 1e-9;
+    launches asserted exactly."""
+    n, chunk = 200, 64
+    nc = -(-n // chunk)
+    failures = []
+    launches = {}
+    with exact_chunk(chunk):
+        for variant in EXACT_VARIANTS:
+            case = exact_case(s, variant)
+            x, v = case["x"][:n].contiguous(), case["v"][:n].contiguous()
+            per_ray = {"plane": ("o", "d"), "target": ("tgt",), "sdf": ()}[variant]
+            args = [case[k][:n].contiguous() for k in per_ray]
+            fn = {"plane": tracer.trace_plane_exact, "target": tracer.trace_target_exact,
+                  "sdf": lambda r, *a: tracer.trace_sdf_exact(r, sdf_, *a)}[variant]
+            res = []
+            for dev in ("cuda", "cpu"):
+                r = case["rif"].detach().to(dev).clone().requires_grad_(True)
+                sdf_ = case.get("sdf", case["rif"]).to(dev)
+                K.reset_launches()
+                out = fn(r, x.to(dev), v.to(dev), *(a.to(dev) for a in args), s["h"], s["ds"],
+                         SEG)
+                (((out[0] - case["anchor"].to(dev)) ** 2).sum() + out[1].sum()).backward()
+                if dev == "cuda":
+                    torch.cuda.synchronize()
+                    launches[variant] = {k: c for k, c in K.LAUNCHES.items() if c}
+                res.append([t.detach().cpu() for t in out] + [r.grad.cpu()])
+            fwd_err = max(rel_err(a.double(), b.double())[0] for a, b in zip(res[0][:-1],
+                                                                             res[1][:-1]))
+            g_err = rel_err(res[0][-1], res[1][-1])[0]
+            fname, bname = EXACT_VARIANTS[variant]
+            want = {fname: (2 if variant != "plane" else 1) * (1 + nc), bname: nc}
+            print(f"exact {variant}[api, f64 17^3 x {n}, chunks of {chunk}] card against CPU: "
+                  f"outputs {fwd_err:.3e} (tol 1e-12), gradient {g_err:.3e} (tol {TOL_F64:g}); "
+                  f"launches {launches[variant]}", flush=True)
+            if not (fwd_err <= 1e-12 and g_err <= TOL_F64 and float(res[1][-1].abs().max()) > 0):
+                failures.append(f"trace_{variant}_exact on the card differs from the CPU: "
+                                f"outputs {fwd_err:.3e}, gradient {g_err:.3e}")
+            if launches[variant] != want:
+                failures.append(f"trace_{variant}_exact must launch {want}, counted "
+                                f"{launches[variant]}")
+    return failures
+
+
+def exact_variants_path(s, s_big):
+    """Phase x's main path: ``tracer.trace_plane_exact``, ``trace_target_exact``
+    and ``trace_sdf_exact`` at full width as a user calls them, forward and
+    backward, :data:`VARIANT_PASSES` times each on the bench scene's 2^18 rays
+    (unchunked: the forward keeps its checkpoints), then once each on 2^20
+    rays (``s_big``: four chunks, the backward recomputing each chunk's
+    checkpoints).  Launch counts asserted exactly, those of the 2^18 calls
+    apart (``launches_2^18``) and the whole run's; ms a call (host clock,
+    synchronised) and a launch (CUDA events)."""
+    rec = {}
+    p = VARIANT_PASSES
+    want_small = {**{name: 0 for name in build.KERNELS},
+                  "trace_plane_ckpt": p, "backtrace_plane_exact": p, "trace_target_ckpt": 2 * p,
+                  "backtrace_exact": p, "trace_sdf_ckpt": 2 * p, "backtrace_sdf_exact": p}
+    events = []
+    K.reset_launches()
+    K.record_events(events)
+    n_big = s_big["x0"].shape[0]
+    chunks = -(-n_big // CK.exact_chunk_rays())
+    try:
+        for sc, label, passes in ((s, "2^18", VARIANT_PASSES), (s_big, "2^20", 1)):
+            for variant in EXACT_VARIANTS:
+                case = exact_case(sc, variant)
+                fn = {"plane": lambda r: tracer.trace_plane_exact(
+                          r, case["x"], case["v"], sc["pln_o"][0], sc["pln_d"][0], sc["h"],
+                          sc["ds"]),
+                      "target": lambda r: tracer.trace_target_exact(
+                          r, case["x"], case["v"], sc["tgt"][0], sc["h"], sc["ds"]),
+                      "sdf": lambda r: tracer.trace_sdf_exact(
+                          r, sc["sdf"], case["x"], case["v"], sc["h"], sc["ds"])}[variant]
+                ms = []
+                for _ in range(passes):
+                    r = sc["rif"].detach().clone().requires_grad_(True)
+                    torch.cuda.synchronize()
+                    t0 = time.time()
+                    out = fn(r)
+                    loss = ((out[0] - case["anchor"]) ** 2).sum() + out[1].sum()
+                    loss.backward()
+                    torch.cuda.synchronize()
+                    ms.append(1e3 * (time.time() - t0))
+                    g = r.grad
+                    if g is None or not bool(torch.isfinite(g).all()) or \
+                            not float(g.abs().max()) > 0:
+                        raise AssertionError(f"trace_{variant}_exact at {label}: the gradient is "
+                                             "missing, not finite or zero")
+                rec[f"{variant} {label}"] = dict(
+                    ms_per_call=median(ms[1:]) if passes > 1 else ms[0],
+                    loss=float(loss.detach()))
+            if label == "2^18":
+                torch.cuda.synchronize()
+                small = dict(K.LAUNCHES)
+                if small != want_small:
+                    raise AssertionError(f"the exact variants at 2^18 rays must launch "
+                                         f"{want_small}, counted {small}")
+    finally:
+        K.record_events(None)
+    torch.cuda.synchronize()
+    launches = dict(K.LAUNCHES)
+    want = {**{name: 0 for name in build.KERNELS},
+            "trace_plane_ckpt": p + 1 + chunks, "backtrace_plane_exact": p + chunks,
+            "trace_target_ckpt": 2 * (p + 1 + chunks), "backtrace_exact": p + chunks,
+            "trace_sdf_ckpt": 2 * (p + 1 + chunks), "backtrace_sdf_exact": p + chunks}
+    if launches != want:
+        raise AssertionError(f"the exact variants must launch {want}, counted {launches}")
+    by_name = {}
+    for n_, a, b in events:
+        by_name.setdefault(n_, []).append(a.elapsed_time(b))
+    per_launch = {}
+    for name, ms in by_name.items():
+        if name in ("trace_target_ckpt", "trace_sdf_ckpt"):  # pass 1 and pass 2 in turn
+            per_launch[f"{name} pass 1"] = median(ms[2:2 * p:2])
+            per_launch[f"{name} pass 2"] = median(ms[3:2 * p:2])
+        else:
+            per_launch[name] = median(ms[1:p])
+    rec.update(launches=launches, ms_per_launch=per_launch, chunks=chunks)
+    rec["launches_2^18"] = small
+    print(f"exact variants path (tracer.trace_*_exact at {tuple(s['rif'].shape)}, "
+          f"{s['x0'].shape[0]} rays x {p} calls each, then {n_big} rays in {chunks} chunks once "
+          f"each): ms a call forward + backward "
+          + ", ".join(f"{k} {v['ms_per_call']:.3f}" for k, v in rec.items()
+                      if isinstance(v, dict) and "ms_per_call" in v)
+          + "; ms a launch (2^18) " + ", ".join(f"{k} {v:.4f}" for k, v in per_launch.items())
           + f"; launches {launches}", flush=True)
     return rec
 
@@ -2729,11 +3134,57 @@ def main():
     t_v = time.time()
     variants = variants_path(var_full)
     phase_v_s = phase_v_checks_s + time.time() - t_v
+
+    # phase x: the variants' exact gradients, K15-K19 (K6 for the target)
+    t_x = time.time()
+    variant_exact_rows = []
+    for s_, dtype, tol in ((var_small, "float64", TOL_F64), (var_full, "float32", TOL_F32_GRAD)):
+        label = f"{'f64 17' if dtype == 'float64' else f'f32 {RES}'}^3"
+        for variant in EXACT_VARIANTS:
+            for chunk in (0, EXACT_CHECK_CHUNK[dtype]):
+                row, x_failures = exact_variant_check(
+                    exact_case(s_, variant), label, tol, chunk,
+                    times=dtype == "float32" and chunk == 0)
+                variant_exact_rows.append(row)
+                failures += x_failures
+    # the ragged target batch (one more ray, at rest outside the grid: the
+    # horizon is max_steps, whichever chunk holds that ray) and the sdf's late
+    # crossing (rays that leave the grid inside the sdf), whole and chunked
+    still = torch.full((1, 3), -var_small["h"], dtype=torch.float64, device="cuda")
+    ragged = exact_case(var_small, "target", x=torch.cat([var_small["x0"], still]),
+                        v=torch.cat([var_small["v0"], torch.zeros_like(still)]),
+                        tgt=torch.cat([var_small["tgt"], var_small["tgt"][:1]]))
+    for chunk in (0, EXACT_CHECK_CHUNK["float64"]):
+        row, x_failures = exact_variant_check(ragged, "f64 17^3, ragged", TOL_F64, chunk)
+        failures += x_failures
+        if row["horizon"] != var_small["nf"]:
+            failures.append(f"the ragged target batch did not run to max_steps: {row['horizon']}")
+        variant_exact_rows.append(row)
+    for dtype, tol in (("float64", TOL_F64), ("float32", TOL_F32_GRAD)):
+        late = late_sdf_scene(dtype)
+        for chunk in (0, 10):  # 64 rays: 7 chunks, the last padded with 6 copies of ray 0
+            row, x_failures = exact_variant_check(
+                exact_case(late, "sdf", x=late["x0"], v=late["v0"]),
+                f"{dtype} 17^3, late sdf crossing", tol, chunk)
+            failures += x_failures
+            variant_exact_rows.append(row)
+    failures += exact_variants_api_check(var_small)
+    var_big = variant_scene(RES, EXACT_CHUNKED_RAYS, "float32")
+    exact_path = exact_variants_path(var_full, var_big)
+    del var_big
+    phase_x_s = time.time() - t_x
+    for row in variant_exact_rows:
+        for name, rec in row.pop("times", {}).items():
+            if name in EXACT_VARIANT_KERNELS:
+                times[name] = rec
+            else:  # the target's K6
+                exact_path[f"{name} (target)"] = rec
     t_p = time.time()
     fuel2008_small_check()
     f2008 = fuel2008_path()
     phase_p_s = time.time() - t_p
-    print(f"phases: v (variants) {phase_v_s:.1f} s, p (fuel2008) {phase_p_s:.1f} s", flush=True)
+    print(f"phases: v (variants) {phase_v_s:.1f} s, x (exact variants) {phase_x_s:.1f} s, "
+          f"p (fuel2008) {phase_p_s:.1f} s", flush=True)
     full_run = fuel_path(FUEL_ITERS_SHIPPED, "f32 full width, shipped optim_iters", work)
     print(f"fuel[shipped] {full_run['steps']} steps in {full_run['seconds']:.1f} s, escalated "
           f"at stage {full_run['escalated']}, rel_norm {full_run['rel_norm']:.4f}", flush=True)
@@ -2742,11 +3193,14 @@ def main():
     print("fiber exact: " + json.dumps(fiber_exact), flush=True)
     print("variants: " + json.dumps({k: v for k, v in variants.items() if k != "launches"}),
           flush=True)
+    print("exact variants: " + json.dumps({k: v for k, v in exact_path.items()
+                                            if k != "launches"}), flush=True)
 
     paths = {"bench": bench_launches, "probe": probe_launches, "fuel": fuel["launches"],
              **{name: d["launches"] for name, d in drivers.items()},
              "fiber": fiber_rec["launches"], "fiber_exact": fiber_exact["launches"],
-             "variants": variants["launches"], "fuel2008": f2008["launches"]}
+             "variants": variants["launches"], "variants_exact": exact_path["launches"],
+             "fuel2008": f2008["launches"]}
     replaces = {
         "eval_grad": "adjointnonlinearraytracing_tpu/benchmarks/probe_evalmath.py:107",
         "trace_fwd": "adjointnonlinearraytracing_tpu/tracer/paired.py:64",
@@ -2762,17 +3216,28 @@ def main():
         "trace_target": "adjointnonlinearraytracing_tpu/tracer/paired.py:140",
         "trace_sdf": "adjointnonlinearraytracing_tpu/tracer/paired.py:201",
         "backtrace_sdf": "adjointnonlinearraytracing_tpu/tracer/paired.py:336",
+        **{name: "adjointnonlinearraytracing_tpu/tracer/checkpointed.py:107"
+           for name in ("trace_plane_ckpt", "trace_target_ckpt", "trace_sdf_ckpt")},
+        **{name: "adjointnonlinearraytracing_tpu/tracer/checkpointed.py:209"
+           for name in ("backtrace_plane_exact", "backtrace_sdf_exact")},
     }
     errs = dict(zip(("eval_grad", "trace_fwd", "backtrace"), zip(cmp["abs_err"], cmp["rel_err"])))
     errs["gather_rows"] = (gather["max_abs_err"], gather["max_abs_err"])
-    errs["trace_ckpt"] = (0.0, 0.0)  # bitwise, asserted
+    errs["trace_ckpt"] = (ex_bench["fwd_abs_err"], ex_bench["fwd_rel_err"])  # bitwise, asserted
     errs["backtrace_exact"] = (ex_bench["abs_err"], ex_bench["rel_err"])
     for name in CABLE_KERNELS:  # K7 and K9 bitwise, asserted
-        e = cable_full["errs"].get(name, dict(abs_err=0.0, rel_err=0.0))
+        e = cable_full["errs"][name]
         errs[name] = (e["abs_err"], e["rel_err"])
     for name in ("trace_plane", "trace_target", "trace_sdf"):  # bitwise, asserted
-        errs[name] = (0.0, 0.0)
+        errs[name] = var_row["fwd_err"][name]
     errs["backtrace_sdf"] = (var_row["backtrace_sdf_abs_err"], var_row["backtrace_sdf_rel_err"])
+    for variant, (fname, bname) in EXACT_VARIANTS.items():  # the f32 checks at full width
+        rows_b = [r for r in variant_exact_rows
+                  if r["variant"] == variant and r["label"] == f"f32 {RES}^3"]
+        errs[fname] = (max(r["fwd_abs_err"] for r in rows_b),
+                       max(r["fwd_rel_err"] for r in rows_b))
+        if bname in EXACT_VARIANT_KERNELS:
+            errs[bname] = (max(r["abs_err"] for r in rows_b), max(r["rel_err"] for r in rows_b))
     stage_rows.append(big_row)
     exact_rows = [row.pop("exact") for row in stage_rows if "exact" in row]
     fuel_stage_ms = {}
@@ -2828,8 +3293,14 @@ def main():
                                  "bound_ms": r["k6"]["bound_ms"],
                                  "share_of_bound": r["k6"]["share_of_bound"]}
                                 for r in exact_rows],
+                            "target_exact_checks": [
+                                {k: r[k] for k in ("label", "chunk", "rel_err", "tol", "runs",
+                                                   "horizon")}
+                                for r in variant_exact_rows if r["variant"] == "target"],
+                            "target_exact_times": exact_path.get("backtrace_exact (target)"),
                             "launched_by": "tracer.trace_exact: the spot checks, and "
-                                           "every driver after its stage escalation"},
+                                           "every driver after its stage escalation; "
+                                           "tracer.trace_target_exact (backward)"},
         **{name: {"rel_tol": TOL_F32_GRAD if name.startswith("backtrace") else 0.0,
                   "rel_tol_against": ("the f64 sum of the plain version's f32 terms"
                                       if name.startswith("backtrace") else "bitwise"),
@@ -2868,6 +3339,27 @@ def main():
                                               "backtrace_sdf": "BackSDFTracerC (backward)"}[name]
                                  + " (tracer.api." + name.replace("backtrace", "trace") + ")"}
            for name in VARIANT_KERNELS},
+        **{name: {"rel_tol": 0.0 if name.endswith("ckpt") else TOL_F32_GRAD,
+                  "rel_tol_against": ("bitwise (outputs, capture steps, codes, horizon, the "
+                                      "checkpoint rows read)" if name.endswith("ckpt") else
+                                      "the f64 sum of the plain version's f32 terms"),
+                  "scene": (f"bench scene {RES}^3 f32, {NRAYS} rays; "
+                            + ("spawned on a sphere sdf (radius 0.4 span) by get_pts_sdf"
+                               if "sdf" in name else "planes at y = 0.6 span"
+                               if "plane" in name else "targets at y = 1.05 span")),
+                  "checks": [{k: r[k] for k in ("label", "chunk", "bitwise", "rel_err", "tol",
+                                                "runs", "horizon", "fwd", "bwd")}
+                             for r in variant_exact_rows if EXACT_VARIANTS[r["variant"]][
+                                 0 if name.endswith("ckpt") else 1] == name],
+                  "launches_per_call_2^18": exact_path["launches_2^18"][name] // VARIANT_PASSES,
+                  "ms_per_launch_on_path": {k: v for k, v in exact_path["ms_per_launch"].items()
+                                            if k.startswith(name)},
+                  "launched_by": "tracer." + {"plane": "trace_plane_exact",
+                                              "target": "trace_target_exact",
+                                              "sdf": "trace_sdf_exact"}[
+                                     name.split("_")[1]] + (" (backward)" if name.startswith(
+                                         "backtrace") else "")}
+           for name in EXACT_VARIANT_KERNELS},
         "gather_rows": {"rel_tol": 0.0, "rows": GATHER_N, "table_rows": GATHER_ROWS,
                         "ms_dirty_flush": gather["ms_dirty_flush"],
                         "library_ms_dirty_flush": gather["library_ms_dirty_flush"],

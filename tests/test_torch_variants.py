@@ -443,6 +443,22 @@ def test_compat_fields_need_a_gpu_unless_asked_for_the_cpu():
     assert TCOMPAT.Grid(_t(scene), 0.25).scene.device.type == "cpu"
 
 
+def test_compat_upres_volume_takes_a_numpy_volume_on_the_device_asked_for():
+    """A numpy volume goes on ``device``, the card by default: without a GPU it
+    raises unless the caller asks for the CPU, and there it matches the JAX
+    function, which takes the numpy volume as it is."""
+    if torch.cuda.is_available():
+        pytest.skip("a GPU is present: this checks the GPU-less behaviour")
+    vol = np.random.default_rng(10).uniform(size=(5, 5, 5))
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        TCOMPAT.upres_volume(vol, (7, 7, 7))
+    got = TCOMPAT.upres_volume(vol, (7, 6, 9), device="cpu")
+    assert got.device.type == "cpu" and got.dtype == torch.float64
+    _close(got, JCOMPAT.upres_volume(vol, (7, 6, 9)), 1e-12)
+    # a torch tensor stays where it is, whatever ``device`` says
+    assert TCOMPAT.upres_volume(_t(vol), 7).device.type == "cpu"
+
+
 def test_get_pts_sdf_matches_jax(sdf_scene):
     sdf, pos, vel = sdf_scene
     got_pos, got_vel = TSDF.get_pts_sdf_from_samples(_t(sdf), _t(_sdf_samples()), SPAN)
