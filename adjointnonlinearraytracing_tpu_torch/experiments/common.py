@@ -9,11 +9,13 @@ has a params dict, a loss over its rays, and the multires Adam loop.
   (``tracer.trace``) and plain autograd through the stepper
   (``tracer.trace_ad``), the cross-validation toggle; mode ``"exact"`` is the
   checkpointed-exact gradient (``tracer.trace_exact``), which the stage
-  escalation switches to where the adjoint drifts.
-
-Not in this port yet, and raising where asked for: exit-step bucketing
-(``ANRT_BUCKETED > 1``, ``ROADMAP.md`` A8) and tracing sharded over several
-devices (``use_mesh=True``, A15).
+  escalation switches to where the adjoint drifts,
+* ``use_mesh=True`` traces sharded over the processes of the ray mesh
+  (``parallel/mesh.py``; one rank where no process group exists), the rays
+  padded to the shard count,
+* exit-step compaction (``tracer/compaction.py``): ``ANRT_BUCKETED`` buckets;
+  off the card also where a probe of the run's rays spreads, as the JAX
+  package chooses it.
 """
 
 from __future__ import annotations
@@ -24,8 +26,11 @@ import warnings
 import torch
 
 from ..convert import require_device
+from ..parallel import distributed
+from ..parallel import mesh as pmesh
 from ..tracer import api
 from ..tracer import checkpointed
+from ..tracer import compaction
 from ..tracer import eikonal
 
 
@@ -68,22 +73,50 @@ def make_trace(vol_span, ds, autodiff=False, use_mesh=False, res=None,
         the hook of the stage-level escalation
     ``autodiff=True`` is the alias for "ad".
 
+    ``use_mesh=True`` runs the adjoint and the exact modes sharded over the
+    ray mesh (``parallel.mesh.make_sharded_trace`` /
+    ``make_sharded_trace_exact``, made once per resolution): a batch that
+    the world size does not divide is padded with copies of ray 0 (the same
+    dynamics, and the cotangents of the copies are zero), and the outputs are
+    cut back.  ``ANRT_BUCKETED`` sets the exit-step buckets.  Unset, a
+    ``probe_rays`` (a sample ``(x, v)`` of the run's source) off the card
+    picks them by the JAX package's rule: 4 where its chord spread is at
+    least 3 (``compaction.auto_buckets``), else none.  On the card the rule
+    is not applied and the run takes none: the kernels leave the step loop
+    per ray, and forced buckets slow the Luneburg adjoint steps on the H100
+    (``PERF.md``, ``ROADMAP.md`` B18); no measured source gains from them.
+    Buckets apply to the adjoint mode only: ``compaction.trace_bucketed``
+    unsharded, per shard under the mesh.
+
     The closure traces where its tensors live.  With ``device`` given, it is
     checked at once (a CUDA device that is not there raises here) and the
-    closure refuses tensors that live elsewhere instead of moving them.
-    ``probe_rays`` (a sample of the run's source) is accepted and unused
-    until exit-step bucketing is ported: the kernels already leave the step
-    loop per ray.  ``res`` is accepted for the JAX signature.
+    closure refuses tensors that live elsewhere instead of moving them.  It
+    carries its choices as ``trace.nbuckets`` and ``trace.mesh`` (None
+    without ``use_mesh``).  ``res`` is accepted for the JAX signature.
     """
-    if use_mesh:
-        raise NotImplementedError(
-            "make_trace: use_mesh=True needs the multi-device layer (ROADMAP.md A15)")
-    if int(os.environ.get("ANRT_BUCKETED", "0")) > 1:
-        raise NotImplementedError(
-            "make_trace: ANRT_BUCKETED > 1 needs exit-step compaction (ROADMAP.md A8)")
     if gradient is None:
         gradient = "ad" if autodiff else "adjoint"
     dev = None if device is None else require_device(device)
+    the_mesh = pmesh.make_ray_mesh() if use_mesh else None
+    cache = {}
+    env_buckets = os.environ.get("ANRT_BUCKETED")
+    if env_buckets is not None:
+        default_buckets = int(env_buckets)
+    elif probe_rays is not None and probe_rays[0].device.type != "cuda":
+        default_buckets = compaction.auto_buckets(vol_span, probe_rays[0], probe_rays[1], ds)
+    else:
+        default_buckets = 0
+
+    def _pad_call(fn, nt, x, v):
+        # pad the ray axis to the shard count with copies of ray 0: the same
+        # dynamics, and the cut-off rows get zero cotangents
+        n = x.shape[0]
+        pad = (-n) % the_mesh.world_size
+        if pad:
+            xt, vt = fn(nt, torch.cat([x, x[:1].expand(pad, -1)]),
+                        torch.cat([v, v[:1].expand(pad, -1)]))
+            return xt[:n], vt[:n]
+        return fn(nt, x, v)
 
     def trace(nt, x, v):
         if dev is not None:
@@ -98,11 +131,27 @@ def make_trace(vol_span, ds, autodiff=False, use_mesh=False, res=None,
         if mode == "ad":
             return api.trace_ad(nt, x, v, h, ds)
         if mode == "exact":
+            if the_mesh is not None:
+                key = ("exact", nt.shape[0], float(h))
+                if key not in cache:
+                    cache[key] = pmesh.make_sharded_trace_exact(the_mesh, h, ds, max(nt.shape),
+                                                                seg=seg)
+                return _pad_call(cache[key], nt, x, v)
             return checkpointed.trace_exact(nt, x, v, h, ds, seg)
         if mode != "adjoint":
             raise ValueError(f"make_trace: unknown gradient mode {mode!r}")
+        if the_mesh is not None:
+            key = (nt.shape[0], float(h), default_buckets)
+            if key not in cache:
+                cache[key] = pmesh.make_sharded_trace(the_mesh, h, ds, max(nt.shape),
+                                                      nbuckets=default_buckets)
+            return _pad_call(cache[key], nt, x, v)
+        if default_buckets > 1:
+            return compaction.trace_bucketed(nt, x, v, h, ds, default_buckets)
         return api.trace(nt, x, v, h, ds)
 
+    trace.nbuckets = default_buckets
+    trace.mesh = the_mesh
     return trace
 
 
@@ -194,7 +243,9 @@ def make_stage_escalator(holder, vol_span, ds, probe_rays, metrics=None,
 
     ``probe_rays`` is a callable ``() -> (x, v, mask)`` sampling this run's
     real source distribution.  ``rays_per_iter`` is accepted for the JAX
-    signature.
+    signature.  Under a process group every rank takes rank 0's drift, so
+    the ranks of a ray mesh escalate together (each computes its own from
+    atomic sums that round differently).
     """
     if tol is None:
         tol = float(os.environ.get("ANRT_EXACT_TOL", "0.01"))
@@ -208,11 +259,12 @@ def make_stage_escalator(holder, vol_span, ds, probe_rays, metrics=None,
         stats = gradient_spotcheck(
             n, x, v, vol_span, ds, mask=mask, n_rays=n_rays, metrics=metrics,
             name=f"grad_spotcheck_stage{stage}", perturb=False)
-        if stats["rel_l2"] > tol:
+        drift = distributed.rank0_value(stats["rel_l2"], n.device)
+        if drift > tol:
             holder["mode"] = "exact"
             warnings.warn(
                 f"stage {stage} (res {n.shape[0]}): adjoint gradient rel-L2 "
-                f"drift {stats['rel_l2']:.2e} > {tol:g}; escalating to the "
+                f"drift {drift:.2e} > {tol:g}; escalating to the "
                 "exact gradient for the remaining stages")
             if metrics is not None:
                 metrics.log(0, gradient_escalated_stage=stage, gradient_mode="exact")

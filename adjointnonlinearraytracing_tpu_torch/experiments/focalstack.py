@@ -96,9 +96,6 @@ def multires_exp(params: Dict, result_dir: Optional[str] = None, *, device="cuda
     ``image.multires_exp``.
     """
     dev = require_device(device)
-    if params.get("mesh", False):
-        raise NotImplementedError(
-            "multires_exp: mesh=True needs the multi-device layer (ROADMAP.md A15)")
     dtype = common.param_dtype(params)
     src_image = torch.as_tensor(params["source_image"]).to(device=dev, dtype=dtype)
     meas_focal = params["focal_stack"]
@@ -141,8 +138,11 @@ def multires_exp(params: Dict, result_dir: Optional[str] = None, *, device="cuda
         return torch.Generator(device=dev).manual_seed(seed + offset)
 
     grad_holder = {"mode": params.get("gradient")}
-    trace = common.make_trace(vol_span, ds, autodiff=autodiff, gradient=grad_holder,
-                              device=dev)
+    probe = gen_start_rays(seeded(779), 1)  # a generator of its own: no other draw moves
+    trace = common.make_trace(vol_span, ds, autodiff=autodiff,
+                              use_mesh=params.get("mesh", False), gradient=grad_holder,
+                              probe_rays=(probe.x[:4096], probe.v[:4096]), device=dev)
+    metrics.log(0, exit_buckets=trace.nbuckets)  # the adjoint steps' buckets
 
     def loss_function(eta, gen):
         stack = render_stack(trace, eta, gen_start_rays(gen, spp), src_image, meas_dists,

@@ -76,9 +76,6 @@ def run_opt(params: Dict, result_dir: Optional[str] = None, gtruth=None, *,
     Returns ``(final_eta, loss_hist, gtruth)``.
     """
     dev = require_device(device)
-    if params.get("mesh", False):
-        raise NotImplementedError(
-            "run_opt: mesh=True needs the multi-device layer (ROADMAP.md A15)")
     res_list = params.get("res_list", [3, 5, 9, 17, 33, 65])
     vol_span = params.get("vol_span", 1.0)
     step_res = params.get("step_res", 2)
@@ -117,8 +114,10 @@ def run_opt(params: Dict, result_dir: Optional[str] = None, gtruth=None, *,
     rays = S.Rays(rays.x.to(dtype).contiguous(), rays.v.to(dtype).contiguous(),
                   rays.planes.to(dtype), rays.mask)
     sp, sn = rays.planes[:, 0, :], rays.planes[:, 1, :]
-    trace = common.make_trace(vol_span, ds, autodiff=autodiff, gradient=grad_holder,
+    trace = common.make_trace(vol_span, ds, autodiff=autodiff,
+                              use_mesh=params.get("mesh", False), gradient=grad_holder,
                               probe_rays=(rays.x[:4096], rays.v[:4096]), device=dev)
+    metrics.log(0, exit_buckets=trace.nbuckets)  # the adjoint steps' buckets
     with torch.no_grad():
         x_gt, v_gt = trace_rays_to_plane(trace(gtruth, rays.x, rays.v), (sp, sn))
 

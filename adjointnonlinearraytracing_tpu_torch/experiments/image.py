@@ -112,9 +112,6 @@ def multires_exp(params: Dict, result_dir: Optional[str] = None, *, device="cuda
     as the planar and point sources have.
     """
     dev = require_device(device)
-    if params.get("mesh", False):
-        raise NotImplementedError(
-            "multires_exp: mesh=True needs the multi-device layer (ROADMAP.md A15)")
     dtype = common.param_dtype(params)
     disp_ims = _on(params.get("disp_ims", [None]), dev, dtype)
     defl_ims = _on(params.get("defl_ims", [None]), dev, dtype)
@@ -160,8 +157,11 @@ def multires_exp(params: Dict, result_dir: Optional[str] = None, *, device="cuda
         return torch.Generator(device=dev).manual_seed(seed + offset)
 
     grad_holder = {"mode": params.get("gradient")}
-    trace = common.make_trace(vol_span, ds, autodiff=autodiff, gradient=grad_holder,
-                              device=dev)
+    probe, _, _ = draw(seeded(779), 1)  # a generator of its own: no other draw moves
+    trace = common.make_trace(vol_span, ds, autodiff=autodiff,
+                              use_mesh=params.get("mesh", False), gradient=grad_holder,
+                              probe_rays=(probe.x[:4096], probe.v[:4096]), device=dev)
+    metrics.log(0, exit_buckets=trace.nbuckets)  # the adjoint steps' buckets
 
     def view_images(eta, gen, samples):
         rays, rpv, tpv = draw(gen, samples)

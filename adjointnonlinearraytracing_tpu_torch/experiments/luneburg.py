@@ -71,9 +71,6 @@ def run_opt(params: Dict, result_dir: Optional[str] = None, *, device="cuda", st
     as ``6 * cube_rots`` views of equal size.
     """
     dev = require_device(device)
-    if params.get("mesh", False):
-        raise NotImplementedError(
-            "run_opt: mesh=True needs the multi-device layer (ROADMAP.md A15)")
     res_list = params.get("res_list", [3, 5, 9, 17, 33, 65])
     vol_span = params.get("vol_span", res_list[0])
     spp = params.get("spp", 2)
@@ -110,8 +107,11 @@ def run_opt(params: Dict, result_dir: Optional[str] = None, *, device="cuda", st
         return torch.Generator(device=dev).manual_seed(seed + offset)
 
     grad_holder = {"mode": params.get("gradient")}
-    trace = common.make_trace(vol_span, ds, autodiff=autodiff, gradient=grad_holder,
-                              device=dev)
+    probe, _ = draw(seeded(779), 1)  # a generator of its own: no other draw moves
+    trace = common.make_trace(vol_span, ds, autodiff=autodiff,
+                              use_mesh=params.get("mesh", False), gradient=grad_holder,
+                              probe_rays=(probe.x[:4096], probe.v[:4096]), device=dev)
+    metrics.log(0, exit_buckets=trace.nbuckets)  # the adjoint steps' buckets
 
     def loss_function(eta, gen):
         rays, _ = draw(gen, spp)

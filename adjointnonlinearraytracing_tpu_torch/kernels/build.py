@@ -4,9 +4,9 @@ Each ``csrc/*.cu`` has a plain C interface (no PyTorch headers), so ``nvcc``
 compiles it in seconds; all of them compile in parallel into one shared library
 each.  A source may hold more than one kernel (``SOURCE``: K2 ``trace_fwd``,
 K5 ``trace_ckpt``, the variants K11-K13 ``trace_plane``, ``trace_target``,
-``trace_sdf`` and their exact forward passes K15-K17 ``trace_*_ckpt`` are one
-stepper loop in ``trace_fwd.cu``; K6 ``backtrace_exact`` and K18, K19
-``backtrace_plane_exact``, ``backtrace_sdf_exact`` one replaying ray in
+``trace_sdf``, their exact forward passes K15-K17 ``trace_*_ckpt`` and K20
+``record_paths`` are K2's step in ``trace_fwd.cu``; K6 ``backtrace_exact``
+and K18, K19 ``backtrace_plane_exact``, ``backtrace_sdf_exact`` one replaying ray in
 ``backtrace_exact.cu``; K3 ``backtrace`` and K14 ``backtrace_sdf`` one
 adjoint ray in ``backtrace.cu``; K7 ``trace_cable`` and K9
 ``trace_cable_ckpt`` one loop in ``trace_cable.cu``).  Libraries go to
@@ -37,11 +37,12 @@ KERNELS = ("eval_grad", "trace_fwd", "backtrace", "gather_rows", "trace_ckpt",
            "backtrace_exact", "trace_cable", "backtrace_cable", "trace_cable_ckpt",
            "backtrace_cable_exact", "trace_plane", "trace_target", "trace_sdf",
            "backtrace_sdf", "trace_plane_ckpt", "trace_target_ckpt", "trace_sdf_ckpt",
-           "backtrace_plane_exact", "backtrace_sdf_exact")
+           "backtrace_plane_exact", "backtrace_sdf_exact", "record_paths")
 #: the source (``csrc/<name>.cu``) that holds each kernel
 SOURCE = {**{k: k for k in KERNELS}, "trace_ckpt": "trace_fwd",
           "trace_cable_ckpt": "trace_cable", "trace_plane": "trace_fwd",
           "trace_target": "trace_fwd", "trace_sdf": "trace_fwd", "backtrace_sdf": "backtrace",
+          "record_paths": "trace_fwd",
           **{f"trace_{v}_ckpt": "trace_fwd" for v in ("plane", "target", "sdf")},
           **{f"backtrace_{v}_exact": "backtrace_exact" for v in ("plane", "sdf")}}
 NVCC_FLAGS = (

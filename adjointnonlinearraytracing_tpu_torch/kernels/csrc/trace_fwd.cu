@@ -327,7 +327,69 @@ int launch_trace_ckpt(const void* rif, int W, int H, int D, double h, double ds,
   return static_cast<int>(cudaGetLastError());
 }
 
+// K20 record_paths: each ray's trajectory every `stride` steps, the 2008
+// baseline's "true" path model (the JAX package's
+// pathmatrix/fuel2008.py::record_paths, an XLA scan around a fori_loop).
+// K2's step with no escape test and no stop: (nrec - 1) * stride steps, the
+// eval masked by the previous position's inbounds, so a ray outside the grid
+// goes on straight.  x0 is record 0; x after k * stride steps is record k,
+// written cast to float32 (round to nearest, as numpy's astype) at
+// path[(k * n_rays + i) * 3], the flat (nrec * n_rays, 3) layout the path
+// matrix indexes.  The stepping is K2's bit for bit (forward_step).
+//
+// Bound: the records, 12 B a ray each (415 MB at 524,288 rays and 66
+// records), against the steps' operations (520 steps a ray, most of them
+// evaluating in f64); a warp's store of one record is 384 contiguous bytes
+// when its threads take consecutive rays.  `order` as for K2 (null: thread
+// i takes ray i).
+template <typename T>
+__global__ void record_paths_kernel(Grid<T> g, T ds, const T* __restrict__ x0,
+                                    const T* __restrict__ v0, const int* __restrict__ order,
+                                    float* __restrict__ path, int n_rays, int nrec, int stride) {
+  const int t = blockIdx.x * blockDim.x + threadIdx.x;
+  if (t >= n_rays) return;
+  const int i = ray_of(order, t);
+  T x[3], v[3];
+  load3(x0, i, x);
+  load3(v0, i, v);
+  bool inside = inbounds(g, x);
+  float* out = path + 3 * static_cast<size_t>(i);
+  const size_t rec = 3 * static_cast<size_t>(n_rays);
+  for (int k = 0; k < nrec; ++k, out += rec) {
+    if (k > 0) {
+      for (int s = 0; s < stride; ++s) inside = forward_step(g, ds, x, v, inside);
+    }
+#pragma unroll
+    for (int a = 0; a < 3; ++a) out[a] = static_cast<float>(x[a]);
+  }
+}
+
+template <typename T>
+int launch_record_paths(const void* rif, int W, int H, int D, double h, double ds,
+                        const void* x0, const void* v0, const int* order, void* path,
+                        int n_rays, int nrec, int stride, cudaStream_t stream) {
+  if (n_rays > 0) {
+    record_paths_kernel<T><<<blocks_for(n_rays), kThreads, 0, stream>>>(
+        make_grid<T>(rif, W, H, D, h), static_cast<T>(ds), static_cast<const T*>(x0),
+        static_cast<const T*>(v0), order, static_cast<float*>(path), n_rays, nrec, stride);
+  }
+  return static_cast<int>(cudaGetLastError());
+}
+
 }  // namespace anrt
+
+// K20.  path: (nrec * n_rays, 3) float32 whatever the grid's type; order:
+// null, or n_rays ray indices (thread i takes ray order[i]).
+extern "C" int anrt_record_paths(int is_double, const void* rif, int W, int H, int D, double h,
+                                 double ds, const void* x0, const void* v0, const void* order,
+                                 void* path, int n_rays, int nrec, int stride, void* stream) {
+  auto s = static_cast<cudaStream_t>(stream);
+  auto o = static_cast<const int*>(order);
+  return is_double ? anrt::launch_record_paths<double>(rif, W, H, D, h, ds, x0, v0, o, path,
+                                                       n_rays, nrec, stride, s)
+                   : anrt::launch_record_paths<float>(rif, W, H, D, h, ds, x0, v0, o, path,
+                                                      n_rays, nrec, stride, s);
+}
 
 // order: null, or n_rays ray indices (thread i takes ray order[i]).
 extern "C" int anrt_trace_fwd(int is_double, const void* rif, int W, int H, int D, double h,

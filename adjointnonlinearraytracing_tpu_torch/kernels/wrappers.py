@@ -104,6 +104,13 @@ K19 ``backtrace_sdf_exact``
     the same (sdf): K6 whose replay reads the sdf, summing in float64
     whatever the grid's type, as K14 does (``out`` is float64; callers cast).
 
+K20 ``record_paths`` (csrc/trace_fwd.cu)
+    replaces the recording scan of ``pathmatrix/fuel2008.py::record_paths``
+    (the 2008 baseline's "true" path model): K2's step with no stop for a
+    fixed ``(nrec - 1) * stride`` steps, each ray's position written as
+    float32 every ``stride`` steps in the path matrix's flat layout; bound by
+    its steps' operations (the records are 12 bytes a ray each).
+
 The cable kernels trace a radial profile (``fields/cylinder.py``) toward a
 target point per ray; their field code is ``csrc/cylinder.cuh``, one stepper
 for K7, K9 and K10's replay.  They take no ray order, and the adjoints sum the
@@ -201,6 +208,7 @@ _ARGTYPES = {
     "trace_sdf_ckpt": [_I, _VP, _I, _I, _I, _D, _D] + [_VP] * 15 + [_I, _I, _I, _I, _VP],
     "backtrace_plane_exact": [_I, _VP, _I, _I, _I, _D, _D] + [_VP] * 10 + [_I, _I, _I, _VP],
     "backtrace_sdf_exact": [_I, _VP, _I, _I, _I, _D, _D] + [_VP] * 9 + [_I, _I, _I, _VP],
+    "record_paths": [_I, _VP, _I, _I, _I, _D, _D, _VP, _VP, _VP, _VP, _I, _I, _I, _VP],
 }
 #: the states a checkpoint holds: x, v, inside (the cable kernels: x, v, esc)
 CKPT_WIDTH = 7
@@ -347,6 +355,24 @@ def trace_fwd(data: torch.Tensor, h: float, x0: torch.Tensor, v0: torch.Tensor,
         _launch_on_grid("trace_fwd", data, float(h), float(ds), x0.data_ptr(), v0.data_ptr(),
                         _ptr(order), xt.data_ptr(), vt.data_ptr(), n_rays, int(max_steps))
     return xt, vt
+
+
+def record_paths(data: torch.Tensor, h: float, x0: torch.Tensor, v0: torch.Tensor,
+                 ds: float, nrec: int, stride: int,
+                 order: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """K20: the float32 ``(nrec * N, 3)`` trajectories of the rays ``(x0, v0)``:
+    row ``k * N + i`` is ray ``i`` after ``k * stride`` steps of K2's step with
+    no stop (record 0 is ``x0``).  ``order`` as for :func:`trace_fwd`."""
+    _check_grid(data, "record_paths")
+    n_rays = _check_rays(data, "record_paths", x0=x0, v0=v0)
+    _check_order(order, data, n_rays, "record_paths")
+    if int(nrec) < 1 or int(stride) < 1:
+        raise ValueError(f"record_paths: nrec {nrec} and stride {stride} must be positive")
+    path = torch.empty((int(nrec) * n_rays, 3), dtype=torch.float32, device=data.device)
+    if n_rays:
+        _launch_on_grid("record_paths", data, float(h), float(ds), x0.data_ptr(), v0.data_ptr(),
+                        _ptr(order), path.data_ptr(), n_rays, int(nrec), int(stride))
+    return path
 
 
 def backtrace_path(numel: int, dtype: torch.dtype) -> str:

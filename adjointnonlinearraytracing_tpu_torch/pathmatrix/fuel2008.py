@@ -7,29 +7,31 @@ K2 on the card), clip entry and exit to the cube, build the linear path
 matrix Phi (the native marcher), solve per-axis LSQR for the index-gradient
 fields from the ray deflections, then Poisson-integrate under Dirichlet
 boundary conditions: a reconstruction independent of the adjoint tracer, with
-timing and memory reporting.  Only the trace (and the error's field
-evaluation, K1) runs on the device; the rest is numpy/scipy on the host.
+timing and memory reporting.  Only the trace, the recorded trajectories of
+the ``spline="true"`` path model (:func:`record_paths`: K20 on the card) and
+the error's field evaluation (K1) run on the device; the rest is numpy/scipy
+on the host.
 
-Left out: the ``spline="true"`` path model, whose trajectories need a fifth
-stepper (``record_paths``: K2's step with no stop rule, recording x every
-``path_stride`` steps), raises until that stepper is a kernel
-(``ROADMAP.md`` B14); the JAX module's ``F2008_GRAD_DUMP`` hook (reuse of a
-previous run's LSQR solutions) has no counterpart.
+Left out: the JAX module's ``F2008_GRAD_DUMP`` hook (reuse of a previous run's
+LSQR solutions) has no counterpart.
 """
 
 from __future__ import annotations
 
 import resource
 import time
-from typing import Dict, Optional
+from typing import Dict, Optional, Tuple
 
 import numpy as np
 import torch
 
 from ..convert import require_device
+from ..fields import grid as G
 from ..fields.grid import GridField, eval_grad
+from ..kernels import wrappers as K
 from ..sources import sources as S
 from ..tracer import api
+from ..tracer import eikonal as E
 from . import path_matrix as PM
 
 
@@ -59,6 +61,55 @@ def trace_back_to_cube(xt, vt, span):
     t_in, t_out = intersect_cube(xt, -vt, 0.0, span)
     t = np.clip(t_in, 0.0, None)
     return xt - t[:, None] * vt
+
+
+def record_steps(res: int, h: float, ds: float, stride: int) -> Tuple[int, int]:
+    """``(nrec, steps)``: the records :func:`record_paths` writes for a grid of
+    side ``res`` and the steps it takes, ``stride`` between two records."""
+    nrec = E.max_steps_fwd(res, h, ds) // stride + 1
+    return nrec, (nrec - 1) * stride
+
+
+def record_paths_plain(gtruth: torch.Tensor, x: torch.Tensor, v: torch.Tensor, h: float,
+                       ds: float, stride: int = 8, stats: Optional[dict] = None) -> torch.Tensor:
+    """The plain version of :func:`record_paths`: the ``(nrec, N, 3)``
+    positions in the grid's type, before the cast to float32.  K2's step with
+    no stop, the eval masked by the previous position's ``inbounds`` (a ray
+    outside the grid goes on straight); record ``k`` is ``x`` after ``k *
+    stride`` steps, record 0 ``x``.  ``stats`` (a dict) gets the ray-steps
+    taken and how many of them evaluated the field."""
+    field = GridField(gtruth, h)
+    nrec, steps = record_steps(max(gtruth.shape), h, ds, stride)
+    ds_t = G._scalar(ds, x)
+    inside = G.inbounds(field, x)
+    recs, evals = [x], torch.zeros((), dtype=torch.int64, device=x.device)
+    for _ in range(nrec - 1):
+        for _ in range(stride):
+            evals += inside.sum()
+            x, v = E.forward_step(field, x, v, inside, ds_t)
+            inside = G.inbounds(field, x)
+        recs.append(x)
+    if stats is not None:
+        stats.update(ray_steps=steps * x.shape[0], evals=int(evals))
+    return torch.stack(recs)
+
+
+def record_paths(gtruth: torch.Tensor, x: torch.Tensor, v: torch.Tensor, h: float, ds: float,
+                 stride: int = 8) -> Tuple[torch.Tensor, int]:
+    """Per-ray trajectories every ``stride`` steps, the ``"true"`` path model's.
+
+    Returns ``(path, nrec)``: ``path`` is float32 ``(nrec * N, 3)``, row ``k *
+    N + i`` ray ``i``'s position after ``k * stride`` steps (the flat layout
+    :func:`path_matrix.get_true_path` indexes), computed in the grid's type
+    and cast at the end, as the JAX package's ``record_paths`` does.  On the
+    card K20 (``kernels/csrc/trace_fwd.cu``); on the CPU
+    :func:`record_paths_plain`.
+    """
+    gtruth, x, v = (t.detach().contiguous() for t in (gtruth, x, v))
+    nrec, _ = record_steps(max(gtruth.shape), h, ds, stride)
+    if gtruth.is_cuda:
+        return K.record_paths(gtruth, h, x, v, ds, nrec, stride), nrec
+    return record_paths_plain(gtruth, x, v, h, ds, stride).to(torch.float32).reshape(-1, 3), nrec
 
 
 def default_params() -> Dict:
@@ -105,16 +156,13 @@ def fuel_reconstruction(gtruth: torch.Tensor, params: Optional[Dict] = None, *,
     x64, and its rays are drawn in float64).  ``rays``: the ground-truth rays
     (``(x, v)`` or a ``Rays``) in place of :func:`gen_rays`' draw, so that two
     runs can share them.  ``spline`` selects the path model: ``"linear"`` (the
-    2008 baseline) or ``"hermite"`` (entry / exit cubic); ``"true"`` raises
-    (``ROADMAP.md`` B14).  ``angle_span`` / ``sensor_dist_frac`` set the
-    acquisition geometry.
+    2008 baseline), ``"hermite"`` (entry / exit cubic) or ``"true"`` (the
+    trajectories recorded every ``path_stride`` steps by :func:`record_paths`,
+    from each ray's first to its last record inside the cube).
+    ``angle_span`` / ``sensor_dist_frac`` set the acquisition geometry.
     """
     p = dict(default_params(), **(params or {}))
-    if p["spline"] == "true":
-        raise NotImplementedError(
-            "fuel_reconstruction: spline='true' needs the recorded trajectories of "
-            "record_paths, a stepper not ported yet (ROADMAP.md B14, kernel K15)")
-    if p["spline"] not in ("linear", "hermite"):
+    if p["spline"] not in ("linear", "hermite", "true"):
         raise ValueError(f"fuel_reconstruction: unknown spline {p['spline']!r}")
     dev = require_device(device)
     gtruth = torch.as_tensor(gtruth).to(dev).contiguous()
@@ -138,6 +186,10 @@ def fuel_reconstruction(gtruth: torch.Tensor, params: Optional[Dict] = None, *,
     x, v = (t.to(device=dev, dtype=gtruth.dtype).contiguous() for t in tuple(rays)[:2])
     with torch.no_grad():
         xt, vt = api.trace(gtruth, x, v, h, ds)
+        path_buf = None
+        if p["spline"] == "true":
+            pb, nrec = record_paths(gtruth, x, v, h, ds, p["path_stride"])
+            path_buf = (pb.cpu().numpy(), nrec)
     sync()
     x0, v0, xt, vt = (t.double().cpu().numpy() for t in (x, v, xt, vt))
     report["trace_time"] = time.time() - t0
@@ -155,10 +207,26 @@ def fuel_reconstruction(gtruth: torch.Tensor, params: Optional[Dict] = None, *,
     dv = (vtn - v0n)[good]
     report["num_rays"] = int(good.sum())
 
-    # 3) path matrix (linear / hermite), the native marcher
+    # 3) path matrix (linear / hermite / recorded paths), the native marcher
     t1 = time.time()
+    path_arg = None
+    if path_buf is not None:
+        pb, nrec = path_buf
+        n_all = len(good)
+        # per-ray first/last recorded sample inside the cube
+        pts = pb.reshape(nrec, n_all, 3)
+        inside = np.all((pts >= 0) & (pts <= span), axis=-1)  # (nrec, N)
+        any_in = inside.any(axis=0)
+        first = np.argmax(inside, axis=0)
+        last = nrec - 1 - np.argmax(inside[::-1], axis=0)
+        first = np.where(any_in, first, 0)
+        last = np.where(any_in, np.maximum(last, first), 0)
+        # reindex the flattened buffer to the kept rays
+        keep = np.where(good)[0]
+        pb_kept = pts[:, keep, :].reshape(-1, 3).astype(np.float64)
+        path_arg = (pb_kept, first[keep].astype(float), last[keep].astype(float))
     phi = PM.construct_voxel_matrix(sp_, v0n[good], ep_, vtn[good], span, recon_res,
-                                    spline=p["spline"], int_res=p["int_res"])
+                                    spline=p["spline"], int_res=p["int_res"], path=path_arg)
     report["phi_time"] = time.time() - t1
     report["phi_nnz"] = int(phi.nnz)
 

@@ -397,11 +397,13 @@ def _target_stop_step(field: G.GridField, x, v, ds: float, max_steps: int, chunk
 
 class _TraceExact(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, rif, x, v, h, ds, seg, grad_needed):
+    def forward(ctx, rif, x, v, h, ds, seg, keep_ckpts):
         rif, x, v = (t.detach().contiguous() for t in (rif, x, v))
         steps = E.max_steps_fwd(max(rif.shape), h, ds)
-        # checkpoints are kept only for a backward pass that will read them
-        store = grad_needed and len(_chunks(x.shape[0], exact_chunk_rays())) == 1
+        # checkpoints are kept only for a backward pass that will read them,
+        # and only where the caller lets them be (the sharded trace of
+        # parallel/mesh.py keeps none: its backward pass recomputes them)
+        store = keep_ckpts and len(_chunks(x.shape[0], exact_chunk_rays())) == 1
         if rif.is_cuda:
             order = O.ray_order(x, v, rif.shape, h)
             xt, vt, c, code, ckpts = K.trace_ckpt(rif, h, x, v, ds, steps, seg, order,

@@ -105,8 +105,36 @@ result.  Phases (any failure is an uncaught exception):
       and one K1 launch, the native marcher (asserted loaded), the trace,
       path-matrix, solve and integration seconds, ``phi_nnz`` and
       ``rel_norm``, which must lie in 0.82-0.91 (the JAX package's, on its
-      own rays: 0.86198); first a tiny run on the card against the CPU on the
-      same rays, 1e-12.
+      own rays: 0.86198); then ``combo_recon16_true``, the same with the
+      recorded trajectories (``spline="true"``, ``path_stride`` 8): one K2,
+      one K20 ``record_paths`` (held bitwise against its plain version on
+      all 524,288 rays beforehand) and one K1, ``rel_norm`` within 5 % of the
+      JAX package's 0.86339 (``tools/jax_fuel2008_reference.py`` on the
+      CPU); each first as a tiny run on the card against the CPU on the same
+      rays, 1e-12.
+   m. the ray mesh (``parallel/``): ``configs/params-fuel.yaml`` ``fuel-128``
+      through ``runner.run`` at full width (``mesh: true``, a mesh of one
+      rank on the card; seven stages to 129^3, 32 views of 128^2 x 4 spp =
+      2,097,152 rays, f32, spot checks and escalation on), ``optim_iters``
+      cut from 300 to 10 (280 Adam steps): launches asserted exactly per
+      stage and in all (the exact steps in 8 chunks, each recomputing its
+      checkpoints), per stage the step time, the kernels' time, the host's
+      share and the loss, and ``reconstruction_error``; then ``fuel-128``'s
+      mesh path in f64 at a small size, card against CPU, 1e-9.  Before the
+      main paths, ``make_sharded_trace`` and ``make_sharded_trace_exact`` on
+      the bench scene against ``api.trace`` and ``trace_exact``: outputs
+      bitwise, gradients within 1e-5, launches asserted.
+   Exit-step compaction: each driver run logs the buckets its trace took
+   (``exit_buckets``; k makes an adjoint step k K2 and k K3 launches,
+   asserted in c-g; on the card a run takes them only from
+   ``ANRT_BUCKETED``, so none); after the drivers,
+   ``compaction.trace_bucketed`` against ``api.trace`` on one Luneburg
+   step's rays, whose chord spread is above 3, through its field at 17^3
+   (outputs bitwise, gradient 1e-5, launches 4 + 4, both times;
+   ``make_trace`` with these rays as its probe takes none), and
+   the Luneburg adjoint stages (3^3 .. 17^3, 100 steps) run with 4 buckets
+   (``ANRT_BUCKETED=4``) and with none (``ANRT_BUCKETED=0``), alternated:
+   ms a step per stage.
    Before the main paths, the variants' kernels K11 ``trace_plane``, K12
    ``trace_target``, K13 ``trace_sdf`` and K14 ``backtrace_sdf`` are held
    against their plain versions (``variant_check``) at 17^3 x 512 in f64 and
@@ -129,7 +157,13 @@ result.  Phases (any failure is an uncaught exception):
    ``trace_cable_exact`` in f64, whole and chunked, and against the CPU
    (``cable_api_check``); K8 and K10 on their block paths at 1,025 bins
    and at the largest profile they take, there on more rays than K10's
-   block path has blocks (``cable_block_path_check``).
+   block path has blocks (``cable_block_path_check``).  K20
+   ``record_paths`` is held bitwise to its plain version
+   (``record_paths_checks``): 17^3 x 512 f64 at strides 8 and 3 with two
+   rays that start outside and never enter, and 2^15 of
+   ``combo_recon16_true``'s rays through the 65^3 fuel volume with and
+   without the ray order; then at that configuration's full width (all
+   524,288 rays, with and without the ray order) bitwise and timed.
 5. report  - one JSON line of the kernels, then the result line.
 
 Bounds use the published peaks of one H100 SXM: 3.35 TB/s of device memory,
@@ -160,7 +194,7 @@ from adjointnonlinearraytracing_tpu_torch.benchmarks.scenes import build_case
 from adjointnonlinearraytracing_tpu_torch import sensors
 from adjointnonlinearraytracing_tpu_torch.experiments import fuel_injection, voxel_scenes
 from adjointnonlinearraytracing_tpu_torch.experiments import fiber, focalstack, image, luneburg
-from adjointnonlinearraytracing_tpu_torch.experiments import runner
+from adjointnonlinearraytracing_tpu_torch.experiments import common, runner
 from adjointnonlinearraytracing_tpu_torch.fields import cylinder as cyl
 from adjointnonlinearraytracing_tpu_torch.fields import grid as G
 from adjointnonlinearraytracing_tpu_torch.fields import sdf_utils
@@ -168,10 +202,12 @@ from adjointnonlinearraytracing_tpu_torch.fields.cylinder import CylinderField, 
 from adjointnonlinearraytracing_tpu_torch.kernels import build
 from adjointnonlinearraytracing_tpu_torch.kernels import wrappers as K
 from adjointnonlinearraytracing_tpu_torch.native import loader as native_loader
+from adjointnonlinearraytracing_tpu_torch import parallel
 from adjointnonlinearraytracing_tpu_torch.pathmatrix import fuel2008
 from adjointnonlinearraytracing_tpu_torch import tracer
 from adjointnonlinearraytracing_tpu_torch.tracer import api
 from adjointnonlinearraytracing_tpu_torch.tracer import checkpointed as CK
+from adjointnonlinearraytracing_tpu_torch.tracer import compaction
 from adjointnonlinearraytracing_tpu_torch.tracer import eikonal as E
 from adjointnonlinearraytracing_tpu_torch.tracer import order as O
 from adjointnonlinearraytracing_tpu_torch.utils.metrics import MetricsLogger
@@ -190,6 +226,8 @@ SEG = 32
 BUSY_CYCLES = 1_000_000
 PEAK_BYTES_PER_S = 3.35e12
 PEAK_F32_FLOPS = 67e12
+# f64 outside the tensor cores (NVIDIA's H100 SXM data sheet: 34 TFLOP/s)
+PEAK_F64_FLOPS = 34e12
 
 # Floating-point operations the functions need, for the operation bounds.
 # This is the least arithmetic that computes the same function, not what the
@@ -317,10 +355,11 @@ def time_ms(fn, reps, flush=None, dirty=False, warm=True):
     return sorted(times)[len(times) // 2]
 
 
-def set_bound(rec):
-    """The least time the card could take for ``rec``'s bytes and operations."""
+def set_bound(rec, peak_flops=PEAK_F32_FLOPS):
+    """The least time the card could take for ``rec``'s bytes and operations
+    (operations at ``peak_flops``: the f32 rate unless given)."""
     by_bytes = 1e3 * rec["bytes"] / PEAK_BYTES_PER_S
-    by_ops = 1e3 * rec["flops"] / PEAK_F32_FLOPS
+    by_ops = 1e3 * rec["flops"] / peak_flops
     rec["bound_ms"] = max(by_bytes, by_ops)
     rec["bound_by"] = "bytes" if by_bytes >= by_ops else "operations"
     return rec
@@ -771,7 +810,7 @@ def escalation_stage(metrics):
     return int(stages[0]) if stages else None  # the logger keeps numbers as floats
 
 
-def expected_launches(params, escalated, nrays, extra_fwd=0):
+def expected_launches(params, escalated, nrays, extra_fwd=0, nbuckets=1, mesh=False):
     """The launches that a driver's run of ``params`` implies, from the code,
     when its stage escalation fired at stage ``escalated`` (None: never), with
     ``nrays`` rays a step.
@@ -787,8 +826,13 @@ def expected_launches(params, escalated, nrays, extra_fwd=0):
     2048 rays, one chunk).  ``extra_fwd`` forward passes without a gradient
     (one K2 each) come before the first stage.  Every K3 launch of stage s runs
     on that stage's grid, so its path is that grid's
-    (``wrappers.backtrace_path``; K6 has one path).  Returns the steps, the
-    launches in all, the K3 launches by path and the launches of each stage."""
+    (``wrappers.backtrace_path``; K6 has one path).  ``nbuckets``: the
+    exit-step buckets the run's trace takes (``make_trace``'s pick): an
+    adjoint step is then that many K2 and K3 launches (the spot checks call
+    ``tracer.trace`` whole).  ``mesh``: the run traces on the ray mesh, whose
+    exact backward pass recomputes the checkpoints even for one chunk (one K5
+    more a step).  Returns the steps, the launches in all, the K3 launches by
+    path and the launches of each stage."""
     res_list, iters = params["res_list"], params["optim_iters"]
     stages = len(res_list)
     first_exact = stages if escalated is None else escalated
@@ -804,9 +848,9 @@ def expected_launches(params, escalated, nrays, extra_fwd=0):
         n, check = iters * (s + 1), int(s in checked)
         adjoint, exact = (0, n) if s >= first_exact else (n, 0)
         k = {name: 0 for name in build.KERNELS}
-        k["trace_fwd"] = adjoint + check + (extra_fwd if s == 0 else 0)
-        k["backtrace"] = adjoint + check
-        k["trace_ckpt"] = exact * (chunks + (chunks > 1)) + check
+        k["trace_fwd"] = adjoint * nbuckets + check + (extra_fwd if s == 0 else 0)
+        k["backtrace"] = adjoint * nbuckets + check
+        k["trace_ckpt"] = exact * (chunks + (chunks > 1 or mesh)) + check
         k["backtrace_exact"] = exact * chunks + check
         paths["backtrace"][K.backtrace_path(res ** 3, dtype)] += k["backtrace"]
         per_stage.append(k)
@@ -1182,6 +1226,16 @@ def driver_draw(name, params, gen, samples=None, dtype=torch.float32):
                                       params.get("source_angle", 1.0), dtype)[0]
 
 
+def run_buckets(metrics, nrays):
+    """The exit-step buckets of a driver run's adjoint steps, as the run logged
+    ``make_trace``'s choice (``exit_buckets``): 1 where it took none or the
+    batch of ``nrays`` does not divide."""
+    ks = [int(row["exit_buckets"]) for row in metrics.history if "exit_buckets" in row]
+    if len(ks) != 1:
+        raise AssertionError(f"a driver run must log its exit-step buckets once, logged {ks}")
+    return ks[0] if ks[0] > 1 and nrays % ks[0] == 0 else 1
+
+
 def plain_work(rif, h, ds, x0, v0, exact):
     """The work of one pass over ``(x0, v0)`` as the plain versions count it:
     the forward and adjoint steppers', or the exact path's and the
@@ -1255,8 +1309,9 @@ def driver_path(name):
     if name == "focalstack":
         extra_fwd = int(any(not os.path.exists(p) and not os.path.exists(
             voxel_scenes.data_path(os.path.basename(p))) for p in params["focal_list"]))
-    if "ANRT_EXACT_TOL" in os.environ:
-        raise AssertionError("ANRT_EXACT_TOL is set: the run would not be a user's run")
+    if "ANRT_EXACT_TOL" in os.environ or "ANRT_BUCKETED" in os.environ:
+        raise AssertionError("ANRT_EXACT_TOL or ANRT_BUCKETED is set: the run would not be a "
+                             "user's run")
     step_rows, events = [], []
 
     def stat(it, loss, secs):
@@ -1276,7 +1331,9 @@ def driver_path(name):
     eta, hist = out[0], out[1]
     launches, paths = dict(K.LAUNCHES), kernel_paths()
     escalated = escalation_stage(metrics)
-    steps, want, want_paths, want_stages = expected_launches(params, escalated, nrays, extra_fwd)
+    nbuckets = run_buckets(metrics, nrays)
+    steps, want, want_paths, want_stages = expected_launches(params, escalated, nrays, extra_fwd,
+                                                             nbuckets)
     got_stages, after = stage_launches(events, step_rows, params)
     checks = {k: v for row in metrics.history for k, v in row.items()
               if k.startswith("grad_spotcheck")}
@@ -1286,8 +1343,9 @@ def driver_path(name):
           f"optim_iters {iters}: {steps} Adam steps in {seconds:.2f} s; escalation to the "
           f"exact gradient fired at stage {escalated}"
           + (f" ({res_list[escalated]}^3)" if escalated is not None else "")
-          + f"; the exact path's batch is {chunks} chunk(s) of at most "
-          f"{CK.exact_chunk_rays()} rays; launches {launches}; by path {paths}", flush=True)
+          + f"; the adjoint steps in {nbuckets} exit-step bucket(s); the exact path's batch "
+          f"is {chunks} chunk(s) of at most {CK.exact_chunk_rays()} rays; launches "
+          f"{launches}; by path {paths}", flush=True)
     if launches != want or paths != want_paths or got_stages != want_stages or after:
         raise AssertionError(f"{name} must launch {want}, by path {want_paths}, by stage "
                              f"{want_stages}, counted {launches}, {paths}, {got_stages} and "
@@ -1319,8 +1377,9 @@ def driver_path(name):
         rows = step_rows[first:first + iters * (s + 1)]
         first += len(rows)
         exact = s >= first_exact
-        names = (("trace_fwd", "backtrace") if not exact else ("trace_ckpt", "backtrace_exact")
-                 if chunks == 1 else ("trace_ckpt",) + ("trace_ckpt", "backtrace_exact") * chunks)
+        names = (("trace_fwd",) * nbuckets + ("backtrace",) * nbuckets if not exact
+                 else ("trace_ckpt", "backtrace_exact") if chunks == 1
+                 else ("trace_ckpt",) + ("trace_ckpt", "backtrace_exact") * chunks)
         by_name, kern, sums = {}, [], {}
         for row in rows:
             own = events[row[3] - len(names):row[3]]  # the step's own launches
@@ -1374,8 +1433,8 @@ def driver_path(name):
           f"[{float(eta.min()):.6f}, {float(eta.max()):.6f}], shell deviation {shell_dev:.2e}",
           flush=True)
     return dict(name=name, seconds=seconds, steps=steps, nrays=nrays, launches=launches,
-                paths=paths, escalated=escalated, per_stage=per_stage, spot_checks=checks,
-                loss_first=hist[0], loss_last=hist[-1], eta=eta)
+                paths=paths, escalated=escalated, nbuckets=nbuckets, per_stage=per_stage,
+                spot_checks=checks, loss_first=hist[0], loss_last=hist[-1], eta=eta)
 
 
 def splat_times(name, params, eta, reps=5):
@@ -1480,16 +1539,18 @@ def driver_small_check(name):
         K.reset_launches()
         eta, hist = run(params, None, device=device, metrics=metrics,
                         sample_rays=lambda gen, samples: rays)
-        out[device] = (eta, hist, escalation_stage(metrics), dict(K.LAUNCHES))
-    (eta_g, hist_g, esc_g, launches), (eta_c, hist_c, esc_c, cpu_launches) = out["cuda"], out["cpu"]
-    steps, want, _, _ = expected_launches(params, esc_g, rays.x.shape[0])
+        out[device] = (eta, hist, escalation_stage(metrics), dict(K.LAUNCHES), metrics)
+    (eta_g, hist_g, esc_g, launches, _), (eta_c, hist_c, esc_c, cpu_launches, _) = \
+        out["cuda"], out["cpu"]
+    nbuckets = run_buckets(out["cuda"][4], rays.x.shape[0])
+    steps, want, _, _ = expected_launches(params, esc_g, rays.x.shape[0], nbuckets=nbuckets)
     hist_err = max(abs(a - b) / abs(b) for a, b in zip(hist_g, hist_c))
     scale = float((eta_c - 1.0).abs().max())
     eta_err = float((eta_g.cpu() - eta_c).abs().max()) / scale
     print(f"{name}[f64 {params['res_list']}, {rays.x.shape[0]} rays, {steps} steps, escalated at "
           f"stage {esc_g}] card against CPU: loss history rel_err {hist_err:.3e}, final field err "
           f"{eta_err:.3e} of its largest deviation from 1 ({scale:.3e}) (tol {TOL_F64:g}); "
-          f"launches on the card {launches}", flush=True)
+          f"{nbuckets} exit-step bucket(s); launches on the card {launches}", flush=True)
     if esc_g != esc_c or launches != want or any(cpu_launches.values()):
         raise AssertionError(f"{name}: the card escalated at {esc_g} and launched {launches} "
                              f"(want {want}), the CPU escalated at {esc_c} and launched "
@@ -2869,51 +2930,443 @@ F2008_CONFIG = dict(nviews=32, nbins=64, spp=4, int_res=256, recon_res=16, splin
                     seed=0)
 F2008_JAX_REL_NORM = 0.8619833885451604
 F2008_BAND = (0.82, 0.91)
+# combo_recon16_true: the same with the recorded trajectories every 8 steps
+# (spline "true", path_stride 8, as run_fuel2008_sweep3.py runs the true
+# paths); the JAX package's rel_norm in it, on its own rays, printed by
+# tools/jax_fuel2008_reference.py (CPU), and the band of +-5 % around it that
+# the port's, on other rays, must lie in (the hermite run's band is as wide)
+F2008_TRUE_CONFIG = dict(F2008_CONFIG, spline="true", path_stride=8)
+F2008_TRUE_JAX_REL_NORM = 0.8633881328551197
+F2008_TRUE_BAND = (0.95 * F2008_TRUE_JAX_REL_NORM, 1.05 * F2008_TRUE_JAX_REL_NORM)
 
 
-def fuel2008_small_check():
+def fuel2008_small_check(spline="hermite"):
     """A tiny ``fuel_reconstruction`` on the card against ``device="cpu"`` on the
     same rays, f64: the reconstruction within 1e-12 of its largest entry."""
-    params = dict(nviews=4, nbins=8, spp=2, int_res=64, recon_res=8)
+    params = dict(nviews=4, nbins=8, spp=2, int_res=64, recon_res=8, spline=spline)
     gt = voxel_scenes.gaussian_bump(17, 1.0, amp=5e-4, dtype=torch.float64, device="cuda")
     rays = fuel2008.gen_rays(params, device="cpu")
     rec_gpu, rep_gpu = fuel2008.fuel_reconstruction(gt, params, rays=rays)
     rec_cpu, rep_cpu = fuel2008.fuel_reconstruction(gt.cpu(), params, rays=rays, device="cpu")
     err = float(abs(rec_gpu - rec_cpu).max() / max(1.0, abs(rec_cpu).max()))
-    print(f"fuel2008[f64 17^3, {rays.x.shape[0]} rays] card against CPU: reconstruction "
-          f"rel_err {err:.3e} (tol 1e-12), rel_norm {rep_gpu['rel_err_norm']:.6g} / "
-          f"{rep_cpu['rel_err_norm']:.6g}", flush=True)
+    print(f"fuel2008[{spline}, f64 17^3, {rays.x.shape[0]} rays] card against CPU: "
+          f"reconstruction rel_err {err:.3e} (tol 1e-12), rel_norm "
+          f"{rep_gpu['rel_err_norm']:.6g} / {rep_cpu['rel_err_norm']:.6g}", flush=True)
     if not err <= 1e-12 or rep_gpu["phi_nnz"] != rep_cpu["phi_nnz"]:
         raise AssertionError("fuel_reconstruction on the card disagrees with the CPU")
 
 
-def fuel2008_path():
-    """``fuel2008.fuel_reconstruction`` on the card in the configuration
-    ``combo_recon16_hermite`` (:data:`F2008_CONFIG`) on the 65^3 fuel volume in
-    f64, as the JAX driver runs it: one K2 launch (the ground-truth trace) and
-    one K1 (the error's field evaluation), the native marcher, LSQR on the
-    host."""
+def fuel2008_path(config=F2008_CONFIG, label="combo_recon16_hermite", band=F2008_BAND,
+                  jax_rel_norm=F2008_JAX_REL_NORM):
+    """``fuel2008.fuel_reconstruction`` on the card in a configuration of the
+    repo's (``combo_recon16_hermite``, or ``combo_recon16_true``) on the 65^3
+    fuel volume in f64, as the JAX driver runs it: one K2 launch (the
+    ground-truth trace), one K20 for the true paths (the recorded
+    trajectories), one K1 (the error's field evaluation), the native marcher,
+    LSQR on the host."""
     gt = voxel_scenes.fuel_injection_rif(dtype=torch.float64, device="cuda")
     K.reset_launches()
-    recon, rep = fuel2008.fuel_reconstruction(gt, F2008_CONFIG)
+    recon, rep = fuel2008.fuel_reconstruction(gt, config)
     launches = dict(K.LAUNCHES)
-    want = {**{name: 0 for name in build.KERNELS}, "trace_fwd": 1, "eval_grad": 1}
+    want = {**{name: 0 for name in build.KERNELS}, "trace_fwd": 1, "eval_grad": 1,
+            "record_paths": int(config["spline"] == "true")}
     if launches != want:
         raise AssertionError(f"fuel_reconstruction must launch {want}, counted {launches}")
     if native_loader._lib is None:
         raise AssertionError("fuel_reconstruction did not load the native marcher")
     if recon.shape != (16, 16, 16) or not np.isfinite(recon).all():
         raise AssertionError("fuel_reconstruction: the reconstruction is misshapen or not finite")
-    lo, hi = F2008_BAND
+    lo, hi = band
     rec = dict(launches=launches, **{k: rep[k] for k in (
         "num_rays", "trace_time", "phi_time", "phi_nnz", "solve_time", "integration_time",
         "total_time", "rel_err_norm", "max_err", "l1_err", "process_peak_rss_mb")},
-        jax_rel_norm=F2008_JAX_REL_NORM)
-    print("fuel2008[combo_recon16_hermite, f64 65^3, 524,288 rays]: " + json.dumps(rec),
-          flush=True)
+        jax_rel_norm=jax_rel_norm, band=band)
+    print(f"fuel2008[{label}, f64 65^3, 524,288 rays]: " + json.dumps(rec), flush=True)
     if not lo <= rep["rel_err_norm"] <= hi:
         raise AssertionError(f"fuel_reconstruction's rel_norm {rep['rel_err_norm']:.4f} lies "
-                             f"outside {F2008_BAND} (the JAX package's: {F2008_JAX_REL_NORM:.5f})")
+                             f"outside {band} (the JAX package's: {jax_rel_norm:.5f})")
+    return rec
+
+
+# ---------------------------------------------------------------------------
+# K20 record_paths, the 2008 baseline's recorded trajectories
+# ---------------------------------------------------------------------------
+
+# the small check's strides: 8 divides its 136 steps' bound (17^3, ds = h/2), 3 does not
+RECORD_STRIDES = (8, 3)
+
+
+def record_paths_case(rif, h, ds, x0, v0, stride, label, order=None):
+    """K20 against its plain version on the card: the float32 records bitwise
+    (the plain version's f64 positions cast as the kernel casts them)."""
+    plain = fuel2008.record_paths_plain(rif, x0, v0, h, ds, stride)
+    nrec = plain.shape[0]
+    got = K.record_paths(rif, h, x0, v0, ds, nrec, stride, order)
+    want = plain.to(torch.float32).reshape(-1, 3)
+    torch.cuda.synchronize()
+    err = float((got - want).abs().max())
+    bitwise = bool(torch.equal(got, want))
+    print(f"K20[{label}, stride {stride}, {nrec} records{', ordered' if order is not None else ''}"
+          f"] bitwise: {bitwise} (max abs err {err})", flush=True)
+    return err, [] if bitwise else [f"K20 record_paths differs from its plain version ({label}, "
+                                    f"stride {stride}): max abs {err}"]
+
+
+def record_paths_checks():
+    """K20 bitwise against its plain version: 17^3 x 512 f64 with strides 8 and
+    3 (the step bound not a multiple), two more rays that start outside and
+    never enter; 2^15 of ``combo_recon16_true``'s rays through the 65^3 fuel
+    volume in f64; then at that configuration's full width (524,288 rays, 66
+    records), the main path's call, with and without the ray order: bitwise
+    against the plain version on the same rays, its times beside the plain
+    version's, and its bounds.  ``max_abs_err`` is the largest of the
+    comparisons at 2^15 rays and at full width."""
+    failures = []
+    s = scene(17, 512, "float64", noise=0.02)
+    out = torch.tensor([[-s["h"], -s["h"], -s["h"]], [2 * s["span"], s["span"] / 2, 0.1]],
+                       dtype=torch.float64, device="cuda")
+    x0 = torch.cat([s["x0"], out]).contiguous()
+    v0 = torch.cat([s["v0"], torch.tensor([[-1.0, 0.0, 0.0], [1.0, 0.0, 0.0]],
+                                          dtype=torch.float64, device="cuda")]).contiguous()
+    for stride in RECORD_STRIDES:
+        failures += record_paths_case(s["rif"], s["h"], s["ds"], x0, v0, stride,
+                                      "f64 17^3 x 514, 2 outside")[1]
+    gt = voxel_scenes.fuel_injection_rif(dtype=torch.float64, device="cuda")
+    h = 1.0 / (gt.shape[0] - 1)
+    ds = h / 2
+    stride = F2008_TRUE_CONFIG["path_stride"]
+    rays = fuel2008.gen_rays(F2008_TRUE_CONFIG, device="cuda")
+    x, v = rays.x.contiguous(), rays.v.contiguous()
+    n = x.shape[0]
+    sub = slice(0, 1 << 15)
+    err, fails = record_paths_case(gt, h, ds, x[sub].contiguous(), v[sub].contiguous(), stride,
+                                   "combo_recon16_true, f64 65^3, 2^15 rays")
+    failures += fails
+    failures += record_paths_case(gt, h, ds, x[sub].contiguous(), v[sub].contiguous(), stride,
+                                  "combo_recon16_true, f64 65^3, 2^15 rays",
+                                  O.ray_order(x[sub], v[sub], gt.shape, h))[1]
+    order = O.ray_order(x, v, gt.shape, h)
+    nrec, steps = fuel2008.record_steps(gt.shape[0], h, ds, stride)
+    flush = torch.empty(64 << 20, dtype=torch.float32, device="cuda")
+    ms = time_ms(lambda: K.record_paths(gt, h, x, v, ds, nrec, stride), 5, flush)
+    ms_ordered = time_ms(lambda: K.record_paths(gt, h, x, v, ds, nrec, stride, order), 5, flush)
+    work = {}
+    torch.cuda.synchronize()
+    t0 = time.time()
+    plain = fuel2008.record_paths_plain(gt, x, v, h, ds, stride, stats=work)
+    torch.cuda.synchronize()
+    plain_ms = 1e3 * (time.time() - t0)
+    del flush
+    # the main path's call, at its full width, bitwise against the plain version
+    want = plain.to(torch.float32).reshape(-1, 3)
+    del plain
+    full_errs, full_bitwise = {}, True
+    for label, o in (("caller's order", None), ("ray order", order)):
+        got = K.record_paths(gt, h, x, v, ds, nrec, stride, o)
+        full_errs[label] = float((got - want).abs().max())
+        if not torch.equal(got, want):
+            full_bitwise = False
+            failures.append(f"K20 record_paths differs from its plain version at full width "
+                            f"({n} rays, {label}): max abs {full_errs[label]}")
+        del got
+    del want
+    print(f"K20[combo_recon16_true, f64 65^3, all {n} rays, stride {stride}, {nrec} records] "
+          f"bitwise: {full_bitwise} (max abs err {json.dumps(full_errs)})", flush=True)
+    err = max(err, *full_errs.values())
+    # each input read once, the records written once; K20's step is K2's
+    rec = set_bound(dict(
+        bytes=nrec * n * 3 * 4 + 2 * n * 3 * 8 + gt.numel() * 8,
+        flops=work["ray_steps"] * FLOPS_FWD_STEP + work["evals"] * FLOPS_FWD_EVAL),
+        PEAK_F64_FLOPS)
+    rec.update(ms=ms, ms_ordered=ms_ordered, plain_ms=plain_ms, library_ms=None,
+               max_abs_err=err, full_width_bitwise=full_bitwise, rays=n, records=nrec, steps=steps, stride=stride, work=work,
+               bytes_bound_ms=1e3 * rec["bytes"] / PEAK_BYTES_PER_S,
+               ops_bound_ms=1e3 * rec["flops"] / PEAK_F64_FLOPS,
+               record_mb=nrec * n * 12 / 1e6)
+    print(f"K20[combo_recon16_true, f64 65^3, {n} rays, {nrec} records of {stride} steps]: "
+          f"{ms:.4f} ms (ray order: {ms_ordered:.4f} ms), plain {plain_ms:.1f} ms; records "
+          f"{rec['record_mb']:.1f} MB; {work['ray_steps']} ray-steps, {work['evals']} "
+          f"evaluating; bound {rec['bound_ms']:.4f} ms by {rec['bound_by']} (bytes "
+          f"{rec['bytes_bound_ms']:.4f}, f64 operations {rec['ops_bound_ms']:.4f}) = "
+          f"{100 * rec['bound_ms'] / ms:.1f} %", flush=True)
+    return rec, failures
+
+
+# ---------------------------------------------------------------------------
+# phase m: the ray mesh (parallel/) and fuel-128
+# ---------------------------------------------------------------------------
+
+FUEL128_ITERS = 10
+
+
+def mesh_bench_check():
+    """``make_sharded_trace`` and ``make_sharded_trace_exact`` on this process's
+    mesh (one rank: one card) on the bench scene (128^3 f32, 2^18 rays)
+    against ``api.trace`` and ``trace_exact``: the outputs bitwise, the
+    gradients within 1e-5 of the largest entry of the unsharded path's (the
+    atomic adds of both sum in no fixed order), the launches those of the
+    unsharded path plus the exact path's recomputed checkpoints."""
+    s = scene(RES, NRAYS, "float32")
+    mesh = parallel.make_ray_mesh()
+    if mesh.world_size != 1:
+        raise AssertionError(f"one process must make a mesh of one rank, got {mesh}")
+    failures, rec = [], {}
+    target = s["target"]
+    for label, sharded, plain in (
+            ("make_sharded_trace", parallel.make_sharded_trace(mesh, s["h"], s["ds"], RES),
+             lambda r, a, b: api.trace(r, a, b, s["h"], s["ds"])),
+            ("make_sharded_trace_exact",
+             parallel.make_sharded_trace_exact(mesh, s["h"], s["ds"], RES, seg=SEG),
+             lambda r, a, b: tracer.trace_exact(r, a, b, s["h"], s["ds"], SEG))):
+        outs = []
+        for fn in (sharded, plain):
+            r = s["rif"].clone().requires_grad_(True)
+            K.reset_launches()
+            xt, vt = fn(r, s["x0"], s["v0"])
+            (((xt - target) ** 2).sum() + vt.sum()).backward()
+            torch.cuda.synchronize()
+            outs.append((xt.detach(), vt.detach(), r.grad, dict(K.LAUNCHES)))
+        (xs, vs, gs, ls), (xp, vp, gp, lp) = outs
+        bitwise = bool(torch.equal(xs, xp) and torch.equal(vs, vp))
+        err = float((gs - gp).abs().max() / gp.abs().max())
+        want = dict(lp)
+        if label.endswith("exact"):
+            want["trace_ckpt"] += 1  # the sharded backward recomputes the checkpoints
+        rec[label] = dict(bitwise=bitwise, grad_rel_err=err, launches={
+            k: v for k, v in ls.items() if v})
+        print(f"mesh[{label}, one rank, f32 {RES}^3 x {NRAYS}] outputs bitwise: {bitwise}; "
+              f"gradient against the unsharded path's {err:.3e} of its largest entry (tol "
+              f"{TOL_F32_GRAD:g}); launches {rec[label]['launches']}", flush=True)
+        if not bitwise or not err <= TOL_F32_GRAD or ls != want:
+            failures.append(f"{label} on one rank disagrees with the unsharded path: bitwise "
+                            f"{bitwise}, gradient {err:.3e}, launches {ls} (want {want})")
+    return rec, failures
+
+
+def fuel128_params():
+    return runner.cfg.load_params(os.path.join(CONFIGS, "params-fuel.yaml"), "fuel-128")
+
+
+def fuel128_path(iters=FUEL128_ITERS):
+    """``configs/params-fuel.yaml`` ``fuel-128`` through ``runner.run`` at full
+    width as a user runs it (``mesh: true``: the ray mesh of one rank on one
+    card; seven stages to 129^3, 32 views of 128^2 x 4 spp = 2,097,152 rays;
+    f32; spot checks and escalation on), ``optim_iters`` cut from 300 to
+    ``iters``.  Every kernel's launches asserted per stage and in all
+    for the stage the escalation fired at; per stage the step time, the
+    kernels' time (events around the launches), the host's share and the
+    loss; the final ``reconstruction_error``.  ``iters=300`` is the shipped
+    run (8,400 steps)."""
+    params = dict(fuel128_params(), optim_iters=iters)
+    if not params.get("mesh") or "ANRT_EXACT_TOL" in os.environ \
+            or "ANRT_BUCKETED" in os.environ:
+        raise AssertionError("fuel-128 must run on the mesh, as a user runs it")
+    res_list, iters = params["res_list"], params["optim_iters"]
+    nrays = params["nviews"] * params["nbins"] ** 2 * params["spp"]
+    step_rows, events = [], []
+
+    def stat(it, loss, secs):
+        step_rows.append((it, loss, secs, len(events)))
+
+    metrics = MetricsLogger()
+    K.reset_launches()
+    K.record_events(events)
+    t0 = time.time()
+    try:
+        eta, hist, gtruth = runner.run(os.path.join(CONFIGS, "params-fuel.yaml"), "fuel-128",
+                                       overrides=dict(optim_iters=iters), device="cuda",
+                                       stat_fn=stat, metrics=metrics)
+        torch.cuda.synchronize()
+    finally:
+        K.record_events(None)
+    seconds = time.time() - t0
+    launches, paths = dict(K.LAUNCHES), kernel_paths()
+    escalated = escalation_stage(metrics)
+    if run_buckets(metrics, nrays) != 1:
+        raise AssertionError("fuel-128 took exit-step buckets on the card")
+    steps, want, want_paths, want_stages = expected_launches(params, escalated, nrays, 1,
+                                                             mesh=True)
+    got_stages, after = stage_launches(events, step_rows, params)
+    chunks = len(CK._chunks(nrays, CK.exact_chunk_rays()))
+    print(f"fuel128[params-fuel.yaml fuel-128, mesh of one rank] {nrays} rays, stages "
+          f"{res_list}, optim_iters {iters} (shipped {FUEL_ITERS_SHIPPED}): {steps} Adam steps "
+          f"in {seconds:.2f} s; escalated at stage {escalated}; the exact path's batch is "
+          f"{chunks} chunks; launches {launches}; by path {paths}", flush=True)
+    if escalated is None:
+        raise AssertionError("fuel-128 never escalated: K5 and K6 are not on its path")
+    if launches != want or paths != want_paths or got_stages != want_stages or after:
+        raise AssertionError(f"fuel-128 must launch {want}, by path {want_paths}, by stage "
+                             f"{want_stages}, counted {launches}, {paths}, {got_stages} and "
+                             f"{len(after)} after the last step")
+    if nrays != 2097152 or len(hist) != steps or len(step_rows) != steps \
+            or not all(map(math.isfinite, hist)) or not hist[-1] < hist[0]:
+        raise AssertionError("fuel-128 is not at full width, lost steps or did not learn")
+    if eta.shape != (129,) * 3 or eta.dtype != torch.float32 or not eta.is_cuda \
+            or not bool(torch.isfinite(eta).all()):
+        raise AssertionError("fuel-128's field is not a finite 129^3 f32 tensor on the card")
+    per_stage, first = [], 0
+    for s_, r in enumerate(res_list):
+        rows = step_rows[first:first + iters * (s_ + 1)]
+        first += len(rows)
+        exact = s_ >= escalated
+        names = (("trace_fwd", "backtrace") if not exact else
+                 ("trace_ckpt",) + ("trace_ckpt", "backtrace_exact") * chunks)
+        kern = []
+        for row in rows:
+            own = events[row[3] - len(names):row[3]]
+            if tuple(n_ for n_, _, _ in own) != names:
+                raise AssertionError(f"fuel-128: a step's launches at stage {s_} are not {names}")
+            kern.append(sum(a.elapsed_time(b) for _, a, b in own))
+        med, kmed = median([1e3 * row[2] for row in rows]), median(kern)
+        per_stage.append(dict(res=r, steps=len(rows), gradient="exact" if exact else "adjoint",
+                              step_ms_median=med, kernel_ms_median=kmed,
+                              host_share=(med - kmed) / med, rays_per_s=nrays / (1e-3 * med),
+                              loss_last=rows[-1][1], launches=got_stages[s_]))
+        print(f"fuel128 stage {s_} {r}^3 ({per_stage[-1]['gradient']}): {len(rows)} steps, "
+              f"median {med:.3f} ms/step = {nrays / (1e-3 * med):.4g} rays/s; kernels "
+              f"{kmed:.3f} ms ({100 * kmed / med:.1f} %), host and small kernels "
+              f"{med - kmed:.3f} ms; loss {rows[-1][1]:.6g}", flush=True)
+    err = fuel_injection.reconstruction_error(eta, gtruth, background=1.0 + params["fuel_val"])
+    print(f"fuel128: loss {hist[0]:.6g} -> {hist[-1]:.6g}; reconstruction_error "
+          f"{json.dumps(err)}", flush=True)
+    return dict(seconds=seconds, steps=steps, nrays=nrays, launches=launches, paths=paths,
+                escalated=escalated, chunks=chunks, per_stage=per_stage, loss_first=hist[0],
+                loss_last=hist[-1], **err)
+
+
+def fuel128_small_check():
+    """``fuel-128``'s mesh path in f64 at a small size (stages [3, 5, 9], 2 views
+    of 8^2 x 4 spp = 512 rays, 3 iterations a stage, escalation forced at
+    stage 1 so that the sharded exact path runs too) on the card against the
+    CPU, on the same rays: loss history and field within 1e-9."""
+    params = dict(fuel128_params(), res_list=[3, 5, 9], nviews=2, nbins=8, optim_iters=3,
+                  dtype="float64")
+    rays, _ = fuel_injection.gen_start_rays(params, torch.Generator().manual_seed(0),
+                                            torch.float64)
+    gtruth = voxel_scenes.fuel_injection_rif(params["fuel_val"], torch.float64, "cpu")
+    out = {}
+    os.environ["ANRT_EXACT_TOL"] = "-1"
+    try:
+        for device in ("cuda", "cpu"):
+            metrics = MetricsLogger()
+            K.reset_launches()
+            eta, hist, _ = fuel_injection.run_opt(params, None, gtruth, rays=rays, device=device,
+                                                  metrics=metrics)
+            out[device] = (eta, hist, escalation_stage(metrics), dict(K.LAUNCHES), metrics)
+    finally:
+        del os.environ["ANRT_EXACT_TOL"]
+    (eta_g, hist_g, esc_g, launches, _), (eta_c, hist_c, esc_c, cpu_launches, _) = \
+        out["cuda"], out["cpu"]
+    steps, want, _, _ = expected_launches(params, esc_g, rays.x.shape[0], 1,
+                                          run_buckets(out["cuda"][4], rays.x.shape[0]),
+                                          mesh=True)
+    hist_err = max(abs(a - b) / abs(b) for a, b in zip(hist_g, hist_c))
+    scale = float((eta_c - (1.0 + params["fuel_val"])).abs().max())
+    eta_err = float((eta_g.cpu() - eta_c).abs().max()) / scale
+    print(f"fuel128[f64 {params['res_list']}, {rays.x.shape[0]} rays, {steps} steps, mesh, "
+          f"escalated at stage {esc_g}] card against CPU: loss history rel_err "
+          f"{hist_err:.3e}, final field err {eta_err:.3e} of its largest deviation "
+          f"({scale:.3e}) (tol {TOL_F64:g}); launches on the card {launches}", flush=True)
+    if esc_g != 1 or esc_c != 1 or launches != want or any(cpu_launches.values()):
+        raise AssertionError(f"fuel-128 small: escalated {esc_g} / {esc_c}, launched {launches} "
+                             f"(want {want}) and {cpu_launches} on the CPU")
+    if not (hist_err <= TOL_F64 and eta_err <= TOL_F64 and scale > 0):
+        raise AssertionError("fuel-128's mesh path on the card disagrees with the CPU")
+
+
+# ---------------------------------------------------------------------------
+# exit-step compaction (tracer/compaction.py)
+# ---------------------------------------------------------------------------
+
+def compaction_check(eta):
+    """``compaction.trace_bucketed`` against ``api.trace`` on the card on a batch
+    whose chord spread is at least 3: one Luneburg step's rays (983,040; a
+    randomly turned set of cube faces, the source whose chord spread passes
+    the JAX rule's threshold where its rotation spreads the chords) through the Luneburg run's field
+    resampled to 17^3, its last adjoint stage, in the buckets
+    ``auto_buckets`` picks for them.  Outputs bitwise, the gradient within
+    1e-5 of the largest entry of ``api.trace``'s (sums in another order),
+    launches 4 K2 + 4 K3 against 1 + 1, and the times of forward + backward
+    (CUDA events, the median of 5, alternated).  ``make_trace`` given these
+    rays as its probe on the card must take no buckets (its rule there)."""
+    params = driver_params("luneburg")
+    rays = driver_draw("luneburg", params, torch.Generator(device="cuda").manual_seed(4242))
+    x, v = rays.x.contiguous(), rays.v.contiguous()
+    span, res = params["vol_span"], 17
+    h, ds = span / (res - 1), span / (params["res_list"][-1] - 1) / params["step_res"]
+    rif = G.upres_volume(eta, res).contiguous()
+    spread = compaction.chord_spread(rif.shape, h, x, v, ds)
+    nb = compaction.auto_buckets(span, x, v, ds)
+    if "ANRT_BUCKETED" in os.environ:
+        raise AssertionError("ANRT_BUCKETED is set: make_trace's rule on the card is not seen")
+    card_pick = common.make_trace(span, ds, probe_rays=(x[:4096], v[:4096])).nbuckets
+    outs, times = {}, {"bucketed": [], "whole": []}
+    fns = {"bucketed": lambda r: compaction.trace_bucketed(r, x, v, h, ds, nb),
+           "whole": lambda r: api.trace(r, x, v, h, ds)}
+
+    def run(name):
+        r = rif.clone().requires_grad_(True)
+        K.reset_launches()
+        start, stop = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        xt, vt = fns[name](r)
+        (xt ** 2 + xt * vt).sum().backward()
+        stop.record()
+        torch.cuda.synchronize()
+        times[name].append(start.elapsed_time(stop))
+        return xt.detach(), vt.detach(), r.grad, dict(K.LAUNCHES)
+
+    for i in range(6):
+        for name in (("bucketed", "whole") if i % 2 else ("whole", "bucketed")):
+            outs[name] = run(name)
+    (xb, vb, gb, lb), (xw, vw, gw, lw) = outs["bucketed"], outs["whole"]
+    bitwise = bool(torch.equal(xb, xw) and torch.equal(vb, vw))
+    err = float((gb - gw).abs().max() / gw.abs().max())
+    want = {**{n_: 0 for n_ in build.KERNELS}, "trace_fwd": nb, "backtrace": nb}
+    rec = dict(buckets=nb, make_trace_buckets=card_pick, spread=spread, rays=x.shape[0], res=res,
+               bitwise=bitwise,
+               grad_rel_err=err, launches={k: v_ for k, v_ in lb.items() if v_},
+               ms_bucketed=median(times["bucketed"][1:]), ms_whole=median(times["whole"][1:]))
+    print(f"compaction[luneburg step, {x.shape[0]} rays, 17^3, chord spread {spread:.3f}, "
+          f"{nb} buckets] outputs bitwise: {bitwise}; gradient against api.trace's {err:.3e} "
+          f"(tol {TOL_F32_GRAD:g}); launches {rec['launches']}; forward + backward "
+          f"{rec['ms_bucketed']:.3f} ms bucketed, {rec['ms_whole']:.3f} ms whole; make_trace "
+          f"with this probe on the card takes {card_pick}", flush=True)
+    failures = []
+    if card_pick != 0 or nb != 4 or not spread >= 3.0 or not bitwise or not err <= TOL_F32_GRAD or lb != want \
+            or lw["trace_fwd"] != 1 or lw["backtrace"] != 1:
+        failures.append(f"trace_bucketed on the card: {rec}")
+    return rec, failures
+
+
+def luneburg_bucket_steps(rounds=3):
+    """The Luneburg driver's adjoint stages (3^3 .. 17^3) through
+    ``runner.run``, 10 iterations a stage (100 steps), with 4 exit-step
+    buckets (``ANRT_BUCKETED=4``, what its probe picks where the rotation
+    spreads the chords) and with none (``ANRT_BUCKETED=0``), alternated over
+    ``rounds``: the median ms a step per stage of each."""
+    overrides = dict(res_list=[3, 5, 9, 17], optim_iters=10, record_iters=10 ** 9,
+                     grad_spotcheck=False, auto_exact=False)
+    yaml_name, section = DRIVERS["luneburg"]
+    out = {"buckets": [], "whole": []}
+    for i in range(2 * rounds):
+        name = ("buckets", "whole")[i % 2]
+        rows = []
+        os.environ["ANRT_BUCKETED"] = "4" if name == "buckets" else "0"
+        try:
+            runner.run(os.path.join(CONFIGS, yaml_name), section, overrides=overrides,
+                       device="cuda", stat_fn=lambda it, loss, secs: rows.append(1e3 * secs))
+        finally:
+            os.environ.pop("ANRT_BUCKETED", None)
+        out[name].append(rows)
+    rec = {}
+    for name, runs in out.items():
+        rec[name] = {f"{r}^3": median([ms for run in runs for ms in
+                                        run[10 * s * (s + 1) // 2:10 * (s + 1) * (s + 2) // 2]])
+                     for s, r in enumerate(overrides["res_list"])}
+    print("luneburg adjoint stages, median ms a step: with 4 buckets "
+          + json.dumps(rec["buckets"]) + "; ANRT_BUCKETED=0 " + json.dumps(rec["whole"]),
+          flush=True)
     return rec
 
 
@@ -3060,6 +3513,13 @@ def main():
                                 f"f32 {full_bins} bins, a fiber step's two passes")
     cable_api_check()
     failures += cable_block_path_check()
+    k20, k20_failures = record_paths_checks()
+    failures += k20_failures
+    times["record_paths"] = k20
+    t_m = time.time()
+    mesh_rec, mesh_failures = mesh_bench_check()
+    failures += mesh_failures
+    phase_m_checks_s = time.time() - t_m
 
     # phase v: the variants K11-K14 against their plain versions
     t_v = time.time()
@@ -3121,6 +3581,9 @@ def main():
         if name in ("image", "focalstack"):
             drivers[name]["splat"] = splat_times(name, driver_params(name), drivers[name]["eta"])
     big_row = big_stage_check(drivers["luneburg"]["eta"], failures)
+    comp, comp_failures = compaction_check(drivers["luneburg"]["eta"])
+    failures += comp_failures
+    comp["luneburg_adjoint_stages_ms_a_step"] = luneburg_bucket_steps()
     for name in DRIVERS:
         drivers[name].pop("eta")
         driver_small_check(name)
@@ -3182,9 +3645,16 @@ def main():
     t_p = time.time()
     fuel2008_small_check()
     f2008 = fuel2008_path()
+    fuel2008_small_check("true")
+    f2008_true = fuel2008_path(F2008_TRUE_CONFIG, "combo_recon16_true", F2008_TRUE_BAND,
+                               F2008_TRUE_JAX_REL_NORM)
     phase_p_s = time.time() - t_p
+    t_m = time.time()
+    fuel128 = fuel128_path()
+    fuel128_small_check()
+    phase_m_s = phase_m_checks_s + time.time() - t_m
     print(f"phases: v (variants) {phase_v_s:.1f} s, x (exact variants) {phase_x_s:.1f} s, "
-          f"p (fuel2008) {phase_p_s:.1f} s", flush=True)
+          f"p (fuel2008) {phase_p_s:.1f} s, m (mesh, fuel-128) {phase_m_s:.1f} s", flush=True)
     full_run = fuel_path(FUEL_ITERS_SHIPPED, "f32 full width, shipped optim_iters", work)
     print(f"fuel[shipped] {full_run['steps']} steps in {full_run['seconds']:.1f} s, escalated "
           f"at stage {full_run['escalated']}, rel_norm {full_run['rel_norm']:.4f}", flush=True)
@@ -3195,12 +3665,16 @@ def main():
           flush=True)
     print("exact variants: " + json.dumps({k: v for k, v in exact_path.items()
                                             if k != "launches"}), flush=True)
+    print("mesh: " + json.dumps(mesh_rec), flush=True)
+    print("fuel128: " + json.dumps(fuel128), flush=True)
+    print("compaction: " + json.dumps(comp), flush=True)
 
     paths = {"bench": bench_launches, "probe": probe_launches, "fuel": fuel["launches"],
              **{name: d["launches"] for name, d in drivers.items()},
              "fiber": fiber_rec["launches"], "fiber_exact": fiber_exact["launches"],
              "variants": variants["launches"], "variants_exact": exact_path["launches"],
-             "fuel2008": f2008["launches"]}
+             "fuel2008": f2008["launches"], "fuel2008_true": f2008_true["launches"],
+             "fuel128": fuel128["launches"]}
     replaces = {
         "eval_grad": "adjointnonlinearraytracing_tpu/benchmarks/probe_evalmath.py:107",
         "trace_fwd": "adjointnonlinearraytracing_tpu/tracer/paired.py:64",
@@ -3220,6 +3694,7 @@ def main():
            for name in ("trace_plane_ckpt", "trace_target_ckpt", "trace_sdf_ckpt")},
         **{name: "adjointnonlinearraytracing_tpu/tracer/checkpointed.py:209"
            for name in ("backtrace_plane_exact", "backtrace_sdf_exact")},
+        "record_paths": "adjointnonlinearraytracing_tpu/pathmatrix/fuel2008.py:55",
     }
     errs = dict(zip(("eval_grad", "trace_fwd", "backtrace"), zip(cmp["abs_err"], cmp["rel_err"])))
     errs["gather_rows"] = (gather["max_abs_err"], gather["max_abs_err"])
@@ -3231,6 +3706,7 @@ def main():
     for name in ("trace_plane", "trace_target", "trace_sdf"):  # bitwise, asserted
         errs[name] = var_row["fwd_err"][name]
     errs["backtrace_sdf"] = (var_row["backtrace_sdf_abs_err"], var_row["backtrace_sdf_rel_err"])
+    errs["record_paths"] = (k20["max_abs_err"], k20["max_abs_err"])  # bitwise, asserted
     for variant, (fname, bname) in EXACT_VARIANTS.items():  # the f32 checks at full width
         rows_b = [r for r in variant_exact_rows
                   if r["variant"] == variant and r["label"] == f"f32 {RES}^3"]
@@ -3360,6 +3836,14 @@ def main():
                                      name.split("_")[1]] + (" (backward)" if name.startswith(
                                          "backtrace") else "")}
            for name in EXACT_VARIANT_KERNELS},
+        "record_paths": {"rel_tol": 0.0, "rel_tol_against": "bitwise (the float32 records)",
+                         "scene": f"combo_recon16_true: the 65^3 fuel volume, f64, {k20['rays']} "
+                                  f"rays, {k20['records']} records of {k20['stride']} steps",
+                         **{k: k20[k] for k in ("ms_ordered", "work", "bytes_bound_ms",
+                                                "ops_bound_ms", "record_mb")},
+                         "peak_flops": "f64, 34 TFLOP/s",
+                         "launched_by": "pathmatrix.fuel2008.fuel_reconstruction "
+                                        "(spline 'true')"},
         "gather_rows": {"rel_tol": 0.0, "rows": GATHER_N, "table_rows": GATHER_ROWS,
                         "ms_dirty_flush": gather["ms_dirty_flush"],
                         "library_ms_dirty_flush": gather["library_ms_dirty_flush"],

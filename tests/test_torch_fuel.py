@@ -24,6 +24,7 @@ import torch
 from adjointnonlinearraytracing_tpu.experiments import common as JC
 from adjointnonlinearraytracing_tpu.experiments import config as JCFG
 from adjointnonlinearraytracing_tpu.experiments import fuel_injection as JF
+from adjointnonlinearraytracing_tpu.experiments import runner as JR
 from adjointnonlinearraytracing_tpu.experiments import voxel_scenes as JV
 from adjointnonlinearraytracing_tpu.sources import sources as JS
 from adjointnonlinearraytracing_tpu_torch import tracer as TT
@@ -151,11 +152,16 @@ def test_make_trace_modes_match_jax(probe_scene, monkeypatch):
     _close(tgrad(trace), want["exact"], 1e-10)
     with pytest.raises(ValueError, match="unknown gradient mode"):
         tgrad(TC.make_trace(SPAN, ds, gradient="tape"))
-    with pytest.raises(NotImplementedError, match="A15"):
-        TC.make_trace(SPAN, ds, use_mesh=True)
+    # the ray mesh (one rank in this process) and exit-step buckets: the same
+    # gradients, sharded and bucketed
+    for mode in ("adjoint", "exact"):
+        trace = TC.make_trace(SPAN, ds, use_mesh=True, gradient=mode)
+        assert trace.mesh.world_size == 1
+        _close(tgrad(trace), want[mode], 1e-10)
     monkeypatch.setenv("ANRT_BUCKETED", "4")
-    with pytest.raises(NotImplementedError, match="A8"):
-        TC.make_trace(SPAN, ds)
+    trace = TC.make_trace(SPAN, ds)
+    assert trace.nbuckets == 4 and x.shape[0] % 4 == 0
+    _close(tgrad(trace), want["adjoint"], 1e-10)
 
 
 def test_gradient_spotcheck_matches_jax(probe_scene, monkeypatch):
@@ -267,7 +273,8 @@ def test_runner_runs_the_shipped_yaml(tmp_path):
     assert gt.shape == (65, 65, 65) and gt.dtype == torch.float32 and eta.shape == (3, 3, 3)
     assert len(hist) == 1 and np.isfinite(hist[0])
     rows = [json.loads(line) for line in (out / "metrics.jsonl").read_text().splitlines()]
-    assert rows == [{"step": 0, "time": rows[0]["time"], "res": 3}]
+    assert rows == [{"step": 0, "time": rows[0]["time"], "exit_buckets": 0},
+                    {"step": 0, "time": rows[1]["time"], "res": 3}]
     for name in ("result.npz", "loss_plot.png", "fuel_injection_0.png"):
         assert (out / name).stat().st_size > 0
     assert TR.main([FUEL_YAML, "--device", "cpu", "--set", "res_list=[3]", "--set", "nviews=1",
@@ -276,15 +283,65 @@ def test_runner_runs_the_shipped_yaml(tmp_path):
 
 
 def test_what_this_slice_leaves_out_raises_and_names_its_roadmap_item():
-    with pytest.raises(NotImplementedError, match="A15"):
-        TR.run(FUEL_YAML, "fuel-128", device="cpu")
-    with pytest.MonkeyPatch.context() as mp:
-        mp.setenv("ANRT_BUCKETED", "2")
-        with pytest.raises(NotImplementedError, match="A8"):
-            TR.run(FUEL_YAML, device="cpu", overrides=dict(
-                res_list=[3], nviews=1, nbins=2, optim_iters=1, grad_spotcheck=False))
+    from adjointnonlinearraytracing_tpu_torch import parallel as TP
+
+    for name in ("plane", "target", "sdf", "cable"):
+        with pytest.raises(NotImplementedError, match="A15b"):
+            getattr(TP, f"make_sharded_trace_{name}")(TP.make_ray_mesh(), 0.25, 0.125, 5)
     with pytest.raises(ValueError, match="unknown experiment family"):
         TR.run(FUEL_YAML, overrides=dict(family="nope"), device="cpu")
+
+
+FUEL128_TINY = dict(res_list=[3], nviews=2, nbins=4, optim_iters=4, lr=2e-3, fuel_val=0.05,
+                    grad_spotcheck=False, auto_exact=False)
+
+
+def test_fuel128_runs_on_the_mesh_like_the_jax_trainer(monkeypatch):
+    """``fuel-128`` (``mesh: true``, spp 4) through the runner's command line
+    with tiny ``--set`` overrides, against the JAX runner with the same
+    section and overrides on its 8 virtual devices (its cell-table stepper,
+    which compiles faster); the port draws the JAX key's rays, the ground
+    truth is the shipped volume on both sides, f64."""
+    monkeypatch.setenv("ANRT_FAST_PATH", "classic")
+    want_eta, want_hist, _ = JR.run(FUEL_YAML, "fuel-128",
+                                    overrides=dict(FUEL128_TINY, dtype=jnp.float64))
+    rays, rpv = JS.rand_rays_in_sphere(jax.random.PRNGKey(0), 2, (4, 4), 4, SPAN,
+                                       angle_span=360, circle=False, xaxis=False, sensor_dist=0)
+    assert rays.x.shape[0] == 128
+    drawn = []
+
+    def jax_rays(params, gen, dtype=torch.float32):
+        assert params["mesh"] is True and params["spp"] == 4
+        drawn.append(dtype)
+        return _torch_rays(tuple(np.array(a) for a in rays)), rpv
+
+    monkeypatch.setattr(TF, "gen_start_rays", jax_rays)
+    sets = [f"{k}={json.dumps(v)}" for k, v in FUEL128_TINY.items()] + ["dtype=float64"]
+    got_eta, got_hist, _ = TR.main([FUEL_YAML, "fuel-128", "--device", "cpu",
+                                    *(a for kv in sets for a in ("--set", kv))])
+    assert drawn == [torch.float64]
+    assert len(got_hist) == len(want_hist) == 4
+    np.testing.assert_allclose(got_hist, [float(h) for h in want_hist], rtol=1e-8, atol=0)
+    _close(got_eta, np.asarray(want_eta), 1e-8)
+    assert got_hist[-1] < got_hist[0]
+
+
+def test_bucketed_exit_steps_run_through_the_runner(monkeypatch):
+    """``ANRT_BUCKETED=2`` through the runner: the run equals the unbucketed one
+    (the outputs are the same bit for bit; the gradient sums in another order);
+    the run logs the buckets it took."""
+    overrides = dict(res_list=[3], nviews=1, nbins=4, optim_iters=2, grad_spotcheck=False,
+                     dtype="float64")
+    m0, m2 = MetricsLogger(), MetricsLogger()
+    monkeypatch.setenv("ANRT_BUCKETED", "0")
+    eta0, hist0, _ = TR.run(FUEL_YAML, device="cpu", overrides=overrides, metrics=m0)
+    monkeypatch.setenv("ANRT_BUCKETED", "2")
+    eta2, hist2, _ = TR.run(FUEL_YAML, device="cpu", overrides=overrides, metrics=m2)
+    assert [r["exit_buckets"] for r in m0.history if "exit_buckets" in r] == [0]
+    assert [r["exit_buckets"] for r in m2.history if "exit_buckets" in r] == [2]
+    assert len(hist2) == 2 and all(np.isfinite(hist2))
+    np.testing.assert_allclose(hist2, hist0, rtol=1e-12, atol=0)
+    _close(eta2, eta0.numpy(), 1e-12)
 
 
 def test_step_timer_and_metrics_logger(tmp_path):

@@ -6,9 +6,11 @@ sides; the ground-truth trace is the port's plain stepper against the JAX
 tracer, fed the same rays (drawn with the JAX package's own key).
 Tolerances: the path matrix and operators ``1e-12`` relative; the native
 marcher against the numpy marcher ``1e-9`` absolute, as the JAX package holds
-its own two (the cubic's powers round differently); the reconstruction
-``1e-8`` relative to its largest magnitude (LSQR on inputs that differ by
-rounding).
+its own two (the cubic's powers round differently); the recorded
+trajectories ``1e-12`` in f64 and one float32 ulp after the cast (a position
+a rounding away from a float32 tie may round the other way); the
+reconstruction ``1e-8`` relative to its largest magnitude (LSQR on inputs that
+differ by rounding), for each path model.
 """
 
 import jax
@@ -22,6 +24,7 @@ from adjointnonlinearraytracing_tpu.pathmatrix import fuel2008 as JF
 from adjointnonlinearraytracing_tpu.pathmatrix import path_matrix as JPM
 from adjointnonlinearraytracing_tpu.sources import sources as JS
 from adjointnonlinearraytracing_tpu_torch.kernels import build
+from adjointnonlinearraytracing_tpu_torch.kernels import wrappers as kernels
 from adjointnonlinearraytracing_tpu_torch.native import loader
 from adjointnonlinearraytracing_tpu_torch.pathmatrix import fuel2008 as TF
 from adjointnonlinearraytracing_tpu_torch.pathmatrix import path_matrix as TPM
@@ -103,23 +106,68 @@ def test_operators_match_jax():
 
 
 @pytest.fixture(scope="module")
-def tiny_runs():
-    """The JAX pipeline and the port's (CPU) on the same rays, linear and hermite."""
+def tiny_rays():
+    """The tiny configuration's ground truth and rays, drawn with the JAX key."""
     gt = JV.gaussian_bump(17, 1.0, amp=0.0005).astype(jnp.float64)
     rays, _ = JS.rand_rays_in_sphere(jax.random.PRNGKey(TINY["seed"]), TINY["nviews"],
                                      (TINY["nbins"],) * 2, TINY["spp"], 1.0, circle=False,
                                      angle_span=360, sensor_dist=1.0)
+    return gt, rays
+
+
+@pytest.mark.parametrize("stride", [8, 3])
+def test_record_paths_matches_jax(tiny_rays, stride, monkeypatch):
+    """The recorded trajectories (K20's plain version) against JAX
+    ``record_paths`` on the tiny configuration's 512 rays at 17^3, with two
+    rays that start outside and never enter (they go on straight): the f64
+    positions before the cast within 1e-12, the float32 buffer within one
+    float32 ulp, the same record count (stride 3 does not divide the 136
+    steps' bound)."""
+    gt, rays = tiny_rays
+    x = np.concatenate([np.array(rays.x), [[-0.5, -0.5, -0.5], [1.5, 0.5, 0.5]]])
+    v = np.concatenate([np.array(rays.v), [[-1.0, 0.0, 0.0], [1.0, 0.0, 0.0]]])
+    h = 1.0 / 16
+    ds = h / 2
+    # the JAX function's positions before its cast to float32 (its last line
+    # is np.asarray(path, dtype=np.float32))
+    monkeypatch.setattr(JF, "np", type("NoCast", (), dict(asarray=staticmethod(
+        lambda a, dtype=None: np.asarray(a)), float32=None)))
+    want64, nrec = JF.record_paths(gt, jnp.asarray(x), jnp.asarray(v), h, ds, stride)
+    monkeypatch.undo()
+    want64 = np.asarray(want64)
+    assert want64.dtype == np.float64
+    want = np.asarray(want64, dtype=np.float32)
+    gt_t, x_t, v_t = (torch.from_numpy(np.array(a)) for a in (gt, x, v))
+    assert TF.record_steps(17, h, ds, stride) == (nrec, (nrec - 1) * stride)
+    assert nrec == 136 // stride + 1
+    got64 = TF.record_paths_plain(gt_t, x_t, v_t, h, ds, stride)
+    assert got64.shape == (nrec, 514, 3) and got64.dtype == torch.float64
+    np.testing.assert_allclose(got64.numpy().reshape(-1, 3), want64, rtol=0, atol=1e-12)
+    got, got_nrec = TF.record_paths(gt_t, x_t, v_t, h, ds, stride)
+    assert got_nrec == nrec and got.dtype == torch.float32 and got.shape == (nrec * 514, 3)
+    np.testing.assert_array_less(np.abs(got.numpy() - want), np.spacing(np.abs(want)) * 1.0001)
+    # the rays outside go on straight, one ds a step
+    out = got64.numpy()[:, 512:, :]
+    np.testing.assert_allclose(out[-1] - out[0], (nrec - 1) * stride * ds * v[512:], atol=1e-12)
+    with pytest.raises(ValueError, match="CUDA tensors"):
+        kernels.record_paths(gt_t, h, x_t, v_t, ds, nrec, stride)
+
+
+@pytest.fixture(scope="module")
+def tiny_runs(tiny_rays):
+    """The JAX pipeline and the port's (CPU) on the same rays, for each path model."""
+    gt, rays = tiny_rays
     rays_t = (torch.from_numpy(np.array(rays.x)), torch.from_numpy(np.array(rays.v)))
     gt_t = torch.from_numpy(np.asarray(gt))
     out = {}
-    for spline in ("linear", "hermite"):
+    for spline in ("linear", "hermite", "true"):
         params = dict(TINY, spline=spline)
         out[spline] = (JF.fuel_reconstruction(gt, params),
                        TF.fuel_reconstruction(gt_t, params, rays=rays_t, device="cpu"))
     return out
 
 
-@pytest.mark.parametrize("spline", ["linear", "hermite"])
+@pytest.mark.parametrize("spline", ["linear", "hermite", "true"])
 def test_fuel_reconstruction_matches_jax_on_the_same_rays(spline, tiny_runs):
     (want, want_rep), (got, rep) = tiny_runs[spline]
     assert got.shape == want.shape == (8, 8, 8)
@@ -128,12 +176,6 @@ def test_fuel_reconstruction_matches_jax_on_the_same_rays(spline, tiny_runs):
     assert rep["phi_nnz"] == want_rep["phi_nnz"]
     for key in ("rel_err_norm", "max_err", "l1_err"):
         assert abs(rep[key] - want_rep[key]) <= 1e-6 * abs(want_rep[key]), key
-
-
-def test_true_spline_raises_and_names_its_roadmap_item():
-    gt = torch.ones((5, 5, 5), dtype=torch.float64)
-    with pytest.raises(NotImplementedError, match="ROADMAP.md B14"):
-        TF.fuel_reconstruction(gt, dict(TINY, spline="true"), device="cpu")
 
 
 def test_fuel_reconstruction_needs_a_gpu_unless_asked_for_the_cpu():
