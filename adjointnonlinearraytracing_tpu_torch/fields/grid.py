@@ -120,8 +120,13 @@ def eval_grad_plain(field: GridField, p: torch.Tensor, mask: Optional[torch.Tens
     includes the ``1/h`` factor.
     """
     idx, wx, wy, wz = _stencil(field, p)
-    v = _corner_values(field, idx, mask)
-    inv_h = 1.0 / field.h
+    return value_grad_from(_corner_values(field, idx, mask), wx, wy, wz, field.h)
+
+
+def value_grad_from(v: torch.Tensor, wx, wy, wz, h: float):
+    """:func:`eval_grad_plain`'s arithmetic on corner values ``v`` ``(2, 2, 2, N)``
+    (a=x, b=y, c=z) and the weights of :func:`_stencil`."""
+    inv_h = 1.0 / h
 
     vy = wy[0] * v[:, 0] + wy[1] * v[:, 1]          # contract y -> (a, c, N)
     vyz = wz[0] * vy[:, 0] + wz[1] * vy[:, 1]       # contract z -> (a, N)
@@ -154,7 +159,12 @@ def eval_hess(field: GridField, p: torch.Tensor, mask: Optional[torch.Tensor] = 
     Includes the ``1/h^2`` scale.  Use :func:`hess_matvec` to apply ``H @ mu``.
     """
     idx, wx, wy, wz = _stencil(field, p)
-    v = _corner_values(field, idx, mask)
+    return hess_from(_corner_values(field, idx, mask), wx, wy, wz, field.h)
+
+
+def hess_from(v: torch.Tensor, wx, wy, wz, h: float):
+    """:func:`eval_hess`'s arithmetic on corner values ``v`` and weights, as
+    :func:`value_grad_from`."""
     w0x, w0y, w0z = wx[1], wy[1], wz[1]
 
     def lerp(a, b, t):
@@ -175,7 +185,7 @@ def eval_hess(field: GridField, p: torch.Tensor, mask: Optional[torch.Tensor] = 
         v[1, 1, 1] - v[1, 0, 1] - v[1, 1, 0] + v[1, 0, 0],
         w0x,
     )
-    inv_h2 = 1.0 / (field.h * field.h)
+    inv_h2 = 1.0 / (h * h)
     return dxdy * inv_h2, dxdz * inv_h2, dydz * inv_h2
 
 

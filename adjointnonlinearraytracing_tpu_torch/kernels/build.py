@@ -9,7 +9,8 @@ K5 ``trace_ckpt``, the variants K11-K13 ``trace_plane``, ``trace_target``,
 and K18, K19 ``backtrace_plane_exact``, ``backtrace_sdf_exact`` one replaying ray in
 ``backtrace_exact.cu``; K3 ``backtrace`` and K14 ``backtrace_sdf`` one
 adjoint ray in ``backtrace.cu``; K7 ``trace_cable`` and K9
-``trace_cable_ckpt`` one loop in ``trace_cable.cu``).  Libraries go to
+``trace_cable_ckpt`` one loop in ``trace_cable.cu``; K21 ``slab_trace_phase`` and
+K22 ``slab_backtrace_phase``, one phase of the z-slab ring, in ``slab.cu``).  Libraries go to
 ``kernels/_build/`` (git-ignored) under a name that carries a hash of the
 sources and flags, so an edited source is rebuilt and an unchanged one is
 reused.
@@ -37,12 +38,13 @@ KERNELS = ("eval_grad", "trace_fwd", "backtrace", "gather_rows", "trace_ckpt",
            "backtrace_exact", "trace_cable", "backtrace_cable", "trace_cable_ckpt",
            "backtrace_cable_exact", "trace_plane", "trace_target", "trace_sdf",
            "backtrace_sdf", "trace_plane_ckpt", "trace_target_ckpt", "trace_sdf_ckpt",
-           "backtrace_plane_exact", "backtrace_sdf_exact", "record_paths")
+           "backtrace_plane_exact", "backtrace_sdf_exact", "record_paths", "slab_trace_phase",
+           "slab_backtrace_phase")
 #: the source (``csrc/<name>.cu``) that holds each kernel
 SOURCE = {**{k: k for k in KERNELS}, "trace_ckpt": "trace_fwd",
           "trace_cable_ckpt": "trace_cable", "trace_plane": "trace_fwd",
           "trace_target": "trace_fwd", "trace_sdf": "trace_fwd", "backtrace_sdf": "backtrace",
-          "record_paths": "trace_fwd",
+          "record_paths": "trace_fwd", "slab_trace_phase": "slab", "slab_backtrace_phase": "slab",
           **{f"trace_{v}_ckpt": "trace_fwd" for v in ("plane", "target", "sdf")},
           **{f"backtrace_{v}_exact": "backtrace_exact" for v in ("plane", "sdf")}}
 NVCC_FLAGS = (

@@ -24,10 +24,17 @@
 
 namespace anrt {
 
+// A grid, or a z-window of one: `data` holds the voxel rows [z_first,
+// z_first + rows) of a (D, H, W) grid (the whole grid: z_first 0, rows D).
+// Positions, clamping and faces are the whole grid's; only the rows a
+// stencil reads must lie in the window (the slab ring's kernels, K21 and K22,
+// step a ray only while its cell row is one the window holds: in_window).
 template <typename T>
 struct Grid {
-  const T* data;   // (D, H, W) contiguous
-  int W, H, D;     // res_x, res_y, res_z
+  const T* data;   // (rows, H, W) contiguous
+  int W, H, D;     // res_x, res_y, res_z of the whole grid
+  int z_first;     // the whole grid's row of data's first row (may be -1)
+  int rows;        // rows in data
   T h;             // voxel spacing
   T inv_h;         // 1/h, rounded from double as the plain version does
   T inv_h2;        // 1/(h*h), likewise
@@ -35,10 +42,13 @@ struct Grid {
 };
 
 template <typename T>
-__host__ inline Grid<T> make_grid(const void* data, int W, int H, int D, double h) {
+__host__ inline Grid<T> make_grid(const void* data, int W, int H, int D, double h,
+                                  int z_first = 0, int rows = -1) {
   Grid<T> g;
   g.data = static_cast<const T*>(data);
   g.W = W; g.H = H; g.D = D;
+  g.z_first = z_first;
+  g.rows = rows < 0 ? D : rows;
   g.h = static_cast<T>(h);
   g.inv_h = static_cast<T>(1.0 / h);
   g.inv_h2 = static_cast<T>(1.0 / (h * h));
@@ -82,8 +92,21 @@ __device__ __forceinline__ Stencil<T> stencil(const Grid<T>& g, const T p[3]) {
     for (int b = 0; b < 2; ++b)
 #pragma unroll
       for (int cc = 0; cc < 2; ++cc)
-        s.idx[a][b][cc] = (c[2][cc] * g.H + c[1][b]) * g.W + c[0][a];
+        s.idx[a][b][cc] = ((c[2][cc] - g.z_first) * g.H + c[1][b]) * g.W + c[0][a];
   return s;
+}
+
+// Whether the window holds the cell of p: its cell row on z is that of the
+// JAX package's cell table (fields/cells.py: clip(floor(z/h), -1, D-1) + 1,
+// in [0, D]), whose corners are the voxel rows cz-1 and cz, clamped; the
+// window [z_first, z_first + rows) holds the cell rows [z_first + 1,
+// z_first + rows).
+template <typename T>
+__device__ __forceinline__ bool in_window(const Grid<T>& g, const T p[3]) {
+  const T posf = floor(p[2] / g.h);
+  const T lo = static_cast<T>(-1), hi = static_cast<T>(g.D - 1);
+  const int cz = static_cast<int>(posf < lo ? lo : (posf > hi ? hi : posf)) + 1;
+  return cz > g.z_first && cz < g.z_first + g.rows;
 }
 
 // Corner values v[a][b][c]; a masked lane reads nothing and gets zeros.

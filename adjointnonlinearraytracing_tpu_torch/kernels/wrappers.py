@@ -151,6 +151,24 @@ K10 ``backtrace_cable_exact`` (csrc/backtrace_cable_exact.cu)
     the buffers in shared memory beside the columns, or, where they do not fit
     (:func:`backtrace_cable_exact_path`), runs into one gradient a block, the
     buffers in device memory, so that K10 takes every profile K8 takes.
+
+The z-slab ring (``parallel/slabs.py``): the grid split along z over the
+ranks, one slab a rank, the slabs passed one hop round the ring a phase; a
+ray steps only while its cell row lies in the slab at hand.  Both kernels
+read the slab as a z-window of the grid (voxel rows ``[z_first, z_first +
+rows)``, ``csrc/trilinear.cuh``) with the unsharded kernels' steps, keep each
+ray's state in device memory between phases, and set a word when a ray has
+steps left.
+
+K21 ``slab_trace_phase`` (csrc/slab.cu)
+    replaces the inner loop of ``parallel/slabs.py::_fwd_local`` (up to ``K``
+    forward steps a ray a phase): K2's step under K2's or K11's rule, capped
+    at K2's ``max_steps`` by a per-ray step count, so the state after any
+    phase is K2's bit for bit.
+K22 ``slab_backtrace_phase`` (csrc/slab.cu)
+    replaces the inner loop of ``parallel/slabs.py::_bwd_local``: K3's ray on
+    the window, its run and warp sums added into the slab's gradient (the
+    same window), every run flushed before the phase ends.
 """
 
 from __future__ import annotations
@@ -209,6 +227,9 @@ _ARGTYPES = {
     "backtrace_plane_exact": [_I, _VP, _I, _I, _I, _D, _D] + [_VP] * 10 + [_I, _I, _I, _VP],
     "backtrace_sdf_exact": [_I, _VP, _I, _I, _I, _D, _D] + [_VP] * 9 + [_I, _I, _I, _VP],
     "record_paths": [_I, _VP, _I, _I, _I, _D, _D, _VP, _VP, _VP, _VP, _I, _I, _I, _VP],
+    "slab_trace_phase": [_I, _VP, _I, _I, _I, _D, _D, _I, _I] + [_VP] * 11 + [_I, _I, _I, _VP],
+    "slab_backtrace_phase": [_I, _VP, _I, _I, _I, _D, _D, _D, _I, _I] + [_VP] * 9
+                            + [_I, _I, _I, _VP],
 }
 #: the states a checkpoint holds: x, v, inside (the cable kernels: x, v, esc)
 CKPT_WIDTH = 7
@@ -661,7 +682,8 @@ def trace_plane_ckpt(data: torch.Tensor, h: float, x0: torch.Tensor, v0: torch.T
 def trace_target_ckpt(data: torch.Tensor, h: float, x0: torch.Tensor, v0: torch.Tensor,
                       target: torch.Tensor, ds: float, max_steps: int, seg: int,
                       order: torch.Tensor, store_ckpts: bool = True,
-                      horizon: Optional[torch.Tensor] = None):
+                      horizon: Union[None, torch.Tensor,
+                                     Callable[[torch.Tensor], torch.Tensor]] = None):
     """K16: the target variant's exact forward pass over the rays ``order``, in
     K12's two launches.
 
@@ -670,7 +692,10 @@ def trace_target_ckpt(data: torch.Tensor, h: float, x0: torch.Tensor, v0: torch.
     the checkpoints run on past a ray's escape to the horizon; ``horizon`` is
     the int32 ``(1,)`` step at which the last ray escaped.  For a chunk of the
     rays, pass the whole batch's ``horizon`` (from the call on all of them):
-    its rays then step on to it, as they do in the whole batch."""
+    its rays then step on to it, as they do in the whole batch.  Or pass a
+    function of pass 1's horizon that returns the one pass 2 takes (run
+    between the two launches, also when ``order`` is empty): the sharded
+    exact target gives the maximum over the ranks there."""
     _check_grid(data, "trace_target_ckpt")
     n_rays = _check_rays(data, "trace_target_ckpt", x0=x0, v0=v0, target=target)
     n = _check_slots(order, data, n_rays, "trace_target_ckpt")
@@ -678,20 +703,26 @@ def trace_target_ckpt(data: torch.Tensor, h: float, x0: torch.Tensor, v0: torch.
                                            "trace_target_ckpt")
     d2 = torch.empty((n_rays,), dtype=data.dtype, device=data.device)
     hz = _horizon(data, n)
-    if horizon is not None:
-        if horizon.device != data.device or horizon.dtype != torch.int32 \
-                or horizon.shape != (1,):
-            raise ValueError(f"trace_target_ckpt: horizon must be an int32 (1,) tensor on "
-                             f"{data.device}, got {horizon.dtype} {tuple(horizon.shape)} on "
-                             f"{horizon.device}")
-        hz[4] = horizon.clone()
-    if n:
-        for pass_ in (1, 2):
+    make = horizon if callable(horizon) else None
+    if make is None and horizon is not None:
+        hz[4] = _check_target_horizon(horizon, data).clone()
+    for pass_ in (1, 2):
+        if pass_ == 2 and make is not None:
+            hz[4] = _check_target_horizon(make(hz[4]), data).contiguous()
+        if n:
             _launch_on_grid("trace_target_ckpt", data, float(h), float(ds), x0.data_ptr(),
                             v0.data_ptr(), target.data_ptr(), order.data_ptr(), xt.data_ptr(),
                             vt.data_ptr(), d2.data_ptr(), c.data_ptr(), code.data_ptr(),
                             _ptr(ckpts), *map(_ptr, hz), n, int(max_steps), int(seg), pass_)
     return xt, vt, d2, c, code, ckpts, hz[4]
+
+
+def _check_target_horizon(horizon: torch.Tensor, data: torch.Tensor) -> torch.Tensor:
+    if not isinstance(horizon, torch.Tensor) or horizon.device != data.device \
+            or horizon.dtype != torch.int32 or horizon.shape != (1,):
+        raise ValueError(f"trace_target_ckpt: horizon must be an int32 (1,) tensor on "
+                         f"{data.device}, got {horizon!r}")
+    return horizon
 
 
 def _check_horizons(horizons: torch.Tensor, data: torch.Tensor, n_rays: int) -> torch.Tensor:
@@ -980,6 +1011,94 @@ def backtrace_cable_exact(data: torch.Tensor, radius: float, length: float,
                            grid)
         BACKTRACE_CABLE_EXACT_PATHS[path] += 1
     return out
+
+
+def _check_slab(slab: torch.Tensor, res: Tuple[int, int, int], z_first: int, name: str) -> None:
+    """A slab: a contiguous ``(rows, H, W)`` window of a ``(D, H, W)`` grid that
+    holds at least one cell row (``rows >= 2``) and starts in ``[-1, D)``."""
+    _check_grid(slab, name)
+    d, hgt, wid = res
+    rows = slab.shape[0]
+    if slab.shape[1:] != (hgt, wid) or rows < 2 or not -1 <= z_first < d:
+        raise ValueError(f"{name}: slab {tuple(slab.shape)} at row {z_first} is not a window "
+                         f"of a {tuple(res)} grid")
+
+
+def _check_states(data: torch.Tensor, n: int, name: str, **arrays: torch.Tensor) -> None:
+    for label, (t, dtype) in arrays.items():
+        if t.device != data.device or t.dtype != dtype or t.shape != (n,) \
+                or not t.is_contiguous():
+            raise ValueError(f"{name}: {label} must be a contiguous {dtype} ({n},) tensor on "
+                             f"{data.device}, got {t.dtype} {tuple(t.shape)} on {t.device}")
+
+
+def slab_trace_phase(slab: torch.Tensor, res: Tuple[int, int, int], z_first: int, h: float,
+                     ds: float, x: torch.Tensor, v: torch.Tensor, xt: torch.Tensor,
+                     vt: torch.Tensor, inside: torch.Tensor, esc: torch.Tensor,
+                     cnt: torch.Tensor, max_steps: int, inner: int,
+                     order: Optional[torch.Tensor] = None,
+                     planes: Optional[Tuple[torch.Tensor, torch.Tensor]] = None) -> torch.Tensor:
+    """K21: one forward phase of the slab ring, in place.
+
+    ``slab`` holds the voxel rows ``[z_first, z_first + rows)`` of a grid of
+    shape ``res`` ``(D, H, W)``; the rays' state ``x, v, xt, vt`` ``(N, 3)``,
+    ``inside``, ``esc`` (bool) and ``cnt`` (int32) is stepped by up to
+    ``inner`` steps a ray while the ray's cell row is in the slab, it has not
+    escaped and ``cnt < max_steps``; ``planes`` ``(pln_o, pln_d)`` selects
+    K11's rule.  ``order`` as for :func:`trace_fwd`.  Returns the int32
+    ``(1,)`` word that is 1 where a ray has steps left (not read back).
+    """
+    _check_slab(slab, res, z_first, "slab_trace_phase")
+    extra = {} if planes is None else dict(pln_o=planes[0], pln_d=planes[1])
+    n = _check_rays(slab, "slab_trace_phase", x=x, v=v, xt=xt, vt=vt, **extra)
+    _check_states(slab, n, "slab_trace_phase", inside=(inside, torch.bool),
+                  esc=(esc, torch.bool), cnt=(cnt, torch.int32))
+    _check_order(order, slab, n, "slab_trace_phase")
+    pending = torch.zeros((1,), dtype=torch.int32, device=slab.device)
+    if n:
+        d, hgt, wid = res
+        _launch("slab_trace_phase", slab.device, int(slab.dtype == torch.float64),
+                slab.data_ptr(), wid, hgt, d, float(h), float(ds), int(z_first), slab.shape[0],
+                _ptr(order), x.data_ptr(), v.data_ptr(), xt.data_ptr(), vt.data_ptr(),
+                inside.data_ptr(), esc.data_ptr(), cnt.data_ptr(),
+                *((None, None) if planes is None else (p.data_ptr() for p in planes)),
+                pending.data_ptr(), n, int(max_steps), int(inner))
+    return pending
+
+
+def slab_backtrace_phase(slab: torch.Tensor, res: Tuple[int, int, int], z_first: int, h: float,
+                         ds: float, snap_tol: float, x: torch.Tensor, v: torch.Tensor,
+                         la: torch.Tensor, mu: torch.Tensor, active: torch.Tensor,
+                         cnt: torch.Tensor, gslab: torch.Tensor, max_steps: int, inner: int,
+                         order: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """K22: one adjoint phase of the slab ring, in place.
+
+    ``slab`` as for :func:`slab_trace_phase`; ``gslab`` (the slab's shape and
+    type) takes the splats; the state ``x, v, la, mu`` ``(N, 3)``,
+    ``active`` (bool), ``cnt`` (int32) steps as K3's rays do while each ray's
+    snapped position lies in a cell row of the slab.  ``order`` as for
+    :func:`trace_fwd`.  Returns the int32 ``(1,)`` word that is 1 where a ray
+    has steps left (not read back).
+    """
+    _check_slab(slab, res, z_first, "slab_backtrace_phase")
+    if gslab.device != slab.device or gslab.dtype != slab.dtype or gslab.shape != slab.shape \
+            or not gslab.is_contiguous():
+        raise ValueError(f"slab_backtrace_phase: gslab must be a contiguous "
+                         f"{tuple(slab.shape)} {slab.dtype} tensor on {slab.device}")
+    n = _check_rays(slab, "slab_backtrace_phase", x=x, v=v, la=la, mu=mu)
+    _check_states(slab, n, "slab_backtrace_phase", active=(active, torch.bool),
+                  cnt=(cnt, torch.int32))
+    _check_order(order, slab, n, "slab_backtrace_phase")
+    pending = torch.zeros((1,), dtype=torch.int32, device=slab.device)
+    if n:
+        d, hgt, wid = res
+        _launch("slab_backtrace_phase", slab.device, int(slab.dtype == torch.float64),
+                slab.data_ptr(), wid, hgt, d, float(h), float(ds), float(snap_tol),
+                int(z_first), slab.shape[0], _ptr(order), x.data_ptr(), v.data_ptr(),
+                la.data_ptr(), mu.data_ptr(), active.data_ptr(), cnt.data_ptr(),
+                gslab.data_ptr(), pending.data_ptr(), n, int(max_steps),
+                int(inner))
+    return pending
 
 
 def gather_rows(table: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:

@@ -1,6 +1,7 @@
 """Ray parallelism over processes (``torch.distributed``); twin of the JAX
-package's ``parallel`` (the mesh and the process helpers; ``slabs.py`` and
-the sharded variants are ``ROADMAP.md`` A15b)."""
+package's ``parallel``: the ray mesh, the sharded traces and their variants
+(``mesh.py``), the process helpers (``distributed.py``) and the z-slab ring
+(``slabs.py``)."""
 
 from .mesh import (
     RayMesh,
@@ -17,3 +18,5 @@ from .mesh import (
 )
 from .distributed import (initialize, process_info, local_ray_slice, global_ray_array,
                           rank0_value)
+from .slabs import (slab_rows, pad_rif_z, build_slab_tables, make_slab_trace_zsharded,
+                    make_slab_trace)

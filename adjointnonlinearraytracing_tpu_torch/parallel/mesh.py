@@ -18,11 +18,30 @@ view:
 
 With no process group initialised the mesh has one rank and no collective
 runs: one process, one card.  The kernels are the unsharded path's (K2 and
-K3, K5 and K6), launched on the shard.
+K3, K5 and K6; the variants' K3, K6 and K7-K19), launched on the shard.
 
-Not here yet: the variant builders ``make_sharded_trace_{plane,target,sdf,
-cable}`` raise (``ROADMAP.md`` A15b); the target's and the sdf's horizons
-need a cross-shard maximum (the JAX ``pmax``) with tests of its own.
+The variants (``make_sharded_trace_{plane,target,sdf,cable}``) keep the horizons of
+the JAX functions, which are not all the whole batch's:
+
+* the plain target and the plain sdf run the unsharded trace on each shard,
+  so a ray steps on after its escape to **its shard's** last escape, not
+  the batch's (the JAX ``while_loop`` stops on its shard's ``all(esc)``):
+  a ray whose closest approach (or late sdf crossing) comes after that step
+  reports another ``xt``, ``d2`` than the unsharded call gives it, the one
+  the unsharded call on its shard gives;
+* the exact target takes the **global** horizon: each rank's last escape
+  step, the maximum over the ranks (the JAX ``pmax``, an ``all_reduce`` with
+  ``MAX`` here), for the forward pass and the backward's recomputation, so
+  it equals the unsharded ``trace_target_exact``;
+* the exact sdf skips segments by the escapes of its shard's
+  ``ANRT_EXACT_CHUNK`` chunks, as the unsharded call does by the whole
+  batch's chunks (no collective);
+* the plane and the cable stop a ray at its own escape: sharded or not,
+  the same result.
+
+The z-slab ring of ``parallel/slabs.py`` adds two collectives to the mesh:
+the ring shift (:meth:`RayMesh.shift`, JAX's ``ppermute``) and the integer
+maximum (:meth:`RayMesh.all_max`, JAX's ``pmax``).
 """
 
 from __future__ import annotations
@@ -36,6 +55,7 @@ import torch.distributed as dist
 from ..tracer import api
 from ..tracer import checkpointed as CK
 from ..tracer import compaction as CP
+from ..tracer.api import bcast_per_ray3
 
 
 @dataclass(frozen=True)
@@ -71,6 +91,36 @@ class RayMesh:
         t = t.clone(memory_format=torch.contiguous_format)
         dist.all_reduce(t, op=dist.ReduceOp.SUM, group=self.group)
         return t
+
+    def all_max(self, t: torch.Tensor) -> torch.Tensor:
+        """The ranks' elementwise maximum of ``t`` (JAX's ``pmax``; ``t`` itself at
+        world size 1)."""
+        if self.world_size == 1:
+            return t
+        t = t.clone(memory_format=torch.contiguous_format)
+        dist.all_reduce(t, op=dist.ReduceOp.MAX, group=self.group)
+        return t
+
+    def _peer(self, rank: int) -> int:
+        return rank if self.group is None else dist.get_global_rank(self.group, rank)
+
+    def shift(self, t: torch.Tensor, back: bool = False,
+              out: Optional[torch.Tensor] = None) -> torch.Tensor:
+        """The ring shift: ``t`` goes to rank ``rank + 1`` and the tensor rank
+        ``rank - 1`` sent comes back (JAX's ``ppermute`` with ``perm``), or the
+        other way round with ``back`` (``perm_back``).  ``out`` (``t``'s shape
+        and type) takes it, if given; ``t`` itself at world size 1."""
+        if self.world_size == 1:
+            return t
+        t = t.contiguous()
+        out = torch.empty_like(t) if out is None else out
+        ahead, behind = (self.rank + 1) % self.world_size, (self.rank - 1) % self.world_size
+        to, frm = (behind, ahead) if back else (ahead, behind)
+        ops = [dist.P2POp(dist.isend, t, self._peer(to), self.group),
+               dist.P2POp(dist.irecv, out, self._peer(frm), self.group)]
+        for req in dist.batch_isend_irecv(ops):
+            req.wait()
+        return out
 
 
 def make_ray_mesh(group=None) -> RayMesh:
@@ -137,19 +187,41 @@ class _Gather(torch.autograd.Function):
         return g[ctx.sl], None, None
 
 
+def _gather_plain(mesh: RayMesh, t: torch.Tensor) -> torch.Tensor:
+    """A non-differentiable per-ray output (``miss``, ``d2``) of the shards,
+    gathered (a bool one through uint8, which every backend moves)."""
+    if t.dtype == torch.bool:
+        return mesh.all_gather(t.to(torch.uint8)).to(torch.bool)
+    return mesh.all_gather(t)
+
+
+def _on_shards(mesh: RayMesh, local, rif, per_ray, shared=()):
+    """``local(rif, *shared, *shard)`` on this rank's shard of the per-ray
+    tensors ``per_ray`` (``x``, ``v``, then planes or targets, each ``(N,
+    3)``), with ``rif``'s gradient summed over the ranks; its first two
+    outputs ``(xt, vt)`` are gathered with their cotangents, the rest
+    (``miss``, ``d2``) plainly."""
+    sl = mesh.shard(per_ray[0].shape[0])
+    out = local(_SumGrad.apply(rif, mesh), *shared, *(t[sl] for t in per_ray))
+    return (_Gather.apply(out[0], mesh, sl), _Gather.apply(out[1], mesh, sl),
+            *(_gather_plain(mesh, t) for t in out[2:]))
+
+
+def _checked_rays(name, rif, x, v, **per_ray):
+    """``[x, v, *per_ray]`` after the unsharded calls' checks, the planes or
+    targets as ``(N, 3)``."""
+    api._check_rif(rif, name)
+    api._check_rays(x, v, name)
+    for label, p in per_ray.items():
+        api._check_per_ray3(p, x, label, name)
+    return [x, v] + [bcast_per_ray3(p, x) for p in per_ray.values()]
+
+
 def _sharded(mesh: RayMesh, name: str, local):
     """``name(rif, x, v) -> (xt, vt)`` over the mesh: ``local`` traces this
     rank's shard on a field whose gradient is summed over the ranks, and the
     outputs are gathered."""
-
-    def traced(rif, x, v):
-        api._check_rif(rif, name)
-        api._check_rays(x, v, name)
-        sl = mesh.shard(x.shape[0])
-        xt, vt = local(_SumGrad.apply(rif, mesh), x[sl], v[sl])
-        return _Gather.apply(xt, mesh, sl), _Gather.apply(vt, mesh, sl)
-
-    return traced
+    return lambda rif, x, v: _on_shards(mesh, local, rif, _checked_rays(name, rif, x, v))
 
 
 def make_sharded_trace(mesh: RayMesh, h: float, ds: float, res_max: int, nbuckets: int = 0):
@@ -183,27 +255,132 @@ def make_sharded_trace_exact(mesh: RayMesh, h: float, ds: float, res_max: int, s
     over the ranks.  Memory is bounded by the chunk at any batch size.
     """
     del res_max
-    h, ds, seg = float(h), float(ds), int(seg)
-    if seg < 1:
-        raise ValueError(f"make_sharded_trace_exact: seg must be a positive step count, got {seg}")
+    h, ds = float(h), float(ds)
+    seg = _check_seg("make_sharded_trace_exact", seg)
     return _sharded(mesh, "make_sharded_trace_exact",
                     lambda r, x, v: CK._TraceExact.apply(r, x, v, h, ds, seg, False))
 
 
-def _later(name: str):
-    def builder(*args, **kwargs):
-        raise NotImplementedError(
-            f"{name}: the sharded variants need the cross-shard horizon of the target and "
-            "the sdf (the JAX pmax) and are not in this port yet (ROADMAP.md A15b)")
-    builder.__name__ = name
-    builder.__doc__ = f"Raises: ``{name}`` is not ported yet (``ROADMAP.md`` A15b)."
-    return builder
+def _check_seg(name: str, seg: int) -> int:
+    if int(seg) < 1:
+        raise ValueError(f"{name}: seg must be a positive step count, got {seg}")
+    return int(seg)
 
 
-make_sharded_trace_plane = _later("make_sharded_trace_plane")
-make_sharded_trace_target = _later("make_sharded_trace_target")
-make_sharded_trace_sdf = _later("make_sharded_trace_sdf")
-make_sharded_trace_cable = _later("make_sharded_trace_cable")
+def make_sharded_trace_plane(mesh: RayMesh, h: float, ds: float, res_max: int,
+                             exact: bool = False, seg: int = 32):
+    """The sharded ``trace_plane(rif, x, v, pln_o, pln_d) -> (xt, vt, miss)``.
+
+    Each rank traces its shard (``api.trace_plane``: K11, then K3 with the
+    missed rays' position cotangent zeroed; ``exact=True``:
+    ``trace_plane_exact``, K15 then K18, both cotangents of missed rays
+    zeroed); outputs gathered, the gradient summed over the ranks.  The
+    planes are ``(N, 3)`` or one for every ray.  Only ``rif`` gets a
+    gradient.  A ray stops at its own escape, so the result is the unsharded
+    call's.
+    """
+    del res_max
+    h, ds = float(h), float(ds)
+    seg = _check_seg("make_sharded_trace_plane", seg)
+
+    def local(r, x, v, o, d):
+        if exact:
+            return CK.trace_plane_exact(r, x, v, o, d, h, ds, seg)
+        return api.trace_plane(r, x, v, o, d, h, ds)
+
+    def traced(rif, x, v, pln_o, pln_d):
+        rays = _checked_rays("make_sharded_trace_plane", rif, x, v, pln_o=pln_o, pln_d=pln_d)
+        return _on_shards(mesh, local, rif, rays)
+
+    return traced
+
+
+def make_sharded_trace_target(mesh: RayMesh, h: float, ds: float, res_max: int,
+                              exact: bool = False, seg: int = 32):
+    """The sharded ``trace_target(rif, x, v, target) -> (xt, vt, d2)``.
+
+    Plain: each rank runs ``api.trace_target`` (K12's two launches, then K3)
+    on its shard, so its rays step on to **the shard's** last escape, as the
+    JAX functions' do: a ray whose closest approach comes later than that
+    differs from the unsharded call.  ``exact=True``: ``trace_target_exact``
+    (K16, then K6) with the **global** horizon, the maximum over the ranks of
+    their last escape steps (``all_reduce`` with ``MAX`` between K16's two
+    launches, or of ``_target_stop_step`` on the CPU), for the forward pass
+    and the backward's recomputation: the unsharded call's result.  Only
+    ``rif`` gets a gradient.
+    """
+    del res_max
+    h, ds = float(h), float(ds)
+    seg = _check_seg("make_sharded_trace_target", seg)
+
+    def local(r, x, v, t):
+        if exact:
+            return CK._variant_exact("target", r, None, x, v, t, None, h, ds, seg,
+                                     stop_all=mesh.all_max)
+        return api.trace_target(r, x, v, t, h, ds)
+
+    def traced(rif, x, v, target):
+        rays = _checked_rays("make_sharded_trace_target", rif, x, v, target=target)
+        return _on_shards(mesh, local, rif, rays)
+
+    return traced
+
+
+def make_sharded_trace_sdf(mesh: RayMesh, h: float, ds: float, res_max: int,
+                           exact: bool = False, seg: int = 32):
+    """The sharded ``trace_sdf(rif, sdf, x, v) -> (xt, vt)``, both grids on
+    every rank, ``int(2 * h * max(res) / ds)`` steps.
+
+    Plain: ``api.trace_sdf`` (K13's two launches, K14) on each shard, each
+    to its shard's horizon.  ``exact=True``: ``trace_sdf_exact`` (K17, K19)
+    on each shard, whose segment skip follows the shard's
+    ``ANRT_EXACT_CHUNK`` chunks, as the JAX function's does.  Only ``rif``
+    gets a gradient (summed over the ranks); the sdf's is zero.
+    """
+    del res_max
+    h, ds = float(h), float(ds)
+    seg = _check_seg("make_sharded_trace_sdf", seg)
+
+    def local(r, sdf, x, v):
+        if exact:
+            return CK.trace_sdf_exact(r, sdf, x, v, h, ds, seg)
+        return api.trace_sdf(r, sdf, x, v, h, ds)
+
+    def traced(rif, sdf, x, v):
+        rays = _checked_rays("make_sharded_trace_sdf", rif, x, v)
+        if sdf.shape != rif.shape:
+            raise ValueError(f"make_sharded_trace_sdf: sdf grid {tuple(sdf.shape)} must match "
+                             f"rif {tuple(rif.shape)}")
+        return _on_shards(mesh, local, rif, rays, shared=(sdf,))
+
+    return traced
+
+
+def make_sharded_trace_cable(mesh: RayMesh, radius: float, length: float, ds: float,
+                             exact: bool = False, seg: int = 32):
+    """The sharded ``trace_cable(rif, x, v, target) -> (xt, vt, d2)``: the 1D
+    radial profile ``rif`` on every rank, its gradient summed over them;
+    ``int(4 * length / ds)`` steps.
+
+    Each rank runs ``api.trace_cable`` (K7, K8; ``exact=True``:
+    ``trace_cable_exact``, K9, K10) on its shard.  A cable ray freezes at its
+    escape, so no ray's result depends on its batch and the sharded outputs
+    are the unsharded call's.  Only ``rif`` gets a gradient.
+    """
+    radius, length, ds = float(radius), float(length), float(ds)
+    seg = _check_seg("make_sharded_trace_cable", seg)
+
+    def local(r, x, v, t):
+        if exact:
+            return CK.trace_cable_exact(r, radius, length, x, v, t, ds, seg)
+        return api.trace_cable(r, radius, length, x, v, t, ds)
+
+    def traced(rif, x, v, target):
+        api._check_cable(rif, x, v, target, "make_sharded_trace_cable")
+        return _on_shards(mesh, local, rif, [x, v, bcast_per_ray3(target, x)])
+
+    return traced
+
 
 __all__ = ["RayMesh", "make_ray_mesh", "pad_rays", "shard_rays", "replicate",
            "make_sharded_trace", "make_sharded_trace_exact", "make_sharded_trace_plane",

@@ -468,7 +468,10 @@ class _TraceVariantExact(torch.autograd.Function):
     neither (the sdf, given as ``sdf``)."""
 
     @staticmethod
-    def forward(ctx, rif, sdf, x, v, pa, pb, h, ds, seg, variant, grad_needed):
+    def forward(ctx, rif, sdf, x, v, pa, pb, h, ds, seg, variant, grad_needed, stop_all=None):
+        # stop_all (the target only): a function of this batch's horizon, an
+        # int32 (1,) tensor, that returns the horizon to step to (the sharded
+        # exact target's maximum over the ranks); called on every call
         rif, x, v = (t.detach().contiguous() for t in (rif, x, v))
         o = d = tgt = None
         if variant == "plane":
@@ -490,7 +493,8 @@ class _TraceVariantExact(torch.autograd.Function):
                                                                   seg, order, store)
             elif variant == "target":
                 xt, vt, d2, c, code, ckpts, stop = K.trace_target_ckpt(rif, h, x, v, tgt, ds,
-                                                                       steps, seg, order, store)
+                                                                       steps, seg, order, store,
+                                                                       horizon=stop_all)
             else:
                 xt, vt, c, code, ckpts, stop = K.trace_sdf_ckpt(
                     rif, sdf, h, x, v, ds, steps, seg, order,
@@ -500,9 +504,12 @@ class _TraceVariantExact(torch.autograd.Function):
             order = code = None
             field = G.GridField(rif, h)
             va = _variant_args(variant, h, o, d, tgt, sdf)
-            if chunked and variant == "target":
-                stop = torch.full((x.shape[0],), _target_stop_step(field, x, v, ds, steps, chunk),
-                                  dtype=torch.int32)
+            if variant == "target" and (chunked or stop_all is not None):
+                last = torch.tensor([_target_stop_step(field, x, v, ds, steps, chunk)],
+                                    dtype=torch.int32)
+                if stop_all is not None:
+                    last = stop_all(last)
+                stop = torch.full((x.shape[0],), int(last), dtype=torch.int32)
             elif chunked and variant == "sdf":
                 stop = _index_chunk_horizons(
                     _escape_steps(field, x, v, ds, steps, variant="sdf", **va), chunk, seg, steps)
@@ -564,7 +571,7 @@ class _TraceVariantExact(torch.autograd.Function):
                  for k, t in ((1, sdf), (2, x), (3, v))]
         zeros += [torch.zeros(p[0], dtype=p[1], device=p[2]) if p is not None and need[k] else None
                   for k, p in zip((4, 5), ctx.given)]
-        return (g.to(rif.dtype).reshape(rif.shape), *zeros, None, None, None, None, None)
+        return (g.to(rif.dtype).reshape(rif.shape), *zeros, None, None, None, None, None, None)
 
 
 def _variant_args(variant, h, o, d, tgt, sdf) -> dict:
@@ -576,7 +583,7 @@ def _variant_args(variant, h, o, d, tgt, sdf) -> dict:
     return dict(sdf=G.GridField(sdf, h))
 
 
-def _variant_exact(variant, rif, sdf, x, v, pa, pb, h, ds, seg):
+def _variant_exact(variant, rif, sdf, x, v, pa, pb, h, ds, seg, stop_all=None):
     name = f"trace_{variant}_exact"
     _check_rif(rif, name)
     _check_rays(x, v, name)
@@ -589,7 +596,7 @@ def _variant_exact(variant, rif, sdf, x, v, pa, pb, h, ds, seg):
         raise ValueError(f"{name}: seg must be a positive step count, got {seg}")
     grad_needed = torch.is_grad_enabled() and rif.requires_grad
     return _TraceVariantExact.apply(rif, sdf, x, v, pa, pb, float(h), float(ds), int(seg),
-                                    variant, grad_needed)
+                                    variant, grad_needed, stop_all)
 
 
 def trace_plane_exact(rif: torch.Tensor, x: torch.Tensor, v: torch.Tensor, pln_o: torch.Tensor,

@@ -124,6 +124,23 @@ result.  Phases (any failure is an uncaught exception):
       main paths, ``make_sharded_trace`` and ``make_sharded_trace_exact`` on
       the bench scene against ``api.trace`` and ``trace_exact``: outputs
       bitwise, gradients within 1e-5, launches asserted.
+   s. the rest of the multi-device layer (``parallel/``), at one rank:
+      ``make_sharded_trace_{plane,target,sdf,cable}``, plain and exact, on
+      configuration v's scene and configuration h's cable (129 bins, a
+      step's 8,192 rays) against the unsharded calls: outputs bitwise,
+      gradients within 1e-5, launches asserted exactly (the unsharded
+      call's); K21 ``slab_trace_phase`` and K22 ``slab_backtrace_phase``
+      against their plain phases (``parallel/slabs.py``) on one phase of a
+      slab that does not cover the grid (65^3 in 4 slabs, the slab of rank
+      1, 2^15 rays through the grid's depth, f64 and f32): K21 bitwise, the
+      rays outside the slab frozen bit for bit, K22's positions, directions,
+      activity and step counts bitwise, its gradient within 1e-9 (f64) and
+      1e-5 (f32); then ``make_slab_trace_zsharded`` on configuration 14 (the
+      bench field at 1025^3 f32, 4.3 GB, made on the card a block of rows
+      at a time; 2^18 rays crossing z both ways) against ``api.trace``:
+      outputs bitwise, the gradient within 1e-5, K21 and K22 launched once a
+      phase, ms forward + backward of both, peak memory; the plain phases'
+      times on the first phase's inputs.
    Exit-step compaction: each driver run logs the buckets its trace took
    (``exit_buckets``; k makes an adjoint step k K2 and k K3 launches,
    asserted in c-g; on the card a run takes them only from
@@ -190,6 +207,7 @@ if not torch.cuda.is_available():
 
 from adjointnonlinearraytracing_tpu_torch import bench, compat
 from adjointnonlinearraytracing_tpu_torch.benchmarks import probe_dma_gather
+from adjointnonlinearraytracing_tpu_torch.benchmarks import scenes
 from adjointnonlinearraytracing_tpu_torch.benchmarks.scenes import build_case
 from adjointnonlinearraytracing_tpu_torch import sensors
 from adjointnonlinearraytracing_tpu_torch.experiments import fuel_injection, voxel_scenes
@@ -203,6 +221,7 @@ from adjointnonlinearraytracing_tpu_torch.kernels import build
 from adjointnonlinearraytracing_tpu_torch.kernels import wrappers as K
 from adjointnonlinearraytracing_tpu_torch.native import loader as native_loader
 from adjointnonlinearraytracing_tpu_torch import parallel
+from adjointnonlinearraytracing_tpu_torch.parallel import slabs
 from adjointnonlinearraytracing_tpu_torch.pathmatrix import fuel2008
 from adjointnonlinearraytracing_tpu_torch import tracer
 from adjointnonlinearraytracing_tpu_torch.tracer import api
@@ -3372,6 +3391,329 @@ def luneburg_bucket_steps(rounds=3):
 
 # forward + adjoint passes of the main path: bench.run's warm-up and timed
 # iterations, and the pass made here through api.trace
+# ---------------------------------------------------------------------------
+# phase s: the sharded variants and the z-slab ring (parallel/), K21 and K22
+# ---------------------------------------------------------------------------
+
+SLAB_KERNELS = ("slab_trace_phase", "slab_backtrace_phase")
+# configuration 14: the bench field at 1025^3 f32 (4.3 GB), z-crossing rays
+SLAB_RES = 1025
+# the one-phase kernel check: a 65^3 grid in 4 slabs, the phase of slab 1,
+# 2^15 rays spread through the grid
+SLAB_CHECK_RES, SLAB_CHECK_SLABS, SLAB_CHECK_RAYS = 65, 4, 1 << 15
+# the launches of one forward + backward of each sharded variant at one rank:
+# the unsharded call's, no more
+SHARDED_LAUNCHES = {
+    "plane_plain": {"trace_plane": 1, "backtrace": 1},
+    "plane_exact": {"trace_plane_ckpt": 1, "backtrace_plane_exact": 1},
+    "target_plain": {"trace_target": 2, "backtrace": 1},
+    "target_exact": {"trace_target_ckpt": 2, "backtrace_exact": 1},
+    "sdf_plain": {"trace_sdf": 2, "backtrace_sdf": 1},
+    "sdf_exact": {"trace_sdf_ckpt": 2, "backtrace_sdf_exact": 1},
+    "cable_plain": {"trace_cable": 1, "backtrace_cable": 1},
+    "cable_exact": {"trace_cable_ckpt": 1, "backtrace_cable_exact": 1},
+}
+
+
+def sharded_variants_check(s, cab):
+    """Phase s (a): ``parallel.make_sharded_trace_{plane,target,sdf,cable}``,
+    plain and exact, on this process's mesh (one rank) against the unsharded
+    calls: configuration v's scene (128^3 f32, 2^18 rays, planes at y = 0.6
+    span, targets at y = 1.05 span, 2^18 rays spawned on the sphere sdf) and
+    the fiber path's cable (129 bins, a step's 8,192 rays).  Outputs bitwise,
+    the gradient within 1e-5 of the unsharded one's largest entry, the
+    launches of each exactly the unsharded call's (``SHARDED_LAUNCHES``).
+    Returns the record, the sharded runs' launches summed, and failures."""
+    mesh = parallel.make_ray_mesh()
+    if mesh.world_size != 1:
+        raise AssertionError(f"one process must make a mesh of one rank, got {mesh}")
+    h, ds, span = s["h"], s["ds"], s["span"]
+    x0, v0, o, d, tgt = s["x0"], s["v0"], s["pln_o"], s["pln_d"], s["tgt"]
+    xs, vs, sdf = s["xs"], s["vs"], s["sdf"]
+    prof, cx, cv, ct = cab["prof"], cab["x"], cab["v"], cab["target"]
+    rad, length, cds = cab["radius"], cab["length"], cab["ds"]
+    centre = torch.full((3,), span / 2, dtype=s["rif"].dtype, device="cuda")
+    rec, failures, total = {}, [], {name: 0 for name in build.KERNELS}
+    for mode in ("plain", "exact"):
+        ex = mode == "exact"
+        calls = {
+            "plane": (parallel.make_sharded_trace_plane(mesh, h, ds, RES, exact=ex, seg=SEG),
+                      (lambda r: tracer.trace_plane_exact(r, x0, v0, o, d, h, ds, SEG)) if ex
+                      else (lambda r: api.trace_plane(r, x0, v0, o, d, h, ds)),
+                      (x0, v0, o, d), tgt, s["rif"]),
+            "target": (parallel.make_sharded_trace_target(mesh, h, ds, RES, exact=ex, seg=SEG),
+                       (lambda r: tracer.trace_target_exact(r, x0, v0, tgt, h, ds, SEG)) if ex
+                       else (lambda r: api.trace_target(r, x0, v0, tgt, h, ds)),
+                       (x0, v0, tgt), tgt, s["rif"]),
+            "sdf": (parallel.make_sharded_trace_sdf(mesh, h, ds, RES, exact=ex, seg=SEG),
+                    (lambda r: tracer.trace_sdf_exact(r, sdf, xs, vs, h, ds, SEG)) if ex
+                    else (lambda r: api.trace_sdf(r, sdf, xs, vs, h, ds)),
+                    (sdf, xs, vs), centre, s["rif"]),
+            "cable": (parallel.make_sharded_trace_cable(mesh, rad, length, cds, exact=ex,
+                                                        seg=SEG),
+                      (lambda r: tracer.trace_cable_exact(r, rad, length, cx, cv, ct, cds, SEG))
+                      if ex else (lambda r: api.trace_cable(r, rad, length, cx, cv, ct, cds)),
+                      (cx, cv, ct), ct, prof),
+        }
+        for kind, (sharded, unsharded, args, aim, field) in calls.items():
+            name = f"{kind}_{mode}"
+            runs = []
+            for fn in (lambda r: sharded(r, *args), unsharded):
+                r = field.detach().clone().requires_grad_(True)
+                K.reset_launches()
+                torch.cuda.synchronize()
+                t0 = time.time()
+                out = fn(r)
+                (((out[0] - aim) ** 2).sum() + out[1].sum()).backward()
+                torch.cuda.synchronize()
+                runs.append(([t.detach() for t in out], r.grad, dict(K.LAUNCHES),
+                             1e3 * (time.time() - t0)))
+            (os_, gs, ls, ms_s), (op, gp, lp, ms_p) = runs
+            bitwise = all(torch.equal(a, b) for a, b in zip(os_, op))
+            err = float((gs - gp).abs().max() / gp.abs().max())
+            want = {**{k: 0 for k in build.KERNELS}, **SHARDED_LAUNCHES[name]}
+            for k, n in ls.items():
+                total[k] += n
+            rec[name] = dict(bitwise=bitwise, grad_rel_err=err, ms=ms_s, unsharded_ms=ms_p,
+                             launches={k: n for k, n in ls.items() if n})
+            if kind == "target":
+                rec[name]["d2_max"] = float(os_[2].max())
+            if not bitwise or not err <= TOL_F32_GRAD or not float(gp.abs().max()) > 0:
+                failures.append(f"sharded {name}: bitwise {bitwise}, gradient {err:.3e}")
+            if ls != want or lp != want:
+                failures.append(f"sharded {name}: launches {ls}, unsharded {lp}, want {want}")
+    print("sharded variants at one rank (against the unsharded calls, host ms forward + "
+          "backward): " + json.dumps(rec), flush=True)
+    return rec, total, failures
+
+
+def slab_check_case(dtype):
+    """Phase s (b)'s inputs: the bench field at 65^3 padded for 4 slabs, the
+    slab of rank 1 (voxel rows [S - 1, 2S), cell rows [S, 2S)), and 2^15
+    rays with the bench's spread turned to z, spread through the grid's
+    depth, half going +z, half -z."""
+    res, ndev, n = SLAB_CHECK_RES, SLAB_CHECK_SLABS, SLAB_CHECK_RAYS
+    span = 20.0
+    h = span / (res - 1)
+    S = parallel.slab_rows(res + 1, ndev)
+    z_first = S - 1
+    slab = scenes.bench_rows(res, z_first, z_first + S + 1, span, dtype).contiguous()
+    x, v = scenes.z_rays(res, n, span, dtype, seed=5)
+    gen = torch.Generator(device="cuda").manual_seed(5)
+    x[:, 2] = torch.rand(n, generator=gen, device="cuda", dtype=x.dtype) * span
+    la = torch.randn(x.shape, generator=gen, device="cuda", dtype=x.dtype)
+    mu = torch.randn(x.shape, generator=gen, device="cuda", dtype=x.dtype)
+    K_ = max(int(S * h / (h / 2)) * 2, 8)
+    return dict(res=(res,) * 3, slab=slab, z_first=z_first, S=S, h=h, ds=h / 2, x=x, v=v,
+                la=la, mu=mu, inner=K_, nf=E.max_steps_fwd(res, h, h / 2),
+                nb=E.max_steps_bwd(res, h, h / 2))
+
+
+def slab_kernel_check(dtype, tol):
+    """Phase s (b): K21 and K22 against their plain versions on one phase whose
+    slab does not cover the grid.  K21: every state tensor bitwise, the rays
+    outside the slab frozen bit for bit, some rays moved; K22: x, v, active
+    and the step counts bitwise, la, mu and the gradient slab within ``tol``
+    of their largest entries, the gradient also against the f64 sum of the
+    plain version's terms."""
+    c = slab_check_case(dtype)
+    shape = slabs._grid_shape(c["slab"], c["res"], c["h"])
+    x, v = c["x"], c["v"]
+    held = slabs._in_window(c["res"], c["z_first"], c["S"] + 1, c["h"], x)
+    init = [x, v, x, v, G.inbounds(shape, x), torch.zeros_like(held),
+            torch.zeros(x.shape[0], dtype=torch.int32, device="cuda")]
+    fwd = []
+    for kernel in (True, False):
+        st = [t.clone() for t in init]
+        args = (c["slab"], c["res"], c["z_first"], c["h"], c["ds"], *st, c["nf"], c["inner"])
+        flag = K.slab_trace_phase(*args) if kernel else slabs.slab_trace_phase_plain(*args)
+        fwd.append((st, bool(flag)))
+    (stk, pk), (stp, pp) = fwd
+    fwd_bitwise = all(torch.equal(a, b) for a, b in zip(stk, stp)) and pk == pp
+    fwd_errs = [rel_err(stk[i], stp[i]) for i in range(4)]  # x, v, xt, vt
+    frozen = all(torch.equal(a[~held], b[~held]) for a, b in zip(stk, init))
+    moved = int((stk[6] > 0).sum())
+    # the adjoint phase, from the rays' start state, with random cotangents
+    xe = G.snap_to_nodes(x - c["ds"] * v, c["h"])
+    held_b = slabs._in_window(c["res"], c["z_first"], c["S"] + 1, c["h"], xe)
+    bwd = []
+    tol_snap = G.snap_tol(c["slab"].dtype)
+    for kind in ("kernel", "plain", "plain f64 sum"):
+        st = [x.clone(), v.clone(), c["la"].clone(), c["mu"].clone(),
+              ~G.escaped(shape, x, -v), torch.zeros(x.shape[0], dtype=torch.int32, device="cuda")]
+        gslab = torch.zeros_like(c["slab"], dtype=torch.float64 if kind.endswith("sum")
+                                 else c["slab"].dtype)
+        args = (c["slab"], c["res"], c["z_first"], c["h"], c["ds"], tol_snap, *st, gslab,
+                c["nb"], c["inner"])
+        if kind == "kernel":
+            K.slab_backtrace_phase(*args)
+        else:
+            slabs.slab_backtrace_phase_plain(*args)
+        bwd.append((st, gslab))
+    (sk, gk), (sp, gp), (_, g64) = bwd
+    bwd_bitwise = all(torch.equal(sk[i], sp[i]) for i in (0, 1, 4, 5))
+    frozen_b = all(torch.equal(a[~held_b], b[~held_b])
+                   for a, b in zip(sk, (x, v, c["la"], c["mu"])))
+    lm_err = max(rel_err(sk[i], sp[i])[0] for i in (2, 3))
+    g_abs = float((gk - gp).abs().max())
+    g_err = g_abs / float(gp.abs().max())
+    g64_err = float((gk.double() - g64).abs().max() / g64.abs().max())
+    ok = (fwd_bitwise and frozen and moved > 0 and bwd_bitwise and frozen_b and lm_err <= tol
+          and min(g_err, g64_err) <= tol and float(gp.abs().max()) > 0)
+    rec = dict(dtype=dtype, rays=SLAB_CHECK_RAYS, held_fwd=int(held.sum()), moved=moved,
+               fwd_bitwise=fwd_bitwise, fwd_abs_err=max(e[1] for e in fwd_errs),
+               fwd_rel_err=max(e[0] for e in fwd_errs), frozen_bitwise=frozen and frozen_b,
+               bwd_state_bitwise=bwd_bitwise, la_mu_rel_err=lm_err, grad_abs_err=g_abs,
+               grad_rel_err=g_err,
+               grad_rel_err_f64_sum=g64_err, tol=tol)
+    print(f"slab kernels[{dtype} {SLAB_CHECK_RES}^3 in {SLAB_CHECK_SLABS} slabs, the phase of "
+          f"slab 1, {SLAB_CHECK_RAYS} rays]: " + json.dumps(rec), flush=True)
+    return rec, [] if ok else [f"K21/K22 against their plain versions: {rec}"]
+
+
+def slab_path():
+    """Phase s (c): ``parallel.make_slab_trace_zsharded`` at one rank on
+    configuration 14 (the bench field at 1025^3 f32, made on the card a block
+    of rows at a time; 2^18 rays crossing z both ways), forward + backward,
+    against ``api.trace``: outputs bitwise (K21 steps as K2), the gradient
+    within 1e-5 of K3's largest entry; K21 and K22 launched once a phase and
+    nothing else; ms forward + backward of both, per launch, peak memory.
+    Then the plain phases on the same first phase's inputs, for the kernels'
+    plain-version times, and the bounds of that phase's work."""
+    res, n, span = SLAB_RES, NRAYS, 20.0
+    h = span / (res - 1)
+    ds = h / 2
+    rif = scenes.bench_rows(res, 0, res, span, "float32")
+    x, v = scenes.z_rays(res, n, span, "float32")
+    centre = torch.full((3,), span / 2, dtype=torch.float32, device="cuda")
+
+    def loss(xt, vt):
+        return ((xt - centre) ** 2).sum() + vt.sum()
+
+    r = rif.clone().requires_grad_(True)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    K.reset_launches()
+    t0 = time.time()
+    xt_a, vt_a = api.trace(r, x, v, h, ds)
+    loss(xt_a, vt_a).backward()
+    torch.cuda.synchronize()
+    api_ms = 1e3 * (time.time() - t0)
+    api_launches = {k: n_ for k, n_ in K.LAUNCHES.items() if n_}
+    api_peak = torch.cuda.max_memory_allocated()
+    g_ref = r.grad
+    del r
+    mesh = parallel.make_ray_mesh()
+    f = parallel.make_slab_trace_zsharded(mesh, h, ds, res)
+    rows = parallel.pad_rif_z(rif, 1).requires_grad_(True)
+    events = []
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    K.reset_launches()
+    K.record_events(events)
+    try:
+        t0 = time.time()
+        xt, vt = f(rows, x, v)
+        loss(xt, vt).backward()
+        torch.cuda.synchronize()
+        slab_ms = 1e3 * (time.time() - t0)
+    finally:
+        K.record_events(None)
+    peak = torch.cuda.max_memory_allocated()
+    launches = dict(K.LAUNCHES)
+    g = rows.grad[:res].clone()
+    g[-1] += rows.grad[res:].sum(dim=0)
+    bitwise = bool(torch.equal(xt, xt_a) and torch.equal(vt, vt_a))
+    out_errs = [rel_err(a.detach(), b.detach()) for a, b in ((xt, xt_a), (vt, vt_a))]
+    err = float((g - g_ref).abs().max() / g_ref.abs().max())
+    phases = dict(f.ring.phases_run)
+    want = {**{k: 0 for k in build.KERNELS}, "slab_trace_phase": phases["fwd"],
+            "slab_backtrace_phase": phases["bwd"]}
+    by_name = {}
+    for name, a, b in events:
+        by_name.setdefault(name, []).append(a.elapsed_time(b))
+    slab_bytes = (f.ring.S + 1) * res * res * 4
+    rec = dict(res=res, rays=n, S=f.ring.S, K=f.ring.K, phases=phases,
+               budget={"fwd": f.ring.phases(f.ring.steps_f), "bwd": f.ring.phases(f.ring.steps_b)},
+               bitwise=bitwise, out_abs_err=max(e[1] for e in out_errs),
+               out_rel_err=max(e[0] for e in out_errs), grad_rel_err=err, slab_ms=slab_ms,
+               api_trace_ms=api_ms,
+               api_launches=api_launches,
+               ms_per_launch={k: by_name.get(k, []) for k in SLAB_KERNELS},
+               peak_gb=peak / 1e9, base_gb=base / 1e9, api_peak_gb=api_peak / 1e9,
+               slab_gb=slab_bytes / 1e9, launches={k: n_ for k, n_ in launches.items() if n_})
+    print(f"slab path[{res}^3 f32, {n} z-crossing rays, one rank]: " + json.dumps(rec),
+          flush=True)
+    failures = []
+    if not bitwise or not err <= TOL_F32_GRAD or not float(g_ref.abs().max()) > 0:
+        failures.append(f"slab ring at {res}^3: bitwise {bitwise}, gradient {err:.3e}")
+    if launches != want:
+        failures.append(f"slab ring at {res}^3: launches {launches}, want {want}")
+    del g, g_ref, rows, xt, vt, xt_a, vt_a
+    # the plain phases on the first phase's inputs (one rank: the whole ring),
+    # for the kernels' plain-version times and this run's work
+    torch.cuda.empty_cache()
+    slab = slabs._Ring(mesh, h, ds, res, None, 2, False)._slab(parallel.pad_rif_z(rif, 1))
+    del rif
+    torch.cuda.empty_cache()
+    shape = slabs._grid_shape(slab, (res,) * 3, h)
+    nf, nb, inner = f.ring.steps_f, f.ring.steps_b, f.ring.K
+    tol_snap = G.snap_tol(slab.dtype)
+
+    def fwd_state():
+        return [x.clone(), v.clone(), x.clone(), v.clone(), G.inbounds(shape, x),
+                torch.zeros(n, dtype=torch.bool, device="cuda"),
+                torch.zeros(n, dtype=torch.int32, device="cuda")]
+
+    def bwd_state(st):
+        xt_p = torch.where(st[5][:, None], st[2], st[0])
+        dx, dv = 2.0 * (xt_p - centre), torch.ones_like(st[3])
+        return [xt_p, st[3].clone(), dx, dv + G._scalar(ds, dx) * dx,
+                ~G.escaped(shape, xt_p, -st[3]),
+                torch.zeros(n, dtype=torch.int32, device="cuda")]
+
+    # each plain phase timed alone, then run again counting its work: the
+    # ray-steps and the 32-byte sectors of the slab (and gradient slab) its
+    # stencils reach, which is what the kernel must move
+    st = fwd_state()
+    plain_fwd_ms = _host_ms(lambda: slabs.slab_trace_phase_plain(
+        slab, (res,) * 3, -1, h, ds, *st, nf, inner))[1]
+    fstats, bstats = {}, {}
+    slabs.slab_trace_phase_plain(slab, (res,) * 3, -1, h, ds, *fwd_state(), nf, inner,
+                                 stats=fstats)
+    gslab = torch.zeros_like(slab)
+    plain_bwd_ms = _host_ms(lambda: slabs.slab_backtrace_phase_plain(
+        slab, (res,) * 3, -1, h, ds, tol_snap, *bwd_state(st), gslab, nb, inner))[1]
+    gslab.zero_()
+    slabs.slab_backtrace_phase_plain(slab, (res,) * 3, -1, h, ds, tol_snap, *bwd_state(st),
+                                     gslab, nb, inner, stats=bstats)
+    del slab, gslab, st
+    torch.cuda.empty_cache()
+    for stats in (fstats, bstats):
+        for key in ("sectors", "grad_sectors"):
+            if key in stats:
+                stats[key] = int(stats[key].sum())
+    state_f = n * (4 * 3 * 4 + 2 + 4)  # x, v, xt, vt; inside, esc; cnt
+    state_b = n * (4 * 3 * 4 + 1 + 4)  # x, v, la, mu; active; cnt
+    times = {
+        "slab_trace_phase": set_bound(dict(
+            ms=median(by_name["slab_trace_phase"]), plain_ms=plain_fwd_ms, library_ms=None,
+            bytes=32 * fstats["sectors"] + 2 * state_f,
+            flops=fstats["ray_steps"] * FLOPS_FWD_STEP + fstats["evals"] * FLOPS_FWD_EVAL)),
+        "slab_backtrace_phase": set_bound(dict(
+            ms=median(by_name["slab_backtrace_phase"]), plain_ms=plain_bwd_ms, library_ms=None,
+            bytes=32 * (bstats["sectors"] + bstats["grad_sectors"]) + 2 * state_b,
+            flops=bstats["ray_steps"] * FLOPS_BWD_STEP + bstats["evals"] * FLOPS_BWD_EVAL
+            + bstats["splats"] * FLOPS_BWD_SPLAT)),
+    }
+    rec["work"] = {"slab_trace_phase": fstats, "slab_backtrace_phase": bstats}
+    print(f"slab kernels at {res}^3 (the first phase, one rank): " + json.dumps(
+        {k: {q: t[q] for q in ("ms", "plain_ms", "bound_ms", "bound_by")}
+         for k, t in times.items()}) + f"; work {json.dumps(rec['work'])}", flush=True)
+    return rec, launches, times, failures
+
+
 MAIN_PATH_PASSES = 1 + BENCH_ITERS + 1
 
 
@@ -3653,8 +3995,25 @@ def main():
     fuel128 = fuel128_path()
     fuel128_small_check()
     phase_m_s = phase_m_checks_s + time.time() - t_m
+    # phase s: the sharded variants and the z-slab ring, K21 and K22
+    t_s = time.time()
+    sharded, sharded_launches, s_failures = sharded_variants_check(
+        var_full, cable_scene(full_bins, None, torch.float32, both_passes=True))
+    failures += s_failures
+    del var_full
+    slab_checks = []
+    for dtype, tol in (("float64", TOL_F64), ("float32", TOL_F32_GRAD)):
+        row, s_failures = slab_kernel_check(dtype, tol)
+        slab_checks.append(row)
+        failures += s_failures
+    torch.cuda.empty_cache()
+    slab_rec, slab_launches, slab_times, s_failures = slab_path()
+    failures += s_failures
+    times.update(slab_times)
+    phase_s_s = time.time() - t_s
     print(f"phases: v (variants) {phase_v_s:.1f} s, x (exact variants) {phase_x_s:.1f} s, "
-          f"p (fuel2008) {phase_p_s:.1f} s, m (mesh, fuel-128) {phase_m_s:.1f} s", flush=True)
+          f"p (fuel2008) {phase_p_s:.1f} s, m (mesh, fuel-128) {phase_m_s:.1f} s, "
+          f"s (sharded variants, slab ring) {phase_s_s:.1f} s", flush=True)
     full_run = fuel_path(FUEL_ITERS_SHIPPED, "f32 full width, shipped optim_iters", work)
     print(f"fuel[shipped] {full_run['steps']} steps in {full_run['seconds']:.1f} s, escalated "
           f"at stage {full_run['escalated']}, rel_norm {full_run['rel_norm']:.4f}", flush=True)
@@ -3667,6 +4026,7 @@ def main():
                                             if k != "launches"}), flush=True)
     print("mesh: " + json.dumps(mesh_rec), flush=True)
     print("fuel128: " + json.dumps(fuel128), flush=True)
+    print("slab: " + json.dumps(slab_rec), flush=True)
     print("compaction: " + json.dumps(comp), flush=True)
 
     paths = {"bench": bench_launches, "probe": probe_launches, "fuel": fuel["launches"],
@@ -3674,7 +4034,7 @@ def main():
              "fiber": fiber_rec["launches"], "fiber_exact": fiber_exact["launches"],
              "variants": variants["launches"], "variants_exact": exact_path["launches"],
              "fuel2008": f2008["launches"], "fuel2008_true": f2008_true["launches"],
-             "fuel128": fuel128["launches"]}
+             "fuel128": fuel128["launches"], "sharded": sharded_launches, "slab": slab_launches}
     replaces = {
         "eval_grad": "adjointnonlinearraytracing_tpu/benchmarks/probe_evalmath.py:107",
         "trace_fwd": "adjointnonlinearraytracing_tpu/tracer/paired.py:64",
@@ -3695,6 +4055,8 @@ def main():
         **{name: "adjointnonlinearraytracing_tpu/tracer/checkpointed.py:209"
            for name in ("backtrace_plane_exact", "backtrace_sdf_exact")},
         "record_paths": "adjointnonlinearraytracing_tpu/pathmatrix/fuel2008.py:55",
+        "slab_trace_phase": "adjointnonlinearraytracing_tpu/parallel/slabs.py:257",
+        "slab_backtrace_phase": "adjointnonlinearraytracing_tpu/parallel/slabs.py:335",
     }
     errs = dict(zip(("eval_grad", "trace_fwd", "backtrace"), zip(cmp["abs_err"], cmp["rel_err"])))
     errs["gather_rows"] = (gather["max_abs_err"], gather["max_abs_err"])
@@ -3707,6 +4069,11 @@ def main():
         errs[name] = var_row["fwd_err"][name]
     errs["backtrace_sdf"] = (var_row["backtrace_sdf_abs_err"], var_row["backtrace_sdf_rel_err"])
     errs["record_paths"] = (k20["max_abs_err"], k20["max_abs_err"])  # bitwise, asserted
+    errs["slab_trace_phase"] = (  # bitwise, asserted
+        max([r["fwd_abs_err"] for r in slab_checks] + [slab_rec["out_abs_err"]]),
+        max([r["fwd_rel_err"] for r in slab_checks] + [slab_rec["out_rel_err"]]))
+    errs["slab_backtrace_phase"] = (slab_checks[1]["grad_abs_err"],
+                                    slab_checks[1]["grad_rel_err"])
     for variant, (fname, bname) in EXACT_VARIANTS.items():  # the f32 checks at full width
         rows_b = [r for r in variant_exact_rows
                   if r["variant"] == variant and r["label"] == f"f32 {RES}^3"]
@@ -3844,6 +4211,23 @@ def main():
                          "peak_flops": "f64, 34 TFLOP/s",
                          "launched_by": "pathmatrix.fuel2008.fuel_reconstruction "
                                         "(spline 'true')"},
+        **{name: {"rel_tol": 0.0 if name == "slab_trace_phase" else TOL_F32_GRAD,
+                  "rel_tol_against": ("bitwise (every state tensor; the rays outside the slab "
+                                      "frozen)" if name == "slab_trace_phase" else
+                                      "the plain phase's gradient slab (x, v, active, steps "
+                                      "bitwise)"),
+                  "checks": slab_checks,
+                  "scene": f"configuration 14: the bench field at {SLAB_RES}^3 f32, {NRAYS} "
+                           f"rays crossing z, one rank (the first phase's work)",
+                  "path": {k: slab_rec[k] for k in ("phases", "budget", "bitwise",
+                                                    "grad_rel_err", "slab_ms", "api_trace_ms",
+                                                    "peak_gb", "slab_gb")},
+                  "work": slab_rec["work"][name],
+                  "bytes_counted": "the 32-byte sectors of the slab that the phase's stencils "
+                                   "read (K22: and of the gradient slab that its splats "
+                                   "reach), and the ray state read and written once",
+                  "launched_by": "parallel.make_slab_trace_zsharded (one launch a ring phase)"}
+           for name in SLAB_KERNELS},
         "gather_rows": {"rel_tol": 0.0, "rows": GATHER_N, "table_rows": GATHER_ROWS,
                         "ms_dirty_flush": gather["ms_dirty_flush"],
                         "library_ms_dirty_flush": gather["library_ms_dirty_flush"],

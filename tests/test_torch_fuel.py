@@ -283,11 +283,24 @@ def test_runner_runs_the_shipped_yaml(tmp_path):
 
 
 def test_what_this_slice_leaves_out_raises_and_names_its_roadmap_item():
+    """The sharded variants, once left out, now build and run on the CPU (their
+    results are held to the JAX functions by ``test_torch_parallel_variants.py``);
+    an unknown experiment family still raises."""
     from adjointnonlinearraytracing_tpu_torch import parallel as TP
 
-    for name in ("plane", "target", "sdf", "cable"):
-        with pytest.raises(NotImplementedError, match="A15b"):
-            getattr(TP, f"make_sharded_trace_{name}")(TP.make_ray_mesh(), 0.25, 0.125, 5)
+    mesh = TP.make_ray_mesh()
+    rif = torch.ones((5, 5, 5), dtype=torch.float64)
+    x = torch.tensor([[0.5, -0.1, 0.5], [0.4, -0.1, 0.6]], dtype=torch.float64)
+    v = torch.tensor([[0.0, 1.0, 0.0], [0.1, 1.0, 0.0]], dtype=torch.float64)
+    for exact in (False, True):
+        args = {"plane": (x, v, x + 0.5, v), "target": (x, v, x + 2.0), "sdf": (rif - 2.0, x, v)}
+        for name, rest in args.items():
+            out = getattr(TP, f"make_sharded_trace_{name}")(mesh, 0.25, 0.125, 5, exact=exact)(
+                rif, *rest)
+            assert out[0].shape == (2, 3) and bool(torch.isfinite(out[0]).all())
+        xt, vt, d2 = TP.make_sharded_trace_cable(mesh, 1.0, 2.0, 0.125, exact=exact)(
+            torch.ones(5, dtype=torch.float64), x + 0.5, v, x + 1.0)
+        assert xt.shape == (2, 3) and d2.shape == (2,)
     with pytest.raises(ValueError, match="unknown experiment family"):
         TR.run(FUEL_YAML, overrides=dict(family="nope"), device="cpu")
 
