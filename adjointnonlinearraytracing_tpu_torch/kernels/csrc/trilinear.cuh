@@ -28,7 +28,8 @@ namespace anrt {
 // z_first + rows) of a (D, H, W) grid (the whole grid: z_first 0, rows D).
 // Positions, clamping and faces are the whole grid's; only the rows a
 // stencil reads must lie in the window (the slab ring's kernels, K21 and K22,
-// step a ray only while its cell row is one the window holds: in_window).
+// step a ray only while its cell row is one the window holds: cell_row,
+// holds_row).
 template <typename T>
 struct Grid {
   const T* data;   // (rows, H, W) contiguous
@@ -96,17 +97,20 @@ __device__ __forceinline__ Stencil<T> stencil(const Grid<T>& g, const T p[3]) {
   return s;
 }
 
-// Whether the window holds the cell of p: its cell row on z is that of the
-// JAX package's cell table (fields/cells.py: clip(floor(z/h), -1, D-1) + 1,
-// in [0, D]), whose corners are the voxel rows cz-1 and cz, clamped; the
-// window [z_first, z_first + rows) holds the cell rows [z_first + 1,
-// z_first + rows).
+// The cell row of p on z: that of the JAX package's cell table
+// (fields/cells.py: clip(floor(z/h), -1, D-1) + 1, in [0, D]), whose corners
+// are the voxel rows cz-1 and cz, clamped.
 template <typename T>
-__device__ __forceinline__ bool in_window(const Grid<T>& g, const T p[3]) {
+__device__ __forceinline__ int cell_row(const Grid<T>& g, const T p[3]) {
   const T posf = floor(p[2] / g.h);
   const T lo = static_cast<T>(-1), hi = static_cast<T>(g.D - 1);
-  const int cz = static_cast<int>(posf < lo ? lo : (posf > hi ? hi : posf)) + 1;
-  return cz > g.z_first && cz < g.z_first + g.rows;
+  return static_cast<int>(posf < lo ? lo : (posf > hi ? hi : posf)) + 1;
+}
+
+// Whether the voxel rows [first, first + rows) hold the cell row cz: they
+// hold the cell rows [first + 1, first + rows).
+__device__ __forceinline__ bool holds_row(int cz, int first, int rows) {
+  return cz > first && cz < first + rows;
 }
 
 // Corner values v[a][b][c]; a masked lane reads nothing and gets zeros.

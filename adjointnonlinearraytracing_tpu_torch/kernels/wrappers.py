@@ -158,7 +158,11 @@ ray steps only while its cell row lies in the slab at hand.  Both kernels
 read the slab as a z-window of the grid (voxel rows ``[z_first, z_first +
 rows)``, ``csrc/trilinear.cuh``) with the unsharded kernels' steps, keep each
 ray's state in device memory between phases, and set a word when a ray has
-steps left.
+steps left.  The ring launches each phase as a sweep of z-bands that L2 holds
+(``parallel/slabs.py::sweep_bands``, :func:`slab_trace_bands`,
+:func:`slab_backtrace_bands`): a launch steps the rays whose cell row lies in
+one of two bands of the slab, the phase's cap counted from the step counts at
+its start, a per-thread gate letting the other rays' threads leave at once.
 
 K21 ``slab_trace_phase`` (csrc/slab.cu)
     replaces the inner loop of ``parallel/slabs.py::_fwd_local`` (up to ``K``
@@ -167,8 +171,8 @@ K21 ``slab_trace_phase`` (csrc/slab.cu)
     phase is K2's bit for bit.
 K22 ``slab_backtrace_phase`` (csrc/slab.cu)
     replaces the inner loop of ``parallel/slabs.py::_bwd_local``: K3's ray on
-    the window, its run and warp sums added into the slab's gradient (the
-    same window), every run flushed before the phase ends.
+    the window, its run and warp sums added into the window's gradient,
+    every run flushed before the launch ends.
 """
 
 from __future__ import annotations
@@ -227,9 +231,9 @@ _ARGTYPES = {
     "backtrace_plane_exact": [_I, _VP, _I, _I, _I, _D, _D] + [_VP] * 10 + [_I, _I, _I, _VP],
     "backtrace_sdf_exact": [_I, _VP, _I, _I, _I, _D, _D] + [_VP] * 9 + [_I, _I, _I, _VP],
     "record_paths": [_I, _VP, _I, _I, _I, _D, _D, _VP, _VP, _VP, _VP, _I, _I, _I, _VP],
-    "slab_trace_phase": [_I, _VP, _I, _I, _I, _D, _D, _I, _I] + [_VP] * 11 + [_I, _I, _I, _VP],
-    "slab_backtrace_phase": [_I, _VP, _I, _I, _I, _D, _D, _D, _I, _I] + [_VP] * 9
-                            + [_I, _I, _I, _VP],
+    "slab_trace_phase": [_I, _VP, _I, _I, _I, _D, _D, _I, _I] + [_VP] * 13 + [_I] * 8 + [_VP],
+    "slab_backtrace_phase": [_I, _VP, _I, _I, _I, _D, _D, _D, _I, _I] + [_VP] * 11 + [_I] * 8
+                            + [_VP],
 }
 #: the states a checkpoint holds: x, v, inside (the cable kernels: x, v, esc)
 CKPT_WIDTH = 7
@@ -287,28 +291,44 @@ def _check_rays(data: torch.Tensor, name: str, **arrays: torch.Tensor) -> int:
     return n
 
 
-def _launch(name: str, device: torch.device, *args) -> None:
-    """Call kernel ``name`` with ``args`` and ``device``'s current stream; raise if refused.
+_FNS: dict = {}
+
+
+def _kernel(name: str):
+    """Kernel ``name``'s C entry point, its argument types set (built at first use)."""
+    fn = _FNS.get(name)
+    if fn is None:
+        fn = getattr(build.load(name), f"anrt_{name}")
+        fn.argtypes = _ARGTYPES[name]
+        fn.restype = _I
+        _FNS[name] = fn
+    return fn
+
+
+def _run(name: str, fn, stream: "torch.cuda.Stream", args) -> None:
+    """Call ``fn`` (kernel ``name``) with ``args`` on ``stream``; raise if refused.
 
     The one place a launch is counted.
     """
-    fn = getattr(build.load(name), f"anrt_{name}")
-    fn.argtypes = _ARGTYPES[name]
-    fn.restype = _I
-    with torch.cuda.device(device):
-        stream = torch.cuda.current_stream()
-        sink = _events
-        if sink is not None:
-            start = torch.cuda.Event(enable_timing=True)
-            stop = torch.cuda.Event(enable_timing=True)
-            start.record(stream)
-        err = fn(*args, stream.cuda_stream)
-        if sink is not None:
-            stop.record(stream)
-            sink.append((name, start, stop))
+    sink = _events
+    if sink is not None:
+        start = torch.cuda.Event(enable_timing=True)
+        stop = torch.cuda.Event(enable_timing=True)
+        start.record(stream)
+    err = fn(*args, stream.cuda_stream)
+    if sink is not None:
+        stop.record(stream)
+        sink.append((name, start, stop))
     if err != 0:
         raise RuntimeError(f"{name}: kernel launch failed with CUDA error {err}")
     LAUNCHES[name] += 1
+
+
+def _launch(name: str, device: torch.device, *args) -> None:
+    """Call kernel ``name`` with ``args`` and ``device``'s current stream; raise if refused."""
+    fn = _kernel(name)
+    with torch.cuda.device(device):
+        _run(name, fn, torch.cuda.current_stream(), args)
 
 
 def _check_order(order: Optional[torch.Tensor], data: torch.Tensor, n: int, name: str) -> None:
@@ -1026,10 +1046,128 @@ def _check_slab(slab: torch.Tensor, res: Tuple[int, int, int], z_first: int, nam
 
 def _check_states(data: torch.Tensor, n: int, name: str, **arrays: torch.Tensor) -> None:
     for label, (t, dtype) in arrays.items():
+        if t is None:
+            continue
         if t.device != data.device or t.dtype != dtype or t.shape != (n,) \
                 or not t.is_contiguous():
             raise ValueError(f"{name}: {label} must be a contiguous {dtype} ({n},) tensor on "
                              f"{data.device}, got {t.dtype} {tuple(t.shape)} on {t.device}")
+
+
+class _SlabLaunch:
+    """K21 or K22 on one slab and the rays' state, the checks made by the
+    caller: each call is one launch that steps the rays whose cell row lies in
+    the given voxel-row windows of the slab (csrc/slab.cu's ``Sweep``).  It
+    holds every tensor whose address it passes (``tensors``), so that none is
+    freed, and its memory handed to another, while launches may still read
+    it."""
+
+    def __init__(self, name: str, slab: torch.Tensor, z_first: int, geometry: tuple,
+                 tensors: tuple, start: torch.Tensor, gate: torch.Tensor, n: int,
+                 max_steps: int, inner: int):
+        self.name, self.fn, self.device = name, _kernel(name), slab.device
+        self.stream = torch.cuda.current_stream(slab.device)
+        self.tensors = (slab, *tensors, start, gate)
+        self.head = (int(slab.dtype == torch.float64), slab.data_ptr(), *geometry, int(z_first),
+                     slab.shape[0], *(_ptr(t) for t in tensors))
+        self.sweep = (start.data_ptr(), gate.data_ptr())
+        self.tail = (n, int(max_steps), int(inner))
+
+    def __call__(self, windows, init: bool, flags: Optional[torch.Tensor]) -> None:
+        (f0, r0), (f1, r1) = (list(windows) + [(0, 0)])[:2]
+        args = (*self.head, *self.sweep, _ptr(flags), int(init), int(f0), int(r0), int(f1),
+                int(r1), *self.tail)
+        if torch.cuda.current_device() == self.device.index:
+            _run(self.name, self.fn, self.stream, args)
+        else:
+            with torch.cuda.device(self.device):
+                _run(self.name, self.fn, self.stream, args)
+
+
+def _slab_trace_sweep(name, slab, res, z_first, h, ds, x, v, xt, vt, inside, esc, cnt,
+                      max_steps, inner, order, planes):
+    """K21's checks, once, and the phase function of its launches
+    (:func:`_sweep_phase`)."""
+    _check_slab(slab, res, z_first, name)
+    extra = {} if planes is None else dict(pln_o=planes[0], pln_d=planes[1])
+    n = _check_rays(slab, name, x=x, v=v, xt=xt, vt=vt, **extra)
+    _check_states(slab, n, name, inside=(inside, torch.bool), esc=(esc, torch.bool),
+                  cnt=(cnt, torch.int32))
+    _check_order(order, slab, n, name)
+    start, gate = cnt.clone(), torch.empty_like(cnt)
+    d, hgt, wid = res
+    tensors = (order, x, v, xt, vt, inside, esc, cnt, *((None, None) if planes is None
+                                                        else planes))
+    launch = _SlabLaunch("slab_trace_phase", slab, z_first, (wid, hgt, d, float(h), float(ds)),
+                         tensors, start, gate, n, max_steps, inner) if n else None
+    return _sweep_phase(launch, slab, int(z_first), name)
+
+
+def _slab_backtrace_sweep(name, slab, res, z_first, h, ds, snap_tol, x, v, la, mu, active,
+                          cnt, gslab, max_steps, inner, order):
+    """K22's checks, once, and the phase function of its launches."""
+    _check_slab(slab, res, z_first, name)
+    if gslab.device != slab.device or gslab.dtype != slab.dtype or gslab.shape != slab.shape \
+            or not gslab.is_contiguous():
+        raise ValueError(f"{name}: gslab must be a contiguous {tuple(slab.shape)} {slab.dtype} "
+                         f"tensor on {slab.device}")
+    n = _check_rays(slab, name, x=x, v=v, la=la, mu=mu)
+    _check_states(slab, n, name, active=(active, torch.bool), cnt=(cnt, torch.int32))
+    _check_order(order, slab, n, name)
+    start, gate = cnt.clone(), torch.empty_like(cnt)
+    d, hgt, wid = res
+    launch = _SlabLaunch("slab_backtrace_phase", slab, z_first,
+                         (wid, hgt, d, float(h), float(ds), float(snap_tol)),
+                         (order, x, v, la, mu, active, cnt, gslab), start, gate, n, max_steps,
+                         inner) if n else None
+    return _sweep_phase(launch, slab, int(z_first), name)
+
+
+def _check_windows(slab: torch.Tensor, z_first: int, windows, name: str):
+    """At most two voxel-row windows ``(first, rows)`` of the slab."""
+    windows = [(int(f), int(r)) for f, r in windows]
+    if len(windows) > 2 or any(r < 0 or f < z_first or f + r > z_first + slab.shape[0]
+                               for f, r in windows):
+        raise ValueError(f"{name}: bands {windows} are not at most two windows of the slab's "
+                         f"rows [{z_first}, {z_first + slab.shape[0]})")
+    return windows
+
+
+def _sweep_phase(launch: Optional[_SlabLaunch], slab: torch.Tensor, z_first: int, name: str):
+    """The ``phase(windows, first, last)`` that ``parallel.slabs.sweep_bands``
+    takes, on the launcher of one phase; ``windows`` in the slab's own rows."""
+
+    def phase(windows, first, last):
+        bands = _check_windows(slab, z_first, [(z_first + lo, rows) for lo, rows in windows],
+                               name)
+        flags = torch.zeros((2,), dtype=torch.int32, device=slab.device) if last else None
+        if launch is not None:
+            launch(bands, first, flags)
+        return flags
+
+    return phase
+
+
+_WAVES: dict = {}
+
+
+def slab_wave(device: torch.device, dtype: torch.dtype, backward: bool,
+              plane: bool = False) -> int:
+    """The rays one wave of K21 (``backward`` False; ``plane``: K11's rule) or
+    K22 holds on ``device``: the blocks an SM runs at once at the kernel's
+    occupancy, times the SMs, times the 128 threads a block."""
+    key = (torch.device(device), dtype, bool(backward), bool(plane))
+    if key not in _WAVES:
+        fn = build.load("slab_trace_phase").anrt_slab_wave
+        fn.argtypes = [_I, _I, _I, ctypes.POINTER(_I)]
+        fn.restype = _I
+        rays = _I(0)
+        with torch.cuda.device(key[0]):
+            err = fn(int(dtype == torch.float64), int(backward), int(plane), ctypes.byref(rays))
+        if err != 0:
+            raise RuntimeError(f"slab_wave: CUDA error {err}")
+        _WAVES[key] = rays.value
+    return _WAVES[key]
 
 
 def slab_trace_phase(slab: torch.Tensor, res: Tuple[int, int, int], z_first: int, h: float,
@@ -1038,7 +1176,7 @@ def slab_trace_phase(slab: torch.Tensor, res: Tuple[int, int, int], z_first: int
                      cnt: torch.Tensor, max_steps: int, inner: int,
                      order: Optional[torch.Tensor] = None,
                      planes: Optional[Tuple[torch.Tensor, torch.Tensor]] = None) -> torch.Tensor:
-    """K21: one forward phase of the slab ring, in place.
+    """K21: one forward phase of the slab ring as one launch over the whole slab, in place.
 
     ``slab`` holds the voxel rows ``[z_first, z_first + rows)`` of a grid of
     shape ``res`` ``(D, H, W)``; the rays' state ``x, v, xt, vt`` ``(N, 3)``,
@@ -1046,24 +1184,31 @@ def slab_trace_phase(slab: torch.Tensor, res: Tuple[int, int, int], z_first: int
     ``inner`` steps a ray while the ray's cell row is in the slab, it has not
     escaped and ``cnt < max_steps``; ``planes`` ``(pln_o, pln_d)`` selects
     K11's rule.  ``order`` as for :func:`trace_fwd`.  Returns the int32
-    ``(1,)`` word that is 1 where a ray has steps left (not read back).
+    ``(1,)`` word that is 1 where a ray has steps left (not read back).  It
+    is :func:`slab_trace_bands`'s phase function on the slab as one window;
+    the ring runs a phase as a band sweep of it.
     """
-    _check_slab(slab, res, z_first, "slab_trace_phase")
-    extra = {} if planes is None else dict(pln_o=planes[0], pln_d=planes[1])
-    n = _check_rays(slab, "slab_trace_phase", x=x, v=v, xt=xt, vt=vt, **extra)
-    _check_states(slab, n, "slab_trace_phase", inside=(inside, torch.bool),
-                  esc=(esc, torch.bool), cnt=(cnt, torch.int32))
-    _check_order(order, slab, n, "slab_trace_phase")
-    pending = torch.zeros((1,), dtype=torch.int32, device=slab.device)
-    if n:
-        d, hgt, wid = res
-        _launch("slab_trace_phase", slab.device, int(slab.dtype == torch.float64),
-                slab.data_ptr(), wid, hgt, d, float(h), float(ds), int(z_first), slab.shape[0],
-                _ptr(order), x.data_ptr(), v.data_ptr(), xt.data_ptr(), vt.data_ptr(),
-                inside.data_ptr(), esc.data_ptr(), cnt.data_ptr(),
-                *((None, None) if planes is None else (p.data_ptr() for p in planes)),
-                pending.data_ptr(), n, int(max_steps), int(inner))
-    return pending
+    phase = _slab_trace_sweep("slab_trace_phase", slab, res, z_first, h, ds, x, v, xt, vt,
+                              inside, esc, cnt, max_steps, inner, order, planes)
+    return phase([(0, slab.shape[0])], True, True)[:1]
+
+
+def slab_trace_bands(slab: torch.Tensor, res: Tuple[int, int, int], z_first: int, h: float,
+                     ds: float, x: torch.Tensor, v: torch.Tensor, xt: torch.Tensor,
+                     vt: torch.Tensor, inside: torch.Tensor, esc: torch.Tensor,
+                     cnt: torch.Tensor, max_steps: int, inner: int,
+                     order: Optional[torch.Tensor] = None,
+                     planes: Optional[Tuple[torch.Tensor, torch.Tensor]] = None):
+    """K21 for one phase run as a band sweep (``parallel.slabs.sweep_bands``).
+
+    The arguments as :func:`slab_trace_phase`'s, checked once; the step counts
+    at the phase's start and the gate are made here.  Returns ``phase(windows,
+    first, last)``: one launch of K21 on the rays whose cell row lies in the
+    given windows ``(lo, rows)`` of the slab's own voxel rows (``first``
+    writes the gate), which on a sweep's last launch (``last``) returns the
+    ``[pending, live]`` words."""
+    return _slab_trace_sweep("slab_trace_bands", slab, res, z_first, h, ds, x, v, xt, vt,
+                             inside, esc, cnt, max_steps, inner, order, planes)
 
 
 def slab_backtrace_phase(slab: torch.Tensor, res: Tuple[int, int, int], z_first: int, h: float,
@@ -1071,34 +1216,28 @@ def slab_backtrace_phase(slab: torch.Tensor, res: Tuple[int, int, int], z_first:
                          la: torch.Tensor, mu: torch.Tensor, active: torch.Tensor,
                          cnt: torch.Tensor, gslab: torch.Tensor, max_steps: int, inner: int,
                          order: Optional[torch.Tensor] = None) -> torch.Tensor:
-    """K22: one adjoint phase of the slab ring, in place.
+    """K22: one adjoint phase of the slab ring as one launch over the slab, in place.
 
     ``slab`` as for :func:`slab_trace_phase`; ``gslab`` (the slab's shape and
     type) takes the splats; the state ``x, v, la, mu`` ``(N, 3)``,
     ``active`` (bool), ``cnt`` (int32) steps as K3's rays do while each ray's
-    snapped position lies in a cell row of the slab.  ``order`` as for
-    :func:`trace_fwd`.  Returns the int32 ``(1,)`` word that is 1 where a ray
-    has steps left (not read back).
+    snapped position lies in a cell row of the slab.  ``order`` and what it
+    returns as for :func:`slab_trace_phase`; the ring's band sweep:
+    :func:`slab_backtrace_bands`.
     """
-    _check_slab(slab, res, z_first, "slab_backtrace_phase")
-    if gslab.device != slab.device or gslab.dtype != slab.dtype or gslab.shape != slab.shape \
-            or not gslab.is_contiguous():
-        raise ValueError(f"slab_backtrace_phase: gslab must be a contiguous "
-                         f"{tuple(slab.shape)} {slab.dtype} tensor on {slab.device}")
-    n = _check_rays(slab, "slab_backtrace_phase", x=x, v=v, la=la, mu=mu)
-    _check_states(slab, n, "slab_backtrace_phase", active=(active, torch.bool),
-                  cnt=(cnt, torch.int32))
-    _check_order(order, slab, n, "slab_backtrace_phase")
-    pending = torch.zeros((1,), dtype=torch.int32, device=slab.device)
-    if n:
-        d, hgt, wid = res
-        _launch("slab_backtrace_phase", slab.device, int(slab.dtype == torch.float64),
-                slab.data_ptr(), wid, hgt, d, float(h), float(ds), float(snap_tol),
-                int(z_first), slab.shape[0], _ptr(order), x.data_ptr(), v.data_ptr(),
-                la.data_ptr(), mu.data_ptr(), active.data_ptr(), cnt.data_ptr(),
-                gslab.data_ptr(), pending.data_ptr(), n, int(max_steps),
-                int(inner))
-    return pending
+    phase = _slab_backtrace_sweep("slab_backtrace_phase", slab, res, z_first, h, ds, snap_tol,
+                                  x, v, la, mu, active, cnt, gslab, max_steps, inner, order)
+    return phase([(0, slab.shape[0])], True, True)[:1]
+
+
+def slab_backtrace_bands(slab: torch.Tensor, res: Tuple[int, int, int], z_first: int, h: float,
+                         ds: float, snap_tol: float, x: torch.Tensor, v: torch.Tensor,
+                         la: torch.Tensor, mu: torch.Tensor, active: torch.Tensor,
+                         cnt: torch.Tensor, gslab: torch.Tensor, max_steps: int, inner: int,
+                         order: Optional[torch.Tensor] = None):
+    """K22 for one phase run as a band sweep, as :func:`slab_trace_bands` is K21's."""
+    return _slab_backtrace_sweep("slab_backtrace_bands", slab, res, z_first, h, ds, snap_tol,
+                                 x, v, la, mu, active, cnt, gslab, max_steps, inner, order)
 
 
 def gather_rows(table: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:

@@ -32,6 +32,15 @@ eight times the memory that slabs exist to save.  After the sweep the
 gradient's halo row goes back to the previous rank (the reverse shift) and is
 added to its last row.
 
+A phase runs as a sweep of z-bands (:func:`sweep_bands`): on the card the
+slab is gigabytes and L2 50 MB, so where a phase's rays take more than one
+wave of the kernel, each launch steps only the rays whose cell row lies in
+one of two bands of the slab, one going up through it and one coming down,
+each as high as L2 holds (:func:`band_height`; its gradient too in the
+adjoint); rays that fit one wave, and any phase off the card, take one
+launch over the whole slab.  Each ray takes the steps one launch over the
+slab would give it, so the results do not depend on the band.
+
 Contract of :func:`make_slab_trace_zsharded`: each rank passes **its own**
 ``S`` rows of ``pad_rif_z(rif, world_size)`` (rows ``[rank*S, (rank+1)*S)``,
 shape ``(S, res, res)``) and the whole ray batch; it gets the whole batch's
@@ -60,7 +69,8 @@ from ..tracer import order as O
 from .mesh import RayMesh, _gather_plain
 
 __all__ = ["slab_rows", "pad_rif_z", "build_slab_tables", "make_slab_trace_zsharded",
-           "make_slab_trace", "slab_trace_phase_plain", "slab_backtrace_phase_plain"]
+           "make_slab_trace", "slab_trace_phase_plain", "slab_backtrace_phase_plain",
+           "band_rows", "band_windows", "sweep_bands"]
 
 
 def slab_rows(table_rows: int, ndev: int) -> int:
@@ -113,10 +123,19 @@ def _grid_shape(like: torch.Tensor, res: Tuple[int, int, int], h: float) -> G.Gr
 
 def _in_window(res, z_first: int, rows: int, h: float, p: torch.Tensor) -> torch.Tensor:
     """Whether the window ``[z_first, z_first + rows)`` holds the cell of each
-    point (``in_window`` of ``csrc/trilinear.cuh``)."""
+    point (``holds_row(cell_row(p))`` of ``csrc/trilinear.cuh``)."""
     posf = torch.floor(p[:, 2] / G._scalar(h, p))
     cz = posf.clamp(-1, res[0] - 1).to(torch.int64) + 1
     return (cz > z_first) & (cz < z_first + rows)
+
+
+def _in_windows(res, windows, h: float, p: torch.Tensor) -> torch.Tensor:
+    """Whether one of the voxel-row windows ``(first, rows)`` holds the cell of
+    each point."""
+    out = torch.zeros_like(p[:, 0], dtype=torch.bool)
+    for first, rows in windows:
+        out |= _in_window(res, first, rows, h, p)
+    return out
 
 
 def _touch(stats, key: str, buf: torch.Tensor, local: torch.Tensor) -> None:
@@ -142,21 +161,29 @@ def _window_corners(slab, z_first, shape: G.GridField, p, mask, stats=None):
 
 
 def slab_trace_phase_plain(slab, res, z_first, h, ds, x, v, xt, vt, inside, esc, cnt,
-                           max_steps, inner, planes=None, stats=None) -> torch.Tensor:
+                           max_steps, inner, planes=None, stats=None, start=None,
+                           bands=None) -> torch.Tensor:
     """K21's plain version: one forward phase of the ring on ``slab`` (the voxel
-    rows ``[z_first, z_first + rows)`` of a ``res`` grid), the state updated in
-    place; returns a bool ``(1,)`` tensor, true where a ray has steps left.
+    rows ``[z_first, z_first + rows)`` of a ``res`` grid), or one launch of a
+    phase's band sweep, the state updated in place; returns a bool ``(1,)``
+    tensor, true where a ray has steps left, and with ``bands`` a ``(2,)``
+    one whose second word is true where a ray can still step in the slab in
+    this phase.
 
-    A ray steps while its cell row is in the window, it has not escaped and
-    ``cnt < max_steps``, at most ``inner`` times: the steps of
+    A ray steps while its cell row is in the slab (with ``bands``: in one of
+    the voxel-row windows ``(first, rows)`` of it), it has not escaped and
+    ``cnt < max_steps``, up to ``inner`` steps counted from ``start`` (the
+    counts at the phase's start; None: from now): the steps of
     ``tracer.eikonal.trace`` (of ``trace_plane`` with ``planes``).  ``stats``
     (a dict) gets ``ray_steps`` and ``evals`` (the steps taken inside the
     grid) added to it, and ``sectors``: the 32-byte sectors of ``slab`` read."""
     shape = _grid_shape(slab, res, h)
     rows = slab.shape[0]
     ds_t = G._scalar(ds, x)
+    base = cnt.clone() if start is None else start
+    held = [(z_first, rows)] if bands is None else bands
     for _ in range(int(inner)):
-        act = ~esc & (cnt < max_steps) & _in_window(res, z_first, rows, h, x)
+        act = ~esc & (cnt < max_steps) & (cnt - base < inner) & _in_windows(res, held, h, x)
         if not bool(act.any()):
             break
         if stats is not None:
@@ -181,18 +208,24 @@ def slab_trace_phase_plain(slab, res, z_first, h, ds, x, v, xt, vt, inside, esc,
         inside.copy_(torch.where(act, cur, inside))
         esc.copy_(torch.where(act, esc2, esc))
         cnt.add_(act.to(cnt.dtype))
-    return (~esc & (cnt < max_steps)).any().reshape(1)
+    pending = ~esc & (cnt < max_steps)
+    if bands is None:
+        return pending.any().reshape(1)
+    live = pending & (cnt - base < inner) & _in_window(res, z_first, rows, h, x)
+    return torch.stack([pending.any(), live.any()])
 
 
 def slab_backtrace_phase_plain(slab, res, z_first, h, ds, snap_tol, x, v, la, mu, active, cnt,
-                               gslab, max_steps, inner, stats=None) -> torch.Tensor:
-    """K22's plain version: one adjoint phase of the ring, the state updated and
-    the splats added into ``gslab`` in place; returns a bool ``(1,)`` tensor,
-    true where a ray has steps left.
+                               gslab, max_steps, inner, stats=None, start=None,
+                               bands=None) -> torch.Tensor:
+    """K22's plain version: one adjoint phase of the ring, or one launch of a
+    phase's band sweep, the state updated and the splats added into ``gslab``
+    in place; returns what :func:`slab_trace_phase_plain` returns.
 
     A ray steps while it is active, ``cnt < max_steps`` and its snapped
-    position ``xe`` lies in a cell row of the window (tested before it
-    moves), at most ``inner`` times: the steps of
+    position ``xe`` lies in a cell row of the slab (of ``bands``; tested
+    before it moves), up to ``inner`` steps counted from ``start``: the steps
+    of
     ``tracer.eikonal.backtrace``.  The terms are computed in the slab's type
     and added in ``gslab``'s (float64: their exact sum, for a check).
     ``stats`` gets ``ray_steps``, ``evals`` and ``splats`` added to it, and
@@ -202,13 +235,15 @@ def slab_backtrace_phase_plain(slab, res, z_first, h, ds, snap_tol, x, v, la, mu
     rows, rowlen = slab.shape[0], slab.shape[1] * slab.shape[2]
     ds_t = G._scalar(ds, x)
     g = gslab.reshape(-1)
+    base = cnt.clone() if start is None else start
+    held = [(z_first, rows)] if bands is None else bands
     for _ in range(int(inner)):
-        pre = active & (cnt < max_steps)
+        pre = active & (cnt < max_steps) & (cnt - base < inner)
         if not bool(pre.any()):
             break
         xr = x - ds_t * v
         xe = G.snap_to_nodes(xr, h, snap_tol)
-        act = pre & _in_window(res, z_first, rows, h, xe)
+        act = pre & _in_windows(res, held, h, xe)
         if not bool(act.any()):
             break
         emask = act & G.inbounds(shape, xe)
@@ -240,12 +275,146 @@ def slab_backtrace_phase_plain(slab, res, z_first, h, ds, snap_tol, x, v, la, mu
         mu.copy_(torch.where(a3, mu2, mu))
         active.copy_(torch.where(act, active2, active))
         cnt.add_(act.to(cnt.dtype))
-    return (active & (cnt < max_steps)).any().reshape(1)
+    pending = active & (cnt < max_steps)
+    if bands is None:
+        return pending.any().reshape(1)
+    xe = G.snap_to_nodes(x - ds_t * v, h, snap_tol)
+    live = pending & (cnt - base < inner) & _in_window(res, z_first, rows, h, xe)
+    return torch.stack([pending.any(), live.any()])
+
+
+# ---------------------------------------------------------------------------
+# The band sweep: one phase in z-bands that L2 holds
+# ---------------------------------------------------------------------------
+
+def band_rows(row_bytes: int, l2_bytes: int, planes: int) -> int:
+    """The cell rows ``B`` of a band of a phase's sweep on a card with
+    ``l2_bytes`` of L2: the most whose ``B + 1`` voxel rows of ``row_bytes``
+    each, in each of ``planes`` tensors (K21: the slab; K22: the slab and its
+    gradient), fill at most L2; at least one.  A launch steps in two bands,
+    but the rays of each cross their band as a front a few rows deep, so L2
+    holds what they read though not both bands whole (``tools/slab_bands.py``
+    found every height from 5 to 16 rows within 10 % of the best at 1025^2
+    f32, and half this height 16 % slower for K22).  An H100 (50 MiB) at
+    1025^2 f32: 11 for K21, 5 for K22."""
+    return max(1, int(l2_bytes) // (int(planes) * int(row_bytes)) - 1)
+
+
+def band_height(cells: int, row_bytes: int, l2_bytes: int, planes: int, rays: int,
+                wave: int) -> int:
+    """The band height of a phase's sweep over a slab of ``cells`` cell rows:
+    :func:`band_rows`, or the whole slab, one launch, where the phase's
+    ``rays`` fit one ``wave`` of the kernel (the rays it runs at once on the
+    card): those step together and cross the slab as one front that L2
+    holds, so bands would only add launches (``tools/slab_bands.py`` at
+    1025^2 f32 on an H100: a four-rank slab, 2^16 rays, one wave of K21 and
+    of K22, ran 26 % and 12 % faster as one launch than at its best band
+    height; one rank, 2^18 rays, two and four waves, 2.0 and 2.6 times
+    faster swept)."""
+    if rays <= wave:
+        return cells
+    return min(cells, band_rows(row_bytes, l2_bytes, planes))
+
+
+def slab_band(slab: torch.Tensor, planes: int, rays: int, plane: bool = False) -> int:
+    """:func:`band_height` for ``slab`` (voxel rows, ``(S + 1, H, W)``) and
+    ``rays`` rays on the slab's card (``planes`` 2: K22, else K21, with
+    K11's rule where ``plane``); the whole slab off the card."""
+    cells = slab.shape[0] - 1
+    if not slab.is_cuda:
+        return cells
+    l2 = torch.cuda.get_device_properties(slab.device).L2_cache_size
+    wave = K.slab_wave(slab.device, slab.dtype, planes == 2, plane)
+    return band_height(cells, slab[0].numel() * slab.element_size(), l2, planes, rays, wave)
+
+
+def band_windows(cells: int, band: int):
+    """The launches of one sweep over a slab of ``cells`` cell rows in bands of
+    ``band`` rows: for ``j`` up through the bands, band ``j`` (where the rays
+    that go up are) and band ``nb - 1 - j`` (where those that go down are),
+    one window where the two meet, and a launch like the one before it left
+    out.  Each launch is a list of voxel-row windows ``(lo, rows)`` of the
+    slab (band ``b``: ``lo = b * band``, its cell rows plus one)."""
+    nb = -(-int(cells) // int(band))
+
+    def rows(a, b):  # bands a..b as one window
+        lo = a * band
+        return lo, min((b + 1) * band, cells) - lo + 1
+
+    out = []
+    for j in range(nb):
+        a, b = sorted((j, nb - 1 - j))
+        launch = [rows(a, b)] if b - a <= 1 else [rows(a, a), rows(b, b)]
+        if not out or out[-1] != launch:
+            out.append(launch)
+    return out
+
+
+def sweep_bands(phase, cells: int, band: int) -> Tuple[torch.Tensor, int, int]:
+    """One ring phase as sweeps over z-bands of a slab of ``cells`` cell rows.
+
+    ``phase(windows, first, last)`` steps the rays whose cell row lies in one
+    of ``windows`` (voxel-row windows ``(lo, rows)`` of the slab) until each
+    leaves them (``first``: the phase's first launch; ``last``: a sweep's
+    last, which returns the phase's ``[pending, live]`` words after it, live
+    where a ray can still step in the slab).  A sweep is the launches of
+    :func:`band_windows`: one band goes up through the slab and one comes
+    down, so a ray crosses the slab either way in one sweep; sweeps follow
+    until a sweep's last launch finds no ray live (rays bent back take more).
+    Each ray has then taken the steps one launch over the whole slab gives
+    it, in the same order.  Both the kernels (K21, K22) and their plain
+    versions run it.  Returns the pending word, the sweeps and the
+    launches."""
+    seq = band_windows(cells, band)
+    sweeps = 0
+    while True:
+        for q, windows in enumerate(seq):
+            flags = phase(windows, sweeps == 0 and q == 0, q == len(seq) - 1)
+        sweeps += 1
+        if len(seq) == 1 or not bool(flags[1]):
+            return flags[:1], sweeps, sweeps * len(seq)
 
 
 # ---------------------------------------------------------------------------
 # The ring
 # ---------------------------------------------------------------------------
+
+def _plain_bands(plain, slab, res, z_first, head, state, gslab, tail, **kw):
+    """The ``phase(windows, first, last)`` of :func:`sweep_bands` on a plain
+    phase (:func:`slab_trace_phase_plain`, :func:`slab_backtrace_phase_plain`):
+    ``plain(slab, res, z_first, *head, *state[, gslab], *tail)`` on the given
+    windows, the cap counted from the step counts (``state[-1]``) now."""
+    start = state[-1].clone()
+    grad = () if gslab is None else (gslab,)
+
+    def phase(windows, first, last):
+        return plain(slab, res, z_first, *head, *state, *grad, *tail, start=start,
+                     bands=[(z_first + lo, rows) for lo, rows in windows], **kw)
+
+    return phase
+
+
+def _permuted(order: Optional[torch.Tensor], *ts: torch.Tensor):
+    """``ts`` in the ray order (thread ``i`` holds ray ``order[i]``), so the
+    kernels' loads of a warp's state are coalesced; as they are without one."""
+    if order is None:
+        return ts
+    idx = order.long()
+    return tuple(t[idx] for t in ts)
+
+
+def _unpermuted(order: Optional[torch.Tensor], *ts: torch.Tensor):
+    """The inverse of :func:`_permuted`."""
+    if order is None:
+        return ts
+    idx = order.long()
+    out = []
+    for t in ts:
+        u = torch.empty_like(t)
+        u[idx] = t
+        out.append(u)
+    return tuple(out)
+
 
 class _Ring:
     """The ring of one traced function: its sizes, phases and the two sweeps on one
@@ -263,6 +432,9 @@ class _Ring:
         self.steps_b = E.max_steps_bwd(self.res, self.h, self.ds)
         #: phases the last forward and backward sweeps ran (for checks and logs)
         self.phases_run = {"fwd": 0, "bwd": 0}
+        #: each phase's band sweep in the last forward and backward sweeps:
+        #: ``(band, launches a sweep, sweeps, launches)``
+        self.bands_run = {"fwd": [], "bwd": []}
 
     def phases(self, max_steps: int) -> int:
         """The phase budget: ``ndev * (ceil(max_steps / K) + phase_slack)``."""
@@ -303,12 +475,23 @@ class _Ring:
         buffer now held and the one free for the next hop."""
         return self.mesh.shift(buf, out=spare), buf
 
+    def _bands(self, key: str, slab: torch.Tensor, planes: int, rays: int,
+               phase) -> torch.Tensor:
+        """One phase on ``slab`` as :func:`sweep_bands` over its bands, logged in
+        :attr:`bands_run`; returns the pending word."""
+        cells = slab.shape[0] - 1
+        band = slab_band(slab, planes, rays, self.plane)
+        flag, sweeps, launches = sweep_bands(phase, cells, band)
+        self.bands_run[key].append((band, len(band_windows(cells, band)), sweeps, launches))
+        return flag
+
     def _sweep(self, key: str, nphase: int, held: list, launch) -> int:
         """The ring's phases: ``launch(phase, *held)`` on the buffers this rank
         holds (updated in place), then each of them hops one rank on, until no
         rank has a ray with steps left or ``nphase`` phases ran.  ``held``
         ends with the buffers held last; returns the hops made."""
         spare = [None] * len(held)
+        self.bands_run[key] = []
         for p in range(nphase):
             flag = launch(p, *held)
             self.phases_run[key] = p + 1
@@ -322,19 +505,26 @@ class _Ring:
         """The forward sweep of this rank's rays ``(x, v)``: ``(xt, vt, miss,
         order)`` with the failed-to-exit fix-up and NaN poisoning."""
         shape = _grid_shape(rows, self.shape, self.h)
+        order = O.ray_order(x, v, self.shape, self.h) if rows.is_cuda else None
+        x, v = _permuted(order, x, v)
+        if planes is not None:
+            planes = _permuted(order, *planes)
         st = dict(x=x.clone(), v=v.clone(), xt=x.clone(), vt=v.clone(),
                   inside=G.inbounds(shape, x), esc=torch.zeros_like(x[:, 0], dtype=torch.bool),
                   cnt=torch.zeros_like(x[:, 0], dtype=torch.int32))
-        order = O.ray_order(x, v, self.shape, self.h) if rows.is_cuda else None
         nphase = self.phases(self.steps_f)
         self._agree(nphase, x.shape[0], rows.device)
+        state = [st[k] for k in ("x", "v", "xt", "vt", "inside", "esc", "cnt")]
 
         def launch(p, slab):
-            args = (slab, self.shape, self._z_first(p), self.h, self.ds, st["x"], st["v"],
-                    st["xt"], st["vt"], st["inside"], st["esc"], st["cnt"], self.steps_f, self.K)
+            z0, tail = self._z_first(p), (self.steps_f, self.K)
             if slab.is_cuda:
-                return K.slab_trace_phase(*args, order=order, planes=planes)
-            return slab_trace_phase_plain(*args, planes=planes)
+                phase = K.slab_trace_bands(slab, self.shape, z0, self.h, self.ds, *state, *tail,
+                                           planes=planes)
+            else:
+                phase = _plain_bands(slab_trace_phase_plain, slab, self.shape, z0,
+                                     (self.h, self.ds), state, None, tail, planes=planes)
+            return self._bands("fwd", slab, 1, x.shape[0], phase)
 
         self._sweep("fwd", nphase, [self._slab(rows)], launch)
         esc = st["esc"]
@@ -342,25 +532,31 @@ class _Ring:
         # a ray still pending was truncated by the phase budget: poison it
         pend = (~esc & (st["cnt"] < self.steps_f))[:, None]
         nan = torch.full_like(xt, float("nan"))
-        return torch.where(pend, nan, xt), torch.where(pend, nan, st["vt"]), ~esc, order
+        out = (torch.where(pend, nan, xt), torch.where(pend, nan, st["vt"]), ~esc)
+        return (*_unpermuted(order, *out), order)
 
     def backward(self, rows, xt, vt, dxt, dvt, order):
         """The adjoint sweep of this rank's rays: the gradient of its rows."""
         shape = _grid_shape(rows, self.shape, self.h)
         ds_t = G._scalar(self.ds, xt)
+        xt, vt, dxt, dvt = _permuted(order, xt, vt, dxt, dvt)
         st = dict(x=xt.clone(), v=vt.clone(), la=dxt.clone(), mu=dvt + ds_t * dxt,
                   active=~G.escaped(shape, xt, -vt),
                   cnt=torch.zeros_like(xt[:, 0], dtype=torch.int32))
         tol = G.snap_tol(rows.dtype)
         nphase = self.phases(self.steps_b)
         self._agree(nphase, xt.shape[0], rows.device)
+        state = [st[k] for k in ("x", "v", "la", "mu", "active", "cnt")]
 
         def launch(p, slab, gslab):
-            args = (slab, self.shape, self._z_first(p), self.h, self.ds, tol, st["x"], st["v"],
-                    st["la"], st["mu"], st["active"], st["cnt"], gslab, self.steps_b, self.K)
+            z0, tail = self._z_first(p), (self.steps_b, self.K)
             if slab.is_cuda:
-                return K.slab_backtrace_phase(*args, order=order)
-            return slab_backtrace_phase_plain(*args)
+                phase = K.slab_backtrace_bands(slab, self.shape, z0, self.h, self.ds, tol,
+                                               *state, gslab, *tail)
+            else:
+                phase = _plain_bands(slab_backtrace_phase_plain, slab, self.shape, z0,
+                                     (self.h, self.ds, tol), state, gslab, tail)
+            return self._bands("bwd", slab, 2, xt.shape[0], phase)
 
         slab = self._slab(rows)
         held = [slab, torch.zeros_like(slab)]

@@ -2,14 +2,14 @@
 
 Run from the repo root::
 
-    python tools/mesh_ranks.py [--ranks 4] [--device cuda|cpu] [--iters 10]
+    python tools/mesh_ranks.py [--ranks 4] [--device cuda|cpu] [--iters 10] [--cases 5,6]
 
 With ``--device cuda`` it needs one GPU a rank (a host with N cards); the
 ranks join a NCCL group over ``localhost``.  With ``--device cpu`` the ranks
 are CPU processes joined by gloo, at small sizes: a rehearsal of the same
-program.  This process first runs every case on a mesh of one rank (no
-process group), then starts the ranks, which run them on the mesh of N and
-compare on rank 0:
+program.  This process first runs every case (or those of ``--cases``) on a
+mesh of one rank (no process group), then starts the ranks, which run them
+on the mesh of N and compare on rank 0:
 
 1. the bench scene (128^3 f32, 2^18 rays; CPU: 17^3, 4,096 rays) through
    ``parallel.make_sharded_trace`` and ``make_sharded_trace_exact``: outputs
@@ -39,8 +39,10 @@ compare on rank 0:
    device; outputs bitwise against one card's ``api.trace``, each rank's
    rows of the gradient within 1e-5 of that gradient's largest entry; each
    rank's peak memory during forward + backward under 6 times its slab's
-   bytes; ms forward + backward beside ``make_sharded_trace``'s (the grid
-   replicated) on the same rays, cold and warm, with each rank's kernel time
+   bytes; rank 0's K21 / K22 launches (as the wrappers count them); ms
+   forward + backward beside ``make_sharded_trace``'s (the grid replicated)
+   on the same rays, cold and warm (the ring warm once with each launch
+   timed, for each rank's kernel time, then ``SLAB_REPS`` times untimed),
    and the time of one hop of a slab-sized buffer and of its ``all_reduce``;
 6. the twin of ``__graft_entry__.dryrun_multichip``: one training step on a
    9^3 grid (8 rays a rank): the sharded trace, the loss, the all-reduced
@@ -86,8 +88,11 @@ FIBER_YAML = str(ROOT / "configs" / "params-fiber.yaml")
 TOL_F32_GRAD, TOL_F64 = 1e-5, 1e-9
 #: case 5: the grid's side on the card and on the CPU
 SLAB_RES = {"cuda": 1025, "cpu": 17}
+#: case 5: the warm rings timed with no launch timed
+SLAB_REPS = 3
 #: case 6: the dry run's bars, those of __graft_entry__.dryrun_multichip
 TOL_DRYRUN, TOL_DRYRUN_SLAB = 1e-5, 1e-4
+CASES = (1, 2, 3, 4, 5, 6)
 
 
 def bench(device):
@@ -290,6 +295,7 @@ def slab_case(device, ref):
     if device == "cuda":
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
+    K.reset_launches()
     _sync(device)
     t0 = time.time()
     xt, vt = f(rows, x, v)
@@ -314,6 +320,8 @@ def slab_case(device, ref):
     out["slab_rank_err_peak"] = mesh.all_gather(stats).cpu().numpy()
     out.update(slab_xt=xt.detach().cpu().numpy(), slab_vt=vt.detach().cpu().numpy(),
                slab_phases=np.array([f.ring.phases_run["fwd"], f.ring.phases_run["bwd"]]),
+               slab_launches=np.array([K.LAUNCHES[k] for k in ("slab_trace_phase",
+                                                               "slab_backtrace_phase")]),
                slab_bytes=np.array(slab_bytes))
     del g, xt, vt
 
@@ -325,6 +333,7 @@ def slab_case(device, ref):
     # hop of a slab-sized buffer round the ring and an all_reduce of it alone
     ring_events = []
     warm = _timed(device, ring, ring_events)
+    untimed = [_timed(device, ring) for _ in range(SLAB_REPS)]
     rows = None
     buf = torch.zeros(slab_bytes // 4, dtype=torch.float32, device=device)
     mesh.shift(buf)
@@ -345,7 +354,8 @@ def slab_case(device, ref):
     rep_events = []
     rep_warm = _timed(device, replicated, rep_events)
     times = torch.tensor([[warm, _kernel_ms(ring_events), hop, reduce_ms, rep_warm,
-                           _kernel_ms(rep_events)]], dtype=torch.float64, device=device)
+                           _kernel_ms(rep_events), *untimed]], dtype=torch.float64,
+                         device=device)
     out["slab_times"] = mesh.all_gather(times).cpu().numpy()
     return out, None
 
@@ -385,18 +395,26 @@ def dryrun(device, ranks):
             "dry_g_slab": mesh.all_reduce(r.grad).cpu().numpy()}
 
 
-def run_cases(device, iters, ranks, ref=None):
-    """Every case on this process's mesh; ``ref``: where the one-rank run
+def run_cases(device, iters, ranks, ref=None, cases=CASES):
+    """The ``cases`` on this process's mesh; ``ref``: where the one-rank run
     leaves what the ranks read (case 5's reference gradient)."""
-    out = {**bench(device), **fuel_small(device)}
-    full = fuel_full(iters) if device == "cuda" else None
-    out.update(variants(device))
-    slab, g_ref = slab_case(device, ref)
-    out.update(slab)
-    if g_ref is not None:
-        np.save(ref + "_slab_g.npy", g_ref)
-        del g_ref
-    out.update(dryrun(device, ranks))
+    out, full = {}, None
+    if 1 in cases:
+        out.update(bench(device))
+    if 2 in cases:
+        out.update(fuel_small(device))
+    if 3 in cases and device == "cuda":
+        full = fuel_full(iters)
+    if 4 in cases:
+        out.update(variants(device))
+    if 5 in cases:
+        slab, g_ref = slab_case(device, ref)
+        out.update(slab)
+        if g_ref is not None:
+            np.save(ref + "_slab_g.npy", g_ref)
+            del g_ref
+    if 6 in cases:
+        out.update(dryrun(device, ranks))
     return out, full
 
 
@@ -441,8 +459,10 @@ def compare_slab(many, one):
                warm={k: [float(a) for a in t[:, c]] for c, k in enumerate(
                    ("ring_ms", "ring_kernels_ms", "one_hop_ms", "all_reduce_ms",
                     "replicated_ms", "replicated_kernels_ms"))},
+               ring_untimed_ms=t[:, 6:].tolist(),
                one_card_api_trace_ms=float(one["slab_api_ms"]),
-               phases=many["slab_phases"].tolist(), slab_gb=float(many["slab_bytes"]) / 1e9,
+               phases=many["slab_phases"].tolist(), launches=many["slab_launches"].tolist(),
+               slab_gb=float(many["slab_bytes"]) / 1e9,
                peak_gb=[float(p) / 1e9 for p in per_rank[:, 1]],
                peak_over_slab=[float(p) for p in per_rank[:, 2]])
     failures = []
@@ -468,50 +488,53 @@ def compare_dryrun(many, one):
     return rec, failures
 
 
-def compare(many, one, full_many, full_one):
-    """Rank 0's checks of the mesh of N against the mesh of one."""
+def compare(many, one, full_many, full_one, cases=CASES, on_card=True):
+    """Rank 0's checks of the mesh of N against the mesh of one, for ``cases``."""
     rec, failures = {}, []
-    for name in ("trace", "exact"):
+    for name in ("trace", "exact") if 1 in cases else ():
         bitwise = all(np.array_equal(many[f"{name}_{k}"], one[f"{name}_{k}"]) for k in ("xt", "vt"))
         g, g1 = many[f"{name}_g"], one[f"{name}_g"]
         err = float(np.abs(g - g1).max() / np.abs(g1).max())
         rec[name] = dict(bitwise=bitwise, grad_rel_err=err)
         if not bitwise or not err <= TOL_F32_GRAD:
             failures.append(f"{name}: bitwise {bitwise}, gradient {err:.3e}")
-    hist_err = float(np.max(np.abs(many["small_hist"] - one["small_hist"])
-                            / np.abs(one["small_hist"])))
-    scale = float(np.abs(one["small_eta"] - one["small_eta"].flat[0]).max())
-    eta_err = float(np.abs(many["small_eta"] - one["small_eta"]).max() / scale)
-    rec["fuel128_small"] = dict(hist_rel_err=hist_err, eta_err=eta_err)
-    if not (hist_err <= TOL_F64 and eta_err <= TOL_F64 and scale > 0):
-        failures.append(f"fuel-128 small: loss history {hist_err:.3e}, field {eta_err:.3e}")
+    if 2 in cases:
+        hist_err = float(np.max(np.abs(many["small_hist"] - one["small_hist"])
+                                / np.abs(one["small_hist"])))
+        scale = float(np.abs(one["small_eta"] - one["small_eta"].flat[0]).max())
+        eta_err = float(np.abs(many["small_eta"] - one["small_eta"]).max() / scale)
+        rec["fuel128_small"] = dict(hist_rel_err=hist_err, eta_err=eta_err)
+        if not (hist_err <= TOL_F64 and eta_err <= TOL_F64 and scale > 0):
+            failures.append(f"fuel-128 small: loss history {hist_err:.3e}, field "
+                            f"{eta_err:.3e}")
     if full_many is not None:
         rec["fuel128"] = dict(ranks=full_many, one_rank=full_one)
         if full_many["steps"] != full_one["steps"] or not full_many["loss_last"] < \
                 full_many["loss_first"]:
             failures.append("fuel-128 at full width: steps lost or the loss did not fall")
-    for key, check in (("variants", lambda a, b: compare_variants(a, b, full_many is not None)),
-                       ("slab", compare_slab), ("dryrun", compare_dryrun)):
-        rec[key], more = check(many, one)
-        failures += more
+    for case, key, check in ((4, "variants", lambda a, b: compare_variants(a, b, on_card)),
+                             (5, "slab", compare_slab), (6, "dryrun", compare_dryrun)):
+        if case in cases:
+            rec[key], more = check(many, one)
+            failures += more
     return rec, failures
 
 
-def worker(rank, ranks, port, device, iters, ref_path):
+def worker(rank, ranks, port, device, iters, ref_path, cases):
     backend = "nccl" if device == "cuda" else "gloo"
     parallel.initialize(f"localhost:{port}", ranks, rank, backend=backend)
     try:
         mesh = parallel.make_ray_mesh()
         if (mesh.world_size, mesh.rank) != (ranks, rank):
             raise AssertionError(f"rank {rank}: the mesh is {mesh}")
-        many, full_many = run_cases(device, iters, ranks, ref_path)
+        many, full_many = run_cases(device, iters, ranks, ref_path, cases)
     finally:
         torch.distributed.destroy_process_group()
     if rank == 0:
         ref = np.load(ref_path + ".npz")
         with open(ref_path + ".json") as f:
             full_one = json.load(f)
-        rec, failures = compare(many, ref, full_many, full_one)
+        rec, failures = compare(many, ref, full_many, full_one, cases, device == "cuda")
         print(json.dumps(dict(ranks=ranks, backend=backend, failures=failures, **rec)), flush=True)
         if failures:
             sys.exit(1)
@@ -522,12 +545,17 @@ def main():
     ap.add_argument("--ranks", type=int, default=4)
     ap.add_argument("--device", default="cuda", choices=("cuda", "cpu"))
     ap.add_argument("--iters", type=int, default=10, help="fuel-128's iterations a stage")
+    ap.add_argument("--cases", default=",".join(map(str, CASES)),
+                    help="the cases to run, as 5,6 (default: all)")
     ap.add_argument("--worker", type=int, default=None, help=argparse.SUPPRESS)
     ap.add_argument("--port", type=int, default=None, help=argparse.SUPPRESS)
     ap.add_argument("--ref", default=None, help=argparse.SUPPRESS)
     args = ap.parse_args()
+    cases = tuple(int(c) for c in args.cases.split(","))
+    if not set(cases) <= set(CASES):
+        ap.error(f"--cases: each of {CASES}, got {args.cases}")
     if args.worker is not None:
-        worker(args.worker, args.ranks, args.port, args.device, args.iters, args.ref)
+        worker(args.worker, args.ranks, args.port, args.device, args.iters, args.ref, cases)
         return
     if args.device == "cuda":
         if torch.cuda.device_count() < args.ranks:
@@ -539,7 +567,7 @@ def main():
         print("devices: " + "; ".join(card), flush=True)
     with tempfile.TemporaryDirectory() as tmp:
         ref = os.path.join(tmp, "one_rank")
-        one, full_one = run_cases(args.device, args.iters, args.ranks, ref)
+        one, full_one = run_cases(args.device, args.iters, args.ranks, ref, cases)
         if args.device == "cuda":
             torch.cuda.empty_cache()  # rank 0 shares this process's card
         np.savez(ref + ".npz", **one)
@@ -550,7 +578,8 @@ def main():
             port = s.getsockname()[1]
         procs = [subprocess.Popen([sys.executable, __file__, "--worker", str(r), "--ranks",
                                    str(args.ranks), "--port", str(port), "--device", args.device,
-                                   "--iters", str(args.iters), "--ref", ref])
+                                   "--iters", str(args.iters), "--ref", ref, "--cases",
+                                   args.cases])
                  for r in range(args.ranks)]
         try:
             codes = [p.wait(timeout=1200) for p in procs]
