@@ -1,6 +1,6 @@
-// The kernel shell that the two adjoints, K3 backtrace and K6
-// backtrace_exact, share: where the splats' runs go and how the launch is
-// shaped.  A ray's own work is the caller's functor `ray(i, acc, counts)`:
+// The kernel shell of the adjoint sweeps, K3 backtrace and K14 backtrace_sdf
+// (K22's on its global path): where the splats' runs go and how the launch
+// is shaped.  A ray's own work is the caller's functor `ray(i, acc, counts)`:
 // thread slot i, the accumulator its runs flush into, and two counters it adds
 // to (runs flushed, flushes issued).
 //
@@ -14,9 +14,10 @@
 //     words to device memory once.
 //
 // Which path runs is the caller's choice (kernels/wrappers.py decides K3's
-// from the grid's size and type alone; K6 takes the global path at every
-// size); a refused launch is an error, not a retry.  T is the accumulator's
-// type: the grid's for K3 and K6, double for K14.
+// from the grid's size and type alone); a refused launch is an error, not a
+// retry.  T is the accumulator's type: the grid's for K3, double for K14.
+// The exact gradient's backward passes (K6, K18, K19) have a kernel of their
+// own in backtrace_exact.cu, the global path's shape.
 #pragma once
 
 #include "trilinear.cuh"

@@ -71,22 +71,32 @@ __device__ __forceinline__ int clampi(int v, int lo, int hi) {
   return v < lo ? lo : (v > hi ? hi : v);
 }
 
+// The clamped corner nodes c[axis][0 or 1] of the cell that holds p, and the
+// fractional offsets w0: what stencil() computes before the flat indices.
 template <typename T>
-__device__ __forceinline__ Stencil<T> stencil(const Grid<T>& g, const T p[3]) {
-  Stencil<T> s;
+__device__ __forceinline__ void corner_cells(const Grid<T>& g, const T p[3], int c[3][2],
+                                             T w0[3]) {
   const int res[3] = {g.W, g.H, g.D};
-  int c[3][2];
 #pragma unroll
   for (int k = 0; k < 3; ++k) {
     const T pm = p[k] / g.h;
     const T posf = floor(pm);
-    s.w0[k] = pm - posf;  // may leave [0, 1] off-grid
+    w0[k] = pm - posf;  // may leave [0, 1] off-grid
     // clamp in floating point first so the cast to int cannot overflow
     const T lo = static_cast<T>(-2), hi = static_cast<T>(res[k] + 1);
     const int pos = static_cast<int>(posf < lo ? lo : (posf > hi ? hi : posf));
     c[k][0] = clampi(pos, 0, res[k] - 1);
     c[k][1] = clampi(pos + 1, 0, res[k] - 1);
   }
+}
+
+// The stencil of the corner nodes c and offsets w0 (corner_cells).
+template <typename T>
+__device__ __forceinline__ Stencil<T> stencil_of(const Grid<T>& g, const int c[3][2],
+                                                 const T w0[3]) {
+  Stencil<T> s;
+#pragma unroll
+  for (int k = 0; k < 3; ++k) s.w0[k] = w0[k];
 #pragma unroll
   for (int a = 0; a < 2; ++a)
 #pragma unroll
@@ -95,6 +105,14 @@ __device__ __forceinline__ Stencil<T> stencil(const Grid<T>& g, const T p[3]) {
       for (int cc = 0; cc < 2; ++cc)
         s.idx[a][b][cc] = ((c[2][cc] - g.z_first) * g.H + c[1][b]) * g.W + c[0][a];
   return s;
+}
+
+template <typename T>
+__device__ __forceinline__ Stencil<T> stencil(const Grid<T>& g, const T p[3]) {
+  int c[3][2];
+  T w0[3];
+  corner_cells(g, p, c, w0);
+  return stencil_of(g, c, w0);
 }
 
 // The cell row of p on z: that of the JAX package's cell table
@@ -330,13 +348,16 @@ __device__ __forceinline__ bool forward_step(const Grid<T>& g, T ds, T x[3], T v
 // (stencil s, n, grad n, Hessian; zeros where the step does not evaluate):
 // the splat (dn*ds, n*mu*ds) with dn = mu . grad n joins the ray's run when
 // `splat` holds (every lane at this point calls it: the warp's lanes flush
-// together), then la += ds*(dn*grad n + n*H mu), mu += ds*la.  K3 and K6
-// call it; each evaluates the field itself, in its own branch.
-template <typename T, typename Acc>
-__device__ __forceinline__ void adjoint_update(const Grid<T>& g, T ds, const Stencil<T>& s, T n,
+// together), then la += ds*(dn*grad n + n*H mu), mu += ds*la.  K3, K6 and
+// their variants call it; each evaluates the field itself, in its own
+// branch.  Run: a SplatRun, whose runs go to the accumulator `acc` (Sink =
+// Acc*), or another run with its own sink (K18's and K19's PairRun in
+// backtrace_exact.cu); S: the stencil the run takes (a Stencil, or one that
+// carries more of the cell for a run that keys on it).
+template <typename T, typename S, typename Run, typename Sink>
+__device__ __forceinline__ void adjoint_update(const Grid<T>& g, T ds, const S& s, T n,
                                                const T grad[3], const T hess[3], bool splat,
-                                               T la[3], T mu[3], SplatRun<T, Acc>& run,
-                                               Acc* acc) {
+                                               T la[3], T mu[3], Run& run, Sink acc) {
   const T dn = mu[0] * grad[0] + mu[1] * grad[1] + mu[2] * grad[2];
   T terms[2][2][2];
   if (splat) {

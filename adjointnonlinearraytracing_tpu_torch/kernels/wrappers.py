@@ -98,11 +98,15 @@ K17 ``trace_sdf_ckpt``
     inside the sdf on to its own horizon (given, or the caller's function of
     pass 1's escape steps, computed between the passes), writing checkpoints.
 K18 ``backtrace_plane_exact``
-    replaces ``tracer/checkpointed.py::_backward_segments`` (plane): K6 whose
-    replay applies the plane's rule.
+    replaces ``tracer/checkpointed.py::_backward_segments`` (plane): K6's
+    ray whose replay applies the plane's rule; the leader of a run's warp
+    sum adds its 8 sums as 4 x-pairs of corners, each pair that lies in one
+    aligned group of 4 words as one float4 add.
 K19 ``backtrace_sdf_exact``
-    the same (sdf): K6 whose replay reads the sdf, summing in float64
-    whatever the grid's type, as K14 does (``out`` is float64; callers cast).
+    the same (sdf): K6's ray whose replay reads the sdf with the stencil of
+    the next evaluation; its run and warp sums in the grid's type, its adds
+    in float64 whatever the grid's type, as K14 sums (``out`` is float64;
+    callers cast).
 
 K20 ``record_paths`` (csrc/trace_fwd.cu)
     replaces the recording scan of ``pathmatrix/fuel2008.py::record_paths``
@@ -338,10 +342,19 @@ def _check_order(order: Optional[torch.Tensor], data: torch.Tensor, n: int, name
                          f"{data.device}, got {order.dtype} {tuple(order.shape)} on {order.device}")
 
 
-def _check_tally(tally: Optional[torch.Tensor], data: torch.Tensor, name: str) -> None:
+#: the counters of an exact backward pass's ``tally`` (K6, K18, K19;
+#: ``ExactTally`` in csrc/backtrace_exact.cu): runs flushed, flushes issued
+#: after the warp sums, atomic adds into device memory, and those of them that
+#: were float4 adds (K18's x-pairs of a run's corners; K6 adds each run's 8
+#: sums one by one, K19 its f64 sums).
+EXACT_TALLY = ("runs", "issued", "adds", "float4_adds")
+
+
+def _check_tally(tally: Optional[torch.Tensor], data: torch.Tensor, name: str,
+                 size: int = 3) -> None:
     if tally is not None and (tally.device != data.device or tally.dtype != torch.int64
-                              or tally.shape != (3,) or not tally.is_contiguous()):
-        raise ValueError(f"{name}: tally must be a contiguous int64 (3,) tensor on "
+                              or tally.shape != (size,) or not tally.is_contiguous()):
+        raise ValueError(f"{name}: tally must be a contiguous int64 ({size},) tensor on "
                          f"{data.device}, got {tally.dtype} {tuple(tally.shape)} on {tally.device}")
 
 
@@ -643,15 +656,17 @@ def backtrace_exact(data: torch.Tensor, h: float, ckpts: torch.Tensor, c: torch.
     :func:`trace_target_ckpt`) returned them for the same ``order``; ``dx,
     dv`` the cotangents of all ``N`` rays in their own order (``dv`` already
     zeroed for rays that never escaped, in the volume trace).  ``out`` (made
-    zero when not given) takes the sum; ``tally`` as for :func:`backtrace`
-    (K6 takes the global path at every grid size: no block-private adds).
+    zero when not given) takes the sum; ``tally``, for checks: an int64
+    tensor of ``len(EXACT_TALLY)`` counters the kernel adds to
+    (:data:`EXACT_TALLY`; K6 adds each run's 8 sums one by one, so its
+    ``adds`` are 8 a flush issued and its ``float4_adds`` 0).
     """
     _check_grid(data, "backtrace_exact")
     n_rays = _check_rays(data, "backtrace_exact", dx=dx, dv=dv)
     n = _check_slots(order, data, n_rays, "backtrace_exact")
     _check_exact_inputs("backtrace_exact", data, ckpts, c, code, n, n_rays)
     out = _exact_out(data, out, "backtrace_exact")
-    _check_tally(tally, data, "backtrace_exact")
+    _check_tally(tally, data, "backtrace_exact", len(EXACT_TALLY))
     if n:
         _launch_on_grid("backtrace_exact", data, float(h), float(ds), ckpts.data_ptr(),
                         order.data_ptr(), c.data_ptr(), code.data_ptr(), dx.data_ptr(),
@@ -810,7 +825,7 @@ def backtrace_plane_exact(data: torch.Tensor, h: float, ckpts: torch.Tensor, c: 
     n = _check_slots(order, data, n_rays, "backtrace_plane_exact")
     _check_exact_inputs("backtrace_plane_exact", data, ckpts, c, code, n, n_rays)
     out = _exact_out(data, out, "backtrace_plane_exact")
-    _check_tally(tally, data, "backtrace_plane_exact")
+    _check_tally(tally, data, "backtrace_plane_exact", len(EXACT_TALLY))
     if n:
         _launch_on_grid("backtrace_plane_exact", data, float(h), float(ds), ckpts.data_ptr(),
                         order.data_ptr(), c.data_ptr(), code.data_ptr(), pln_o.data_ptr(),
@@ -833,7 +848,7 @@ def backtrace_sdf_exact(data: torch.Tensor, sdf: torch.Tensor, h: float, ckpts: 
     n = _check_slots(order, data, n_rays, "backtrace_sdf_exact")
     _check_exact_inputs("backtrace_sdf_exact", data, ckpts, c, code, n, n_rays)
     out = _exact_out(data, out, "backtrace_sdf_exact", torch.float64)
-    _check_tally(tally, data, "backtrace_sdf_exact")
+    _check_tally(tally, data, "backtrace_sdf_exact", len(EXACT_TALLY))
     if n:
         _launch_on_grid("backtrace_sdf_exact", data, float(h), float(ds), sdf.data_ptr(),
                         ckpts.data_ptr(), order.data_ptr(), c.data_ptr(), code.data_ptr(),

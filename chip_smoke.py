@@ -552,7 +552,7 @@ def exact_check(rif, h, ds, x0, v0, cot, label, tol, times=False):
     f32 = rif.dtype == torch.float32
     g_ref = CK.backtrace_plain(rif, x0, v0, esc_p, c_p, ck_p, dx, dv, h, ds, SEG,
                                acc_dtype=torch.float64 if f32 else None, stats=bw)
-    tally = torch.zeros(3, dtype=torch.int64, device="cuda")
+    tally = torch.zeros(len(K.EXACT_TALLY), dtype=torch.int64, device="cuda")
     g_k = K.backtrace_exact(rif, h, ck_k, c_k, code_k, dx, dv_k, ds, SEG, order, tally=tally)
     torch.cuda.synchronize()
     err, abs_err = rel_err(g_k.double(), g_ref.double())
@@ -561,7 +561,7 @@ def exact_check(rif, h, ds, x0, v0, cot, label, tol, times=False):
                max_abs_g=float(g_ref.abs().max()), bitwise=state, runs=int(tally[0]),
                fwd_abs_err=fwd_abs, fwd_rel_err=fwd_abs / max(1.0, float(xt_p.abs().max()),
                                                               float(vt_p.abs().max())),
-               issued=int(tally[1]), block_adds=int(tally[2]), fwd=fw,
+               **run_counts(tally), fwd=fw,
                bwd={k: bw[k] for k in ("ray_steps", "evals", "splats", "flushes")},
                ckpt_rows=int(need.sum()), ckpt_mb=ck_k.numel() * ck_k.element_size() / 1e6,
                rays_code=[int((code_k == k).sum()) for k in range(3)])
@@ -2677,6 +2677,21 @@ def exact_variant_bounds(case, fw, bw, rows):
     return fwd, bwd
 
 
+def run_counts(tally):
+    """What an exact backward pass's ``tally`` (``K.EXACT_TALLY``) says of its
+    runs: the flushes issued after the warp sums and the atomic adds into
+    device memory (8 a flush where each corner goes alone), the float4 adds
+    among them (K18: an x-pair of corners each)."""
+    t = dict(zip(K.EXACT_TALLY, (int(v) for v in tally.tolist())))
+    return dict(issued=t["issued"], adds=t["adds"], float4_adds=t["float4_adds"])
+
+
+def run_line(row):
+    """The printed form of :func:`run_counts`."""
+    return (f"issued {row['issued']} ({8 * row['issued']} adds at 8 a flush), atomic adds into "
+            f"device memory {row['adds']}, of them float4 {row['float4_adds']}")
+
+
 def exact_variant_check(case, label, tol, chunk=0, times=False):
     """One variant's exact forward and backward kernels against the plain
     versions (``tracer/checkpointed.py``) on the card, as ``trace_*_exact``
@@ -2752,7 +2767,7 @@ def exact_variant_check(case, label, tol, chunk=0, times=False):
                                  variant=variant, stop=stop, **va)
     torch.cuda.synchronize()
     plain_bwd_ms = 1e3 * (time.time() - t0)
-    tally = torch.zeros(3, dtype=torch.int64, device="cuda")
+    tally = torch.zeros(len(K.EXACT_TALLY), dtype=torch.int64, device="cuda")
     g_k = torch.zeros((rif.numel(),), device="cuda",
                       dtype=torch.float64 if variant == "sdf" else rif.dtype)
     for sl in CK._chunks(n, chunk if chunked else 0):
@@ -2766,17 +2781,19 @@ def exact_variant_check(case, label, tol, chunk=0, times=False):
     row = dict(label=label, variant=variant, chunk=chunk if chunked else None, bitwise=state,
                rel_err=err, abs_err=abs_err, tol=tol, max_abs_g=float(g_p.abs().max()),
                fwd_abs_err=fwd_abs, fwd_rel_err=fwd_abs / max(1.0, fwd_scale),
-               runs=int(tally[0]), issued=int(tally[1]), fwd=fw,
+               runs=int(tally[0]), fwd=fw,
                bwd={k: bw[k] for k in ("ray_steps", "evals", "splats", "flushes")},
-               ckpt_rows_read=rows, rays_code=[int((code_k == k).sum()) for k in range(3)],
+               **run_counts(tally), ckpt_rows_read=rows,
+               rays_code=[int((code_k == k).sum()) for k in range(3)],
                horizon=horizon_p if variant == "target" else (
                    [int(horizon_p.min()), int(horizon_p.max())] if variant == "sdf" else None))
     print(f"exact {variant}[{label}, {n} rays" + (f", chunks of {chunk}" if chunked else "")
           + f"] {fname} bitwise equal {state}; {bname} rel_err {err:.3e} against the plain "
           f"version" + (" summed in f64 from the same f32 terms" if f32 else "")
           + f" (tol {tol:g}), max |g| {row['max_abs_g']:.4g}; runs flushed {row['runs']} (plain "
-          f"flushes {bw['flushes']}); rays never escaped / captured / not {row['rays_code']}; "
-          f"horizon {row['horizon']}; checkpoint rows read {rows}", flush=True)
+          f"flushes {bw['flushes']}); {run_line(row)}; rays never escaped / captured / not "
+          f"{row['rays_code']}; horizon {row['horizon']}; checkpoint rows read {rows}",
+          flush=True)
     failures = []
     if not all(state.values()):
         failures.append(f"{fname} is not bitwise equal to its plain version at {label} "

@@ -281,6 +281,44 @@ def test_exact_variant_wrappers_refuse_cpu_tensors(scene):
                                             "backtrace_sdf_exact"))
 
 
+def test_exact_backward_wrappers_take_the_exact_tally(scene, monkeypatch):
+    """K6, K18 and K19 add to ``len(EXACT_TALLY)`` counters (K18's float4
+    adds among them): their wrappers refuse a tally of K3's three, and hand a
+    full one to the kernel.  The grid's device check and the launch are
+    stubbed out, so that the argument checks run on the CPU."""
+    rif, x, v, o, d, _ = (_t(a) for a in scene)
+    n = x.shape[0]
+    order = torch.arange(n, dtype=torch.int32)
+    ck = torch.zeros((9, 7, n), dtype=torch.float64)
+    c, code = torch.zeros(n, dtype=torch.int32), torch.zeros(n, dtype=torch.uint8)
+    launched = []
+    monkeypatch.setattr(K, "_check_grid", lambda data, name: None)
+    monkeypatch.setattr(K, "_launch_on_grid", lambda name, data, *args: launched.append(
+        (name, args)))
+    calls = {
+        "backtrace_exact": lambda t: K.backtrace_exact(rif, H, ck, c, code, x, v, DS, SEG, order,
+                                                       tally=t),
+        "backtrace_plane_exact": lambda t: K.backtrace_plane_exact(
+            rif, H, ck, c, code, o, d, x, v, DS, SEG, order, tally=t),
+        "backtrace_sdf_exact": lambda t: K.backtrace_sdf_exact(rif, rif, H, ck, c, code, x, v,
+                                                               DS, SEG, order, tally=t)}
+    assert K.EXACT_TALLY == ("runs", "issued", "adds", "float4_adds")
+    for name, call in calls.items():
+        for bad in (torch.zeros(3, dtype=torch.int64),
+                    torch.zeros(len(K.EXACT_TALLY), dtype=torch.int32)):
+            with pytest.raises(ValueError, match=rf"{name}: tally must be a contiguous int64 "
+                                                 rf"\({len(K.EXACT_TALLY)},\)"):
+                call(bad)
+        tally = torch.zeros(len(K.EXACT_TALLY), dtype=torch.int64)
+        call(tally)
+        assert launched[-1][0] == name and tally.data_ptr() in launched[-1][1]
+    assert [name for name, _ in launched] == list(calls)
+    # K3's and K14's tallies keep their three counters
+    K._check_tally(torch.zeros(3, dtype=torch.int64), rif, "backtrace")
+    with pytest.raises(ValueError, match=r"\(3,\)"):
+        K._check_tally(torch.zeros(len(K.EXACT_TALLY), dtype=torch.int64), rif, "backtrace")
+
+
 def test_tracer_exports_every_name_of_the_jax_tracer():
     for name in JT.__all__:
         assert callable(getattr(TT, name)), name

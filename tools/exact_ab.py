@@ -1,0 +1,116 @@
+"""Times the exact gradients' backward kernels of one checkout, for an A/B of two on one card.
+
+Run from any directory on a machine with a CUDA device and ``nvcc``::
+
+    python tools/exact_ab.py [--root DIR] [--rounds N] [--reps N] [--out FILE]
+
+It imports ``chip_smoke`` and the port from the checkout at ``DIR`` (this
+script's own by default), builds that checkout's kernels, and on
+configuration 11's batches (``chip_smoke.variant_scene``: the bench scene,
+128^3 f32, 2^18 rays, ``seg`` 32) times, with ``chip_smoke.time_ms`` on a
+warm card, round after round, K18 ``backtrace_plane_exact``, K6
+``backtrace_exact`` on the target's states and K19 ``backtrace_sdf_exact``,
+each from the checkpoints its forward kernel wrote (as ``trace_*_exact``
+launches them).  Then it times ``tracer.trace_plane_exact``,
+``trace_target_exact`` and ``trace_sdf_exact`` forward and backward on
+2^20 rays (four chunks of ``ANRT_EXACT_CHUNK``'s default, each recomputing
+its checkpoints), on the host clock after a warm-up call.  It uses only
+functions of ``chip_smoke`` that checkouts from before K18's PairRun have
+too, so that one call can run a parent and a change in turn (parent,
+change, change, parent).  Prints the card and
+one JSON line.  No path of the port runs it.
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import sys
+import time
+from pathlib import Path
+
+
+def main(argv=None):
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--root", default=str(Path(__file__).resolve().parent.parent))
+    ap.add_argument("--rounds", type=int, default=3)
+    ap.add_argument("--reps", type=int, default=5)
+    ap.add_argument("--out", default=None, help="also write the JSON line to this file")
+    args = ap.parse_args(argv)
+    root = Path(args.root).resolve()
+    sys.path.insert(0, str(root))
+
+    import torch
+
+    import chip_smoke as CS  # exits without a CUDA device
+    from adjointnonlinearraytracing_tpu_torch import tracer
+    from adjointnonlinearraytracing_tpu_torch.kernels import build
+    from adjointnonlinearraytracing_tpu_torch.tracer import order as O
+
+    if Path(CS.__file__).resolve().parent != root:
+        raise RuntimeError(f"chip_smoke came from {CS.__file__}, not from {root}")
+    for name in build.KERNELS:
+        build.load(name)
+    s = CS.variant_scene(CS.RES, CS.NRAYS, "float32")
+    kernels = {"plane": "backtrace_plane_exact", "target": "backtrace_exact",
+               "sdf": "backtrace_sdf_exact"}
+    runs = {}
+    for variant, name in kernels.items():
+        case = CS.exact_case(s, variant)
+        order = O.ray_order(case["x"], case["v"], case["rif"].shape, case["h"])
+        got, c, code, ck, _ = CS.exact_forward_kernel(case, order, True)
+        dx, dv = 2.0 * (got[0] - case["anchor"]), torch.ones_like(got[1])
+        if variant == "plane":  # the missed rays pass no gradient
+            hit = ~got[2]
+            dx = torch.where(hit[:, None], dx, torch.zeros_like(dx))
+            dv = torch.where(hit[:, None], dv, torch.zeros_like(dv))
+        acc = torch.float64 if variant == "sdf" else case["rif"].dtype
+        numel = case["rif"].numel()
+
+        def run(case=case, ck=ck, c=c, code=code, dx=dx, dv=dv, order=order, acc=acc,
+                numel=numel):
+            out = torch.zeros(numel, dtype=acc, device="cuda")
+            CS.exact_backward_kernel(case, ck, c, code, dx, dv, order, out)
+            return out
+
+        runs[f"{name} ({variant})"] = run
+    times = {name: [] for name in runs}
+    for _ in range(args.rounds):
+        for name, fn in runs.items():
+            times[name].append(CS.time_ms(fn, args.reps))
+    ms = {name: sorted(t)[len(t) // 2] for name, t in times.items()}
+    del runs
+
+    s_big = CS.variant_scene(CS.RES, CS.EXACT_CHUNKED_RAYS, "float32")
+    calls = {"plane": lambda r, sc: tracer.trace_plane_exact(
+                 r, sc["x0"], sc["v0"], sc["pln_o"][0], sc["pln_d"][0], sc["h"], sc["ds"]),
+             "target": lambda r, sc: tracer.trace_target_exact(
+                 r, sc["x0"], sc["v0"], sc["tgt"][0], sc["h"], sc["ds"]),
+             "sdf": lambda r, sc: tracer.trace_sdf_exact(
+                 r, sc["sdf"], sc["xs"], sc["vs"], sc["h"], sc["ds"])}
+    big = {}
+    for variant, fn in calls.items():
+        anchor = CS.exact_case(s_big, variant)["anchor"]
+        spans = []
+        for _ in range(3):  # a warm-up call, then two timed
+            r = s_big["rif"].detach().clone().requires_grad_(True)
+            torch.cuda.synchronize()
+            t0 = time.time()
+            out = fn(r, s_big)
+            (((out[0] - anchor) ** 2).sum() + out[1].sum()).backward()
+            torch.cuda.synchronize()
+            spans.append(1e3 * (time.time() - t0))
+        big[f"trace_{variant}_exact 2^20"] = spans[1:]
+    card = CS.smi_line()
+    print(card)
+    line = json.dumps({"root": str(root), "card": card, "rounds": args.rounds,
+                       "reps": args.reps, "ms": ms, "all": times, "api_2^20_ms": big})
+    if args.out:
+        Path(args.out).parent.mkdir(parents=True, exist_ok=True)
+        with open(args.out, "a") as f:
+            f.write(line + "\n")
+    print(line)
+
+
+if __name__ == "__main__":
+    main()
