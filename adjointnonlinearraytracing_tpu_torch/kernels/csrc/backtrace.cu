@@ -42,23 +42,28 @@
 // sdf at the snapped xe (unmasked: active holds inside the loop) after the v
 // update, and after active &= !escaped(xe, -v) a ray that was inside and
 // reads sdf >= 0 turns inactive; outside = (sdf >= 0); the splat is masked by
-// the new active, as K3's.  One more grid read a step (8 corners of the sdf,
-// L2 hits at the sizes here); the rest is K3's, paths and order included,
-// but for the sums: K14 adds its terms in double (runs, the warp's sums and
-// the adds into a double gradient, shared or global; the caller casts).  On
-// its bench scene (2^18 rays spawned on a sphere sdf, all crossing its
-// centre) the f32 sums of the first design lay 1.06e-5 of the largest entry
-// from the f64 sum of the same terms (an H100; the plain version's own f32
-// sum 1.9e-4), over the 1e-5 limit: ~10^5 terms of both signs a voxel.
+// the new active, as K3's.  The rest is K3's, paths and order included, but
+// for two things:
+//   * one stencil a step for both grids (the sdf lies on the grid's
+//     lattice), the grid's corners (under the eval mask) and the sdf's
+//     loaded together before either is used: one trip to L2 a step;
+//   * the adds in double, into a double gradient (shared or global; the
+//     caller casts), and the run and warp sums in the grid's type.  On its
+//     bench scene (2^18 rays spawned on a sphere sdf, all crossing its
+//     centre) f32 adds lay 1.06e-5 of the largest entry from the f64 sum of
+//     the same terms (an H100; the plain version's own f32 sum 1.9e-4),
+//     over the 1e-5 limit: ~10^5 terms of both signs a voxel.  A run sums a
+//     few steps' terms, so f32 costs it nothing measurable, as K19 found
+//     (backtrace_exact.cu).
 #include "adjoint.cuh"
 
 namespace anrt {
 
 // One ray of the sweep; adds to counts the runs it flushed and the flushes it
 // issued (8 atomic adds each) for its group of lanes.  kSdf: K14's rule, with
-// the sdf grid `sdf` (unused by K3); Acc: the type of the sums (T for K3,
-// double for K14).
-template <typename T, bool kSdf, typename Acc>
+// the sdf grid `sdf` (unused by K3); Acc: the type of the adds (T for K3,
+// double for K14); Sum: that of the run and warp sums (SplatRun).
+template <typename T, bool kSdf, typename Acc, typename Sum>
 struct BacktraceRay {
   Grid<T> g;
   Grid<T> sdf;
@@ -80,7 +85,7 @@ struct BacktraceRay {
     bool active = !escaped(g, x, v, static_cast<T>(-1));
     bool outside = true;  // a masked read gives 0, and 0 >= 0
     if (kSdf && active) outside = value_at(sdf, x) >= static_cast<T>(0);
-    SplatRun<T, Acc> run;
+    SplatRun<T, Acc, Sum> run;
 
     for (int step = 0; step < max_steps && active; ++step) {
 #pragma unroll
@@ -89,20 +94,21 @@ struct BacktraceRay {
       snap_to_nodes(g, x, tol, xe);
       const bool emask = inbounds(g, xe);  // active holds inside the loop
 
-      T n = 0, grad[3] = {0, 0, 0}, hess[3] = {0, 0, 0};
+      T n = 0, grad[3] = {0, 0, 0}, hess[3] = {0, 0, 0}, dist = 0;
       Stencil<T> s;
-      if (emask) {
+      if constexpr (kSdf) {  // one stencil, both corner sets loaded before either is used
+        s = stencil(g, xe);
+        T c[2][2][2], cs[2][2][2], sg[3];
+        fetch(g, s, emask, c);
+        fetch(sdf, s, true, cs);
+        if (emask) evaluate(s, c, n, grad, hess, v);
+        value_grad(sdf, cs, s.w0, dist, sg);  // its gradient is dropped
+      } else if (emask) {
         s = stencil(g, xe);
         T c[2][2][2];
         fetch(g, s, true, c);
-        value_grad(g, c, s.w0, n, grad);
-        hessian(g, c, s.w0, hess);
-        const T dsn = ds * n;
-#pragma unroll
-        for (int k = 0; k < 3; ++k) v[k] = v[k] - dsn * grad[k];
+        evaluate(s, c, n, grad, hess, v);
       }
-      T dist = 0;
-      if (kSdf) dist = value_at(sdf, xe);
       active = !escaped(g, xe, v, static_cast<T>(-1));
       if (kSdf) {
         const bool out = dist >= static_cast<T>(0);
@@ -115,17 +121,28 @@ struct BacktraceRay {
     counts[0] += run.flushes;
     counts[1] += run.issued;
   }
+
+  // n, grad n and the Hessian at the stencil s from its corners c, and
+  // v -= ds*n*grad n
+  __device__ __forceinline__ void evaluate(const Stencil<T>& s, const T c[2][2][2], T& n,
+                                           T grad[3], T hess[3], T v[3]) const {
+    value_grad(g, c, s.w0, n, grad);
+    hessian(g, c, s.w0, hess);
+    const T dsn = ds * n;
+#pragma unroll
+    for (int k = 0; k < 3; ++k) v[k] = v[k] - dsn * grad[k];
+  }
 };
 
 // sdf: null for K3, the sdf grid (same shape and spacing) for K14; grad_out
 // holds Acc.
-template <typename T, bool kSdf, typename Acc>
+template <typename T, bool kSdf, typename Acc, typename Sum>
 int launch_backtrace(const void* rif, const void* sdf, int W, int H, int D, double h,
                      double ds, double tol, const void* xt, const void* vt, const void* dx,
                      const void* dv, const int* order, void* grad_out,
                      unsigned long long* tally, int n_rays, int max_steps, int use_shared,
                      cudaStream_t stream) {
-  const BacktraceRay<T, kSdf, Acc> ray{
+  const BacktraceRay<T, kSdf, Acc, Sum> ray{
       make_grid<T>(rif, W, H, D, h), make_grid<T>(sdf, W, H, D, h), static_cast<T>(ds),
       static_cast<T>(tol), static_cast<const T*>(xt), static_cast<const T*>(vt),
       static_cast<const T*>(dx), static_cast<const T*>(dv), order, max_steps};
@@ -148,19 +165,19 @@ extern "C" int anrt_backtrace(int is_double, const void* rif, int W, int H, int 
   auto s = static_cast<cudaStream_t>(stream);
   auto o = static_cast<const int*>(order);
   auto t = static_cast<unsigned long long*>(tally);
-  return is_double
-             ? anrt::launch_backtrace<double, false, double>(rif, nullptr, W, H, D, h, ds,
-                                                             tol, xt, vt, dx, dv, o, grad_out,
-                                                             t, n_rays, max_steps, use_shared,
-                                                             s)
-             : anrt::launch_backtrace<float, false, float>(rif, nullptr, W, H, D, h, ds, tol,
-                                                           xt, vt, dx, dv, o, grad_out, t,
-                                                           n_rays, max_steps, use_shared, s);
+  if (is_double)
+    return anrt::launch_backtrace<double, false, double, double>(
+        rif, nullptr, W, H, D, h, ds, tol, xt, vt, dx, dv, o, grad_out, t, n_rays, max_steps,
+        use_shared, s);
+  return anrt::launch_backtrace<float, false, float, float>(rif, nullptr, W, H, D, h, ds, tol, xt,
+                                                            vt, dx, dv, o, grad_out, t, n_rays,
+                                                            max_steps, use_shared, s);
 }
 
 // K14: as anrt_backtrace, with the sdf grid (the same shape, type and
 // spacing); grad_out is double whatever the grid's type (use_shared: its
-// D*H*W doubles must fit kSharedMax bytes).
+// D*H*W doubles must fit kSharedMax bytes); the run and warp sums in the
+// grid's type.
 extern "C" int anrt_backtrace_sdf(int is_double, const void* rif, int W, int H, int D,
                                   double h, double ds, double tol, const void* sdf,
                                   const void* xt, const void* vt, const void* dx,
@@ -170,11 +187,11 @@ extern "C" int anrt_backtrace_sdf(int is_double, const void* rif, int W, int H, 
   auto s = static_cast<cudaStream_t>(stream);
   auto o = static_cast<const int*>(order);
   auto t = static_cast<unsigned long long*>(tally);
-  return is_double
-             ? anrt::launch_backtrace<double, true, double>(rif, sdf, W, H, D, h, ds, tol, xt,
-                                                            vt, dx, dv, o, grad_out, t, n_rays,
-                                                            max_steps, use_shared, s)
-             : anrt::launch_backtrace<float, true, double>(rif, sdf, W, H, D, h, ds, tol, xt,
-                                                           vt, dx, dv, o, grad_out, t, n_rays,
-                                                           max_steps, use_shared, s);
+  if (is_double)
+    return anrt::launch_backtrace<double, true, double, double>(
+        rif, sdf, W, H, D, h, ds, tol, xt, vt, dx, dv, o, grad_out, t, n_rays, max_steps,
+        use_shared, s);
+  return anrt::launch_backtrace<float, true, double, float>(rif, sdf, W, H, D, h, ds, tol, xt, vt,
+                                                            dx, dv, o, grad_out, t, n_rays,
+                                                            max_steps, use_shared, s);
 }

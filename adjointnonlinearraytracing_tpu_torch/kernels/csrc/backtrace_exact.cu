@@ -46,8 +46,8 @@
 //     run and warp sums are in the grid's type and only its adds in f64
 //     (6.3e-9 of the largest entry from the f64 sum of the same terms in
 //     f32; limit 1e-5), and its replay reads the sdf with the stencil that
-//     the next step's evaluation takes at the same point
-//     (replay_sdf_step): 1.93-1.95 against 2.28-2.29 ms.  K6
+//     the next step's evaluation takes at the same point (sdf_step,
+//     rules.cuh, K17's own step): 1.93-1.95 against 2.28-2.29 ms.  K6
 //     keeps SplatRun's adds one by one: with PairRun it took 2.71 against
 //     3.54 ms on the bench scene but 4-12 % longer at the fuel stages
 //     17^3-65^3 and 1.5 % at 129^3 on a Luneburg batch, where it runs most.
@@ -107,48 +107,14 @@ constexpr int kReplay = 32;
 // float4 adds (an x-pair of a run's corners each).
 enum ExactTally { kTallyRuns, kTallyIssued, kTallyAdds, kTallyFloat4, kTallyLen };
 
-// One replayed forward step: K2's step, then the rule's "inside" at the new x.
+// One replayed forward step: K2's step, then the rule's "inside" at the new x
+// with a stencil of its own (the replay of K6 and K18; K19 steps with
+// sdf_step, rules.cuh).
 template <typename T, typename Rule>
 __device__ __forceinline__ bool replay_step(const Grid<T>& g, const Rule& rule,
                                             typename Rule::Ray& rr, T ds, T x[3], T v[3],
                                             bool inside) {
   return rule.inside(rr, x, inside, forward_step(g, ds, x, v, inside));
-}
-
-// The corner nodes and offsets of the point a replayed step evaluates at.
-template <typename T>
-struct Cell {
-  int c[3][2];
-  T w0[3];
-};
-
-// replay_step under the sdf rule with one stencil a step (kReuse): `cell`
-// holds the stencil at x, made by the step before, whose "inside" read the
-// sdf there; this step evaluates the grid at it and leaves the stencil at
-// the new x, where its "inside" reads the sdf (SdfRule::inside: was &&
-// value_at(sdf, x) < 0, on the same lattice).  The positions, masks and
-// reads are replay_step's bit for bit.
-template <typename T>
-__device__ __forceinline__ bool replay_sdf_step(const Grid<T>& g, const SdfRule<T>& rule, T ds,
-                                                T x[3], T v[3], bool inside, Cell<T>& cell) {
-  if (inside) {
-    const Stencil<T> s = stencil_of(g, cell.c, cell.w0);
-    T cv[2][2][2], n, grad[3];
-    fetch(g, s, true, cv);
-    value_grad(g, cv, s.w0, n, grad);
-    const T dsn = ds * n;
-#pragma unroll
-    for (int k = 0; k < 3; ++k) v[k] = v[k] + dsn * grad[k];
-  }
-#pragma unroll
-  for (int k = 0; k < 3; ++k) x[k] = x[k] + ds * v[k];
-  if (!inside) return false;
-  corner_cells(g, x, cell.c, cell.w0);
-  const Stencil<T> s = stencil_of(rule.sdf, cell.c, cell.w0);
-  T cv[2][2][2], n, grad[3];
-  fetch(rule.sdf, s, true, cv);
-  value_grad(rule.sdf, cv, s.w0, n, grad);
-  return n < static_cast<T>(0);
 }
 
 // Where a PairRun's adds go: the flat sum in device memory and its length.
@@ -323,9 +289,10 @@ struct RunOf<kPairRun, T, Sum, Acc> {
 // are at neighbouring positions at every step.
 // Acc: the sum in device memory's type (the grid's for K6 and K18, double
 // for K19); Sum: the runs' and the warp's sums; kRun: the runs' kind
-// (RunOf); kReuse: the sdf rule reads the sdf with the next evaluation's
-// stencil (replay_sdf_step).
-template <typename T, typename Rule, typename Acc, typename Sum, int kRun, bool kReuse>
+// (RunOf); kRead: how the sdf rule's replay reads the sdf (SdfRead,
+// rules.cuh: kSdfAlone replays with replay_step, the others with sdf_step,
+// the forward pass's own step).
+template <typename T, typename Rule, typename Acc, typename Sum, int kRun, int kRead>
 struct ExactRay {
   Grid<T> g;
   Rule rule;
@@ -376,7 +343,7 @@ struct ExactRay {
             v[k] = row[(k + 3) * field];
           }
           inside = row[6 * field] > static_cast<T>(0.5);
-          if (kReuse && inside) corner_cells(g, x, cell.c, cell.w0);
+          if (kRead != kSdfAlone && inside) sdf_enter<kRead>(g, x, cell);
           for (int j = 0; j < b0; ++j) inside = replay(rr, x, v, inside, cell);
         }
         unsigned ins = 0u;  // bit j: inside at the stretch's step j
@@ -422,7 +389,7 @@ struct ExactRay {
 
   __device__ __forceinline__ bool replay(typename Rule::Ray& rr, T x[3], T v[3], bool inside,
                                          Cell<T>& cell) const {
-    if constexpr (kReuse) return replay_sdf_step(g, rule, ds, x, v, inside, cell);
+    if constexpr (kRead != kSdfAlone) return sdf_step<kRead>(g, rule.sdf, ds, x, v, inside, cell);
     else return replay_step(g, rule, rr, ds, x, v, inside);
   }
 };
@@ -444,14 +411,14 @@ exact_kernel(Ray ray, unsigned long long* __restrict__ tally, int n_slots) {
 
 // Launches the ray of `rule` over n_slots slots; returns the launch's CUDA
 // error (0 on success).
-template <typename T, typename Acc, typename Sum, int kRun, bool kReuse = false,
+template <typename T, typename Acc, typename Sum, int kRun, int kRead = kSdfAlone,
           typename Rule>
 int launch_exact(const Rule& rule, const void* rif, int W, int H, int D, double h, double ds,
                  const void* ckpts, const int* order, const void* c, const void* code,
                  const void* dx, const void* dv, void* grad_out, unsigned long long* tally,
                  int n_slots, int nseg, int seg, cudaStream_t stream) {
   if (n_slots <= 0) return static_cast<int>(cudaGetLastError());
-  const ExactRay<T, Rule, Acc, Sum, kRun, kReuse> ray{
+  const ExactRay<T, Rule, Acc, Sum, kRun, kRead> ray{
       make_grid<T>(rif, W, H, D, h), rule, static_cast<T>(ds), static_cast<const T*>(ckpts),
       order, static_cast<const int*>(c), static_cast<const unsigned char*>(code),
       static_cast<const T*>(dx), static_cast<const T*>(dv), static_cast<Acc*>(grad_out),
@@ -512,8 +479,10 @@ extern "C" int anrt_backtrace_plane_exact(int is_double, const void* rif, int W,
 
 // K19: as anrt_backtrace_exact, from K17's checkpoints, with the sdf grid (the
 // same shape, type and spacing); grad_out is double whatever the grid's
-// type, the run and warp sums in the grid's type; the sdf read with the
-// next evaluation's stencil.
+// type, the run and warp sums in the grid's type; the replay steps with
+// K17's sdf_step, the grid's corners loaded at each step's start
+// (kSdfShared: K17's kSdfAhead took K19 to 125 registers and 0.4 % longer
+// on an NVIDIA H100 80GB HBM3 at 700 W; PERF.md).
 extern "C" int anrt_backtrace_sdf_exact(int is_double, const void* rif, int W, int H, int D,
                                         double h, double ds, const void* sdf, const void* ckpts,
                                         const void* order, const void* c, const void* code,
@@ -524,13 +493,13 @@ extern "C" int anrt_backtrace_sdf_exact(int is_double, const void* rif, int W, i
   auto o = static_cast<const int*>(order);
   auto t = static_cast<unsigned long long*>(tally);
   if (is_double) {
-    const anrt::SdfRule<double> rule{anrt::make_grid<double>(sdf, W, H, D, h)};
-    return anrt::launch_exact<double, double, double, anrt::kPairRun, true>(
+    const anrt::SdfRule<double, anrt::kSdfShared> rule{anrt::make_grid<double>(sdf, W, H, D, h)};
+    return anrt::launch_exact<double, double, double, anrt::kPairRun, anrt::kSdfShared>(
         rule, rif, W, H, D, h, ds, ckpts, o, c, code, dx, dv, grad_out, t, n_slots, nseg, seg,
         s);
   }
-  const anrt::SdfRule<float> rule{anrt::make_grid<float>(sdf, W, H, D, h)};
-  return anrt::launch_exact<float, double, float, anrt::kPairRun, true>(
+  const anrt::SdfRule<float, anrt::kSdfShared> rule{anrt::make_grid<float>(sdf, W, H, D, h)};
+  return anrt::launch_exact<float, double, float, anrt::kPairRun, anrt::kSdfShared>(
       rule, rif, W, H, D, h, ds, ckpts, o, c, code, dx, dv, grad_out, t, n_slots, nseg, seg,
       s);
 }

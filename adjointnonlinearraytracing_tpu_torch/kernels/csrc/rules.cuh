@@ -13,7 +13,9 @@
 // starts at max_steps (c0); without it, at 0 (a ray that is never captured
 // returns its start and has no gradient).  kHorizon: escaped rays step on to
 // a horizon (a second launch), while continues(inside) holds, from the state
-// resume(i) rebuilds.
+// resume(i) rebuilds.  kOwnStep: the rule takes the whole step (step(), after
+// enter() at the ray's first position), not forward_step and then inside();
+// rule_step() and rule_enter() below pick.
 #pragma once
 
 #include "trilinear.cuh"
@@ -22,7 +24,7 @@ namespace anrt {
 
 template <typename T>
 struct VolumeRule {  // K2, K5, K6
-  static constexpr bool kFixup = true, kHorizon = false;
+  static constexpr bool kFixup = true, kHorizon = false, kOwnStep = false;
   struct Ray {};
   static __device__ __forceinline__ int c0(int max_steps) { return max_steps; }
   __device__ __forceinline__ Ray start(int, const T*) const { return {}; }
@@ -38,7 +40,7 @@ struct PlaneRule {  // K11, K15, K18
   const T* __restrict__ o;
   const T* __restrict__ d;
   unsigned char* __restrict__ miss;  // null in the backward pass
-  static constexpr bool kFixup = true, kHorizon = false;
+  static constexpr bool kFixup = true, kHorizon = false, kOwnStep = false;
   struct Ray { T o[3], d[3]; };
   static __device__ __forceinline__ int c0(int max_steps) { return max_steps; }
   __device__ __forceinline__ Ray start(int i, const T*) const {
@@ -66,7 +68,7 @@ template <typename T>
 struct TargetRule {  // K12, K16
   const T* __restrict__ target;
   T* __restrict__ d2;
-  static constexpr bool kFixup = false, kHorizon = true;
+  static constexpr bool kFixup = false, kHorizon = true, kOwnStep = false;
   struct Ray { T tgt[3]; T d2; };
   static __device__ __forceinline__ int c0(int) { return 0; }
   __device__ __forceinline__ Ray start(int i, const T* x0) const {
@@ -95,20 +97,114 @@ struct TargetRule {  // K12, K16
   __device__ __forceinline__ bool continues(bool) const { return true; }
 };
 
+// The cell of the point the next step evaluates at, left there by the step
+// that moved the ray (the sdf's steps read the sdf with it): its clamped
+// corner nodes and offsets (corner_cells) and, where the step loads them
+// ahead, the grid's corner values.
 template <typename T>
+struct Cell {
+  int c[3][2];
+  T w0[3];
+  T cv[2][2][2];
+};
+
+// How the sdf's step reads the two grids: kSdfAlone, the sdf with a stencil
+// of its own after K2's step (SdfRule::inside); kSdfShared, the sdf with the
+// stencil that the next step's grid read takes at the same point; kSdfAhead,
+// that, and the next step's grid corners loaded beside the sdf's.
+enum SdfRead { kSdfAlone, kSdfShared, kSdfAhead };
+
+// The ray's first position x under the sdf's step: its cell, and (kSdfAhead)
+// the grid's corners there.
+template <int kRead, typename T>
+__device__ __forceinline__ void sdf_enter(const Grid<T>& g, const T x[3], Cell<T>& cell) {
+  corner_cells(g, x, cell.c, cell.w0);
+  if constexpr (kRead == kSdfAhead) fetch(g, stencil_of(g, cell.c, cell.w0), true, cell.cv);
+}
+
+// One step of the sdf's rule with one stencil a step: K2's step from (x, v)
+// (the grid evaluated in `cell`, which the step before, or sdf_enter, left
+// at x), then "inside" at the new x (was && sdf(x) < 0, the sdf on the
+// grid's lattice) read with the stencil that the next step's grid read
+// takes, which it leaves in `cell`.  kSdfAhead also loads that read's
+// corners now, beside the sdf's, unmasked (both grids are clamped, so every
+// corner is in bounds); the next step uses them only where it is inside.
+// The positions, masks and values are forward_step's and SdfRule::inside's
+// bit for bit: K13, K17 and K19's replay step with this one function.
+template <int kRead, typename T>
+__device__ __forceinline__ bool sdf_step(const Grid<T>& g, const Grid<T>& sdf, T ds, T x[3],
+                                         T v[3], bool inside, Cell<T>& cell) {
+  if (inside) {  // an outside ray has n = 0, grad = 0: v is unchanged
+    T n, grad[3];
+    if constexpr (kRead == kSdfAhead) {
+      value_grad(g, cell.cv, cell.w0, n, grad);
+    } else {
+      const Stencil<T> s = stencil_of(g, cell.c, cell.w0);
+      T cv[2][2][2];
+      fetch(g, s, true, cv);
+      value_grad(g, cv, s.w0, n, grad);
+    }
+    const T dsn = ds * n;
+#pragma unroll
+    for (int k = 0; k < 3; ++k) v[k] = v[k] + dsn * grad[k];
+  }
+#pragma unroll
+  for (int k = 0; k < 3; ++k) x[k] = x[k] + ds * v[k];
+  if (!inside) return false;  // an outside ray stays outside
+  corner_cells(g, x, cell.c, cell.w0);
+  const Stencil<T> s = stencil_of(g, cell.c, cell.w0);
+  T cs[2][2][2], n, grad[3];
+  fetch(sdf, s, true, cs);
+  if constexpr (kRead == kSdfAhead) fetch(g, s, true, cell.cv);
+  value_grad(sdf, cs, s.w0, n, grad);  // the gradient is dropped
+  return n < static_cast<T>(0);
+}
+
+template <typename T, int kRead = kSdfAhead>
 struct SdfRule {  // K13, K17, K19
   Grid<T> sdf;  // on the grid's lattice
-  static constexpr bool kFixup = false, kHorizon = true;
-  struct Ray {};
+  static constexpr bool kFixup = false, kHorizon = true, kOwnStep = kRead != kSdfAlone;
+  struct Ray {
+    Cell<T> cell;
+  };
   static __device__ __forceinline__ int c0(int) { return 0; }
   __device__ __forceinline__ Ray start(int, const T*) const { return {}; }
   __device__ __forceinline__ Ray resume(int) const { return {}; }
+  // "inside" at the new x with a stencil of its own (kSdfAlone's step)
   __device__ __forceinline__ bool inside(Ray&, const T x[3], bool was, bool) const {
     return was && value_at(sdf, x) < static_cast<T>(0);
+  }
+  __device__ __forceinline__ void enter(Ray& r, const Grid<T>& g, const T x[3],
+                                        bool inside) const {
+    if (inside) sdf_enter<kRead>(g, x, r.cell);
+  }
+  __device__ __forceinline__ bool step(const Grid<T>& g, Ray& r, T ds, T x[3], T v[3],
+                                       bool inside) const {
+    return sdf_step<kRead>(g, sdf, ds, x, v, inside, r.cell);
   }
   __device__ __forceinline__ bool capture(Ray&, const T*, bool cross) const { return cross; }
   __device__ __forceinline__ void finish(const Ray&, int, bool) const {}
   __device__ __forceinline__ bool continues(bool inside) const { return inside; }
 };
+
+// The ray's first position x (inside: the rule's "inside" there), before its
+// first rule_step.
+template <typename T, typename Rule>
+__device__ __forceinline__ void rule_enter(const Grid<T>& g, const Rule& rule,
+                                           typename Rule::Ray& r, const T x[3], bool inside) {
+  if constexpr (Rule::kOwnStep) rule.enter(r, g, x, inside);
+}
+
+// One step under a rule: K2's step, then the rule's "inside" at the new x;
+// returns it.  The forward passes (trace_fwd.cu) and the exact backward
+// pass's replay (backtrace_exact.cu) step with it, so a replayed trajectory
+// is the forward's bit for bit.
+template <typename T, typename Rule>
+__device__ __forceinline__ bool rule_step(const Grid<T>& g, const Rule& rule,
+                                          typename Rule::Ray& r, T ds, T x[3], T v[3],
+                                          bool inside) {
+  if constexpr (Rule::kOwnStep) return rule.step(g, r, ds, x, v, inside);
+  else return rule.inside(r, x, inside, forward_step(g, ds, x, v, inside));
+}
 
 }  // namespace anrt

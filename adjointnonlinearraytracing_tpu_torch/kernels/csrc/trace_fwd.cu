@@ -65,11 +65,14 @@
 //     6 + 8 flops a step and no grid read.
 //   * K13 (SdfRule): "inside" at the new x is sdf < 0, the sdf read under the
 //     previous inside (an outside ray reads 0 and stays outside); escape is
-//     tested on the grid; no fix-up.  A ray that escaped the grid while still
-//     inside the sdf (clamped corners can read sdf < 0 outside the grid) may
-//     cross later, while the batch runs, so K13 takes K12's two passes, and
-//     pass 2 steps only those rays, each until it leaves the sdf (after that
-//     nothing of it can change) or S.
+//     tested on the grid; no fix-up.  A step takes one stencil (rules.cuh,
+//     sdf_step): the sdf's corners at the new x and the grid's that the next
+//     step evaluates at the same point are loaded together, one trip to L2
+//     a step as K2 makes, not two in turn with a stencil each.  A ray that
+//     escaped the grid while still inside the sdf (clamped corners can read
+//     sdf < 0 outside the grid) may cross later, while the batch runs, so
+//     K13 takes K12's two passes, and pass 2 steps only those rays, each
+//     until it leaves the sdf (after that nothing of it can change) or S.
 // The horizon costs K12 and K13 a second launch and 60 B (f32) of state a
 // ray in device memory between them; the launch is cheap where no ray
 // continues (K13 on most scenes).  The rules live in rules.cuh, which the
@@ -88,12 +91,18 @@
 //     ~all(esc), or the whole batch's stop step when it is chunked); the
 //     backward pass of a chunk recomputes its checkpoints with `last` set to
 //     the batch's beforehand (pass 1's atomicMax then leaves it);
-//   * K17: per ray (`hor`), the first segment boundary at or after the last
-//     escape of the ray's chunk of the JAX package's ray chunks (the whole
-//     batch unchunked; the padded last chunk holds copies of ray 0), capped
-//     at max_steps: the JAX forward skips a segment only once every ray of
-//     its chunk has escaped, and steps on to the segment's end.  The wrapper
-//     computes it between the passes from pass 1's escape steps.
+//   * K17: per ray, the first segment boundary at or after the last escape
+//     of the ray's chunk of the JAX package's ray chunks (the whole batch
+//     unchunked; the padded last chunk holds copies of ray 0), capped at
+//     max_steps: the JAX forward skips a segment only once every ray of its
+//     chunk has escaped, and steps on to the segment's end.  Pass 1 takes
+//     each chunk's last escape into a word of its own (`last`: the lanes of
+//     a warp whose rays share a chunk take their maximum, one atomicMax; the
+//     thread of ray 0 also into the padded last chunk's word), and pass 2
+//     rounds the word of its ray's chunk up to `seg`, caps it and writes it
+//     out (`hor_out`), so that no launch runs between the passes.  A chunk of
+//     the rays (the backward pass recomputing its checkpoints) takes the
+//     horizons of the whole batch instead (`hor`).
 // K15 takes K11's one pass: an escaped plane ray never crosses again, so it
 // has nothing left to capture or checkpoint.
 #include "rules.cuh"
@@ -101,10 +110,13 @@
 namespace anrt {
 
 // The state pass 1 of a horizon rule leaves for pass 2, at the thread's slot:
-// x, v (3 each), the steps taken, inside; `last` is the batch's last escape
-// step (zeroed by the caller, or set to a batch's beforehand); `hor`: null,
-// or a horizon per ray (at the ray's index) that pass 2 takes instead of
-// `last` (K17).
+// x, v (3 each), the steps taken, inside.  `last`: the last escape step of
+// the batch (one word; chunk 0), or of each chunk of `chunk` rays by ray
+// index (the last chunk padded with copies of ray 0; K17), zeroed by the
+// caller or set to a batch's beforehand.  Pass 2 steps a ray
+// to `hor` at its index where given (K17 on a chunk of the rays), else to
+// its word of `last` rounded up to a multiple of `round` and capped at `cap`
+// (K12, K13, K16: round 1, no cap), written to `hor_out` where given.
 template <typename T>
 struct Horizon {
   T* x;
@@ -113,7 +125,36 @@ struct Horizon {
   unsigned char* inside;
   int* last;
   const int* hor;
+  int* hor_out;
+  int chunk;     // rays a word of `last` (0: one word)
+  int pad_word;  // the word of the last chunk where copies of ray 0 pad it, else -1
+  int round, cap;
+
+  __device__ __forceinline__ int word(int i) const { return chunk > 0 ? i / chunk : 0; }
+  // the step pass 2 takes ray i to, written to hor_out where given
+  __device__ __forceinline__ int take(int i) const {
+    if (hor != nullptr) return __ldg(hor + i);
+    const int l = last[word(i)];
+    const int up = (l + round - 1) / round * round;
+    const int h = up < cap ? up : cap;
+    if (hor_out != nullptr) hor_out[i] = h;
+    return h;
+  }
 };
+
+// Pass 1's escape step of ray i into its word of hz.last (called by every
+// lane of the warp that has a ray): the lanes whose rays share a word take
+// their maximum and one of them adds it; ray 0 also goes into the padded
+// last chunk's word.
+template <typename T>
+__device__ __forceinline__ void take_last(const Horizon<T>& hz, int i, int step) {
+  const unsigned lanes = __activemask();
+  const int w = hz.word(i);
+  const unsigned peers = __match_any_sync(lanes, w);
+  const int last = __reduce_max_sync(peers, step);
+  if ((threadIdx.x & 31) == __ffs(peers) - 1) atomicMax(hz.last + w, last);
+  if (i == 0 && hz.pad_word >= 0) atomicMax(hz.last + hz.pad_word, step);
+}
 
 // The checkpoint (x, v, inside) of one ray: field k at ck[k * field].
 template <typename T>
@@ -141,6 +182,7 @@ __global__ void trace_fwd_kernel(Grid<T> g, T ds, const T* __restrict__ x0,
   for (int k = 0; k < 3; ++k) { xt[k] = x[k]; vt[k] = v[k]; }
   typename Rule::Ray r = rule.start(i, x);
   bool inside = inbounds(g, x);
+  rule_enter(g, rule, r, x, inside);
   bool esc = false;
   int c = Rule::c0(max_steps);
   bool captured = false;
@@ -160,7 +202,7 @@ __global__ void trace_fwd_kernel(Grid<T> g, T ds, const T* __restrict__ x0,
       }
       --until_ck;
     }
-    const bool cur_inside = rule.inside(r, x, inside, forward_step(g, ds, x, v, inside));
+    const bool cur_inside = rule_step(g, rule, r, ds, x, v, inside);
     const bool cross = inside && !cur_inside;
     esc = esc || cross || escaped(g, x, v, static_cast<T>(1));
     if (rule.capture(r, x, cross)) {
@@ -176,9 +218,7 @@ __global__ void trace_fwd_kernel(Grid<T> g, T ds, const T* __restrict__ x0,
     store3(hz.v, t, v);
     hz.steps[t] = step;
     hz.inside[t] = inside;
-    const unsigned lanes = __activemask();
-    const int last = __reduce_max_sync(lanes, step);
-    if ((threadIdx.x & 31) == __ffs(lanes) - 1) atomicMax(hz.last, last);
+    take_last(hz, i, step);
   }
   if (xt_out == nullptr) return;
 
@@ -198,11 +238,10 @@ __global__ void trace_fwd_kernel(Grid<T> g, T ds, const T* __restrict__ x0,
 }
 
 // Pass 2 of a horizon rule (K12, K13; K16, K17 with kCkpt): each escaped ray
-// that the rule continues steps on from where pass 1 left it to the horizon
-// (the batch's last escape step, or the ray's own in `hor`), with K2's step
-// and the rule's inside and capture, and rewrites its outputs; with kCkpt
-// also the checkpoint of each segment it starts (null ckpts: none), its
-// capture step and code.  Every ray here has escaped (one that never did
+// that the rule continues steps on from where pass 1 left it to its horizon
+// (Horizon::take), with the rule's step and capture, and rewrites its
+// outputs; with kCkpt also the checkpoint of each segment it starts (null
+// ckpts: none), its capture step and code.  Every ray here has escaped (one that never did
 // took max_steps).
 template <typename T, bool kCkpt, typename Rule>
 __global__ void trace_horizon_kernel(Grid<T> g, T ds, const int* __restrict__ order,
@@ -215,7 +254,7 @@ __global__ void trace_horizon_kernel(Grid<T> g, T ds, const int* __restrict__ or
   int step = hz.steps[t];
   bool inside = hz.inside[t];
   const int i = ray_of(order, t);
-  const int last = hz.hor != nullptr ? __ldg(hz.hor + i) : *hz.last;
+  const int last = hz.take(i);
   if (step >= last || !rule.continues(inside)) return;
   T x[3], v[3], xt[3], vt[3];
   load3(hz.x, t, x);
@@ -223,6 +262,7 @@ __global__ void trace_horizon_kernel(Grid<T> g, T ds, const int* __restrict__ or
   load3(xt_out, i, xt);
   load3(vt_out, i, vt);
   typename Rule::Ray r = rule.resume(i);
+  rule_enter(g, rule, r, x, inside);
   int c = 0;
   bool captured = false;
   // the column of the first segment that starts at or after `step`
@@ -246,7 +286,7 @@ __global__ void trace_horizon_kernel(Grid<T> g, T ds, const int* __restrict__ or
       }
       --until_ck;
     }
-    const bool cur_inside = rule.inside(r, x, inside, forward_step(g, ds, x, v, inside));
+    const bool cur_inside = rule_step(g, rule, r, ds, x, v, inside);
     if (rule.capture(r, x, inside && !cur_inside)) {
 #pragma unroll
       for (int k = 0; k < 3; ++k) { xt[k] = x[k]; vt[k] = v[k]; }
@@ -291,12 +331,21 @@ int launch_variant(const Grid<T>& g, double ds, const void* x0, const void* v0,
   return static_cast<int>(cudaGetLastError());
 }
 
+// The horizon state of a call over n_rays slots; chunk > 0 (K17 with hor_out):
+// a word of `last` for each chunk of chunk rays, pass 2 rounding up to seg
+// and capping at max_steps (the ray slots are then every ray of the batch).
 template <typename T>
 Horizon<T> make_horizon(void* x, void* v, void* steps, void* inside, void* last,
-                        const void* hor = nullptr) {
+                        const void* hor = nullptr, void* hor_out = nullptr, int chunk = 0,
+                        int n_rays = 0, int seg = 1, int max_steps = 0) {
+  const bool chunked = hor_out != nullptr;
+  const int words = chunked && chunk > 0 ? (n_rays + chunk - 1) / chunk : 1;
   return Horizon<T>{static_cast<T*>(x), static_cast<T*>(v), static_cast<int*>(steps),
                     static_cast<unsigned char*>(inside), static_cast<int*>(last),
-                    static_cast<const int*>(hor)};
+                    static_cast<const int*>(hor), static_cast<int*>(hor_out),
+                    chunked ? chunk : 0,
+                    chunked && static_cast<long long>(words) * chunk > n_rays ? words - 1 : -1,
+                    chunked ? seg : 1, chunked ? max_steps : 0x7fffffff};
 }
 
 template <typename T>
@@ -487,22 +536,29 @@ extern "C" int anrt_trace_target_ckpt(int is_double, const void* rif, int W, int
                                                    rule, hz, n_rays, max_steps, seg, pass, s);
 }
 
-// K17 (c and code given) and K13 (c, code, ckpts, hor null), pass 1 or 2:
-// the horizon state as for K12; hor: null (the batch's last escape step), or
-// pass 2's horizon per ray (int32 at the ray's index).
+// K17 (c and code given) and K13 (c, code, ckpts, hor, hor_out null), pass 1
+// or 2: the horizon state as for K12 but for `last` and the horizon.  With
+// hor_out (K17 over every ray of the batch), `last` holds a word for each
+// chunk of `chunk` rays by ray index (0: one word, the whole batch; zeroed
+// before pass 1), and pass 2 writes each ray's horizon (int32 at the ray's
+// index) to hor_out; with hor, pass 2 takes that horizon per ray (a chunk's
+// recomputation); with neither, `last` is one word, the batch's last escape
+// step (K13).
 extern "C" int anrt_trace_sdf_ckpt(int is_double, const void* rif, int W, int H, int D,
                                    double h, double ds, const void* sdf, const void* x0,
                                    const void* v0, const void* order, void* xt, void* vt, void* c,
                                    void* code, void* ckpts, void* hx, void* hv, void* steps,
-                                   void* inside, void* last, const void* hor, int n_rays,
-                                   int max_steps, int seg, int pass, void* stream) {
+                                   void* inside, void* last, const void* hor, void* hor_out,
+                                   int n_rays, int max_steps, int seg, int chunk, int pass,
+                                   void* stream) {
   auto s = static_cast<cudaStream_t>(stream);
   auto o = static_cast<const int*>(order);
   const bool ckpt = c != nullptr;
   if (is_double) {
     const anrt::SdfRule<double> rule{anrt::make_grid<double>(sdf, W, H, D, h)};
     const auto g = anrt::make_grid<double>(rif, W, H, D, h);
-    const auto hz = anrt::make_horizon<double>(hx, hv, steps, inside, last, hor);
+    const auto hz = anrt::make_horizon<double>(hx, hv, steps, inside, last, hor, hor_out, chunk,
+                                               n_rays, seg, max_steps);
     return ckpt ? anrt::launch_variant<double, true>(g, ds, x0, v0, o, xt, vt, c, code, ckpts,
                                                      rule, hz, n_rays, max_steps, seg, pass, s)
                 : anrt::launch_variant<double, false>(g, ds, x0, v0, o, xt, vt, c, code, ckpts,
@@ -510,7 +566,8 @@ extern "C" int anrt_trace_sdf_ckpt(int is_double, const void* rif, int W, int H,
   }
   const anrt::SdfRule<float> rule{anrt::make_grid<float>(sdf, W, H, D, h)};
   const auto g = anrt::make_grid<float>(rif, W, H, D, h);
-  const auto hz = anrt::make_horizon<float>(hx, hv, steps, inside, last, hor);
+  const auto hz = anrt::make_horizon<float>(hx, hv, steps, inside, last, hor, hor_out, chunk,
+                                            n_rays, seg, max_steps);
   return ckpt ? anrt::launch_variant<float, true>(g, ds, x0, v0, o, xt, vt, c, code, ckpts, rule,
                                                   hz, n_rays, max_steps, seg, pass, s)
               : anrt::launch_variant<float, false>(g, ds, x0, v0, o, xt, vt, c, code, ckpts,
@@ -548,6 +605,6 @@ extern "C" int anrt_trace_sdf(int is_double, const void* rif, int W, int H, int 
                               void* steps, void* inside, void* last, int n_rays, int max_steps,
                               int pass, void* stream) {
   return anrt_trace_sdf_ckpt(is_double, rif, W, H, D, h, ds, sdf, x0, v0, order, xt, vt, nullptr,
-                             nullptr, nullptr, hx, hv, steps, inside, last, nullptr, n_rays,
-                             max_steps, 1, pass, stream);
+                             nullptr, nullptr, hx, hv, steps, inside, last, nullptr, nullptr,
+                             n_rays, max_steps, 1, 0, pass, stream);
 }

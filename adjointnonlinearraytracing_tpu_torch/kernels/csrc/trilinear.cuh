@@ -221,12 +221,13 @@ __device__ __forceinline__ void splat_terms(const Grid<T>& g, const Stencil<T>& 
 // time (neighbouring rays in a coherent order do) first sum them with
 // shuffles, and one of them issues the 8 atomicAdds.  The order of the adds
 // is not fixed, so the sum is reproducible to rounding only, not bitwise.
-// Acc is the type the run, the lanes' sums and the adds are in (the terms'
-// type T for K3 and K6; double for K14, whose f32 terms are summed in f64).
-template <typename T, typename Acc = T>
+// Acc is the type of the adds (the terms' type T for K3 and K6; double for
+// K14, whose f32 terms are added in f64), Sum the type of the run and the
+// lanes' sums (Acc for K3 and K6; the terms' type for K14).
+template <typename T, typename Acc = T, typename Sum = Acc>
 struct SplatRun {
   int idx[2][2][2];
-  Acc sum[2][2][2];
+  Sum sum[2][2][2];
   bool open = false;
   int flushes = 0;  // runs this lane flushed (one a run)
   int issued = 0;   // flushes this lane issued for its group of lanes (8 adds each)
@@ -256,7 +257,7 @@ struct SplatRun {
         for (int b = 0; b < 2; ++b)
 #pragma unroll
           for (int c = 0; c < 2; ++c) {
-            const Acc t = __shfl_sync(active, sum[a][b][c], next < 0 ? lane : next);
+            const Sum t = __shfl_sync(active, sum[a][b][c], next < 0 ? lane : next);
             if (next >= 0) sum[a][b][c] = sum[a][b][c] + t;
           }
       peers &= ~__ballot_sync(active, rank & 1);  // odd ranks have been summed
@@ -268,7 +269,8 @@ struct SplatRun {
 #pragma unroll
         for (int b = 0; b < 2; ++b)
 #pragma unroll
-          for (int c = 0; c < 2; ++c) atomicAdd(acc + idx[a][b][c], sum[a][b][c]);
+          for (int c = 0; c < 2; ++c)
+            atomicAdd(acc + idx[a][b][c], static_cast<Acc>(sum[a][b][c]));
       ++issued;
     }
     if (cond) {
@@ -293,9 +295,9 @@ struct SplatRun {
 #pragma unroll
         for (int c = 0; c < 2; ++c) {
           if (same) {
-            sum[a][b][c] = sum[a][b][c] + static_cast<Acc>(terms[a][b][c]);
+            sum[a][b][c] = sum[a][b][c] + static_cast<Sum>(terms[a][b][c]);
           } else {
-            sum[a][b][c] = static_cast<Acc>(terms[a][b][c]);
+            sum[a][b][c] = static_cast<Sum>(terms[a][b][c]);
             idx[a][b][c] = s.idx[a][b][c];
           }
         }
@@ -376,7 +378,8 @@ __device__ __forceinline__ void adjoint_update(const Grid<T>& g, T ds, const S& 
 
 // The field's value at p, its corners clamped and read unmasked, as
 // value_grad gives it (the gradient is computed and dropped: the compiler
-// removes it).  K13 and K14 read the sdf grid with it.
+// removes it): the sdf's "inside" with a stencil of its own
+// (SdfRule::inside, rules.cuh).
 template <typename T>
 __device__ __forceinline__ T value_at(const Grid<T>& g, const T p[3]) {
   const Stencil<T> s = stencil(g, p);

@@ -75,12 +75,16 @@ K12 ``trace_target``
 K13 ``trace_sdf``
     replaces ``tracer/paired.py::trace_sdf``: "inside" is ``sdf < 0`` on a
     second grid; the same two passes as K12, pass 2 stepping only the rays
-    that escaped the grid while still inside the sdf.
+    that escaped the grid while still inside the sdf.  A step takes one
+    stencil for both grids and loads the sdf's corners and the next step's
+    grid corners together (``csrc/rules.cuh``, ``sdf_step``).
 K14 ``backtrace_sdf``
     replaces ``tracer/paired.py::backtrace_sdf``: K3 with the sdf-crossing
-    deactivation, summing in float64 whatever the grid's type (the wrapper
-    returns the float64 sum; callers cast); K3's paths by the float64 size
-    rule (:func:`backtrace_path`), counted in :data:`BACKTRACE_SDF_PATHS`.
+    deactivation, one stencil a step for both grids, its adds in float64
+    whatever the grid's type (the wrapper returns the float64 sum; callers
+    cast) after run and warp sums in the grid's type; K3's paths by the
+    float64 size rule (:func:`backtrace_path`), counted in
+    :data:`BACKTRACE_SDF_PATHS`.
 
 The variants' exact gradients (``tracer/checkpointed.py``'s
 ``trace_plane_exact``, ``trace_target_exact``, ``trace_sdf_exact``): K11-K13
@@ -95,8 +99,9 @@ K16 ``trace_target_ckpt``
     the steps an escaped ray takes on to the batch's horizon.
 K17 ``trace_sdf_ckpt``
     the same (sdf): K13's two passes, pass 2 stepping each ray that is still
-    inside the sdf on to its own horizon (given, or the caller's function of
-    pass 1's escape steps, computed between the passes), writing checkpoints.
+    inside the sdf on to its own horizon (given, or its JAX chunk's: pass 1
+    takes each chunk's last escape step, pass 2 rounds it up to a segment
+    boundary, :func:`sdf_chunk_horizons_plain`), writing checkpoints.
 K18 ``backtrace_plane_exact``
     replaces ``tracer/checkpointed.py::_backward_segments`` (plane): K6's
     ray whose replay applies the plane's rule; the leader of a run's warp
@@ -231,7 +236,7 @@ _ARGTYPES = {
                       _I, _I, _I, _VP],
     "trace_plane_ckpt": [_I, _VP, _I, _I, _I, _D, _D] + [_VP] * 11 + [_I, _I, _I, _VP],
     "trace_target_ckpt": [_I, _VP, _I, _I, _I, _D, _D] + [_VP] * 15 + [_I, _I, _I, _I, _VP],
-    "trace_sdf_ckpt": [_I, _VP, _I, _I, _I, _D, _D] + [_VP] * 15 + [_I, _I, _I, _I, _VP],
+    "trace_sdf_ckpt": [_I, _VP, _I, _I, _I, _D, _D] + [_VP] * 16 + [_I] * 5 + [_VP],
     "backtrace_plane_exact": [_I, _VP, _I, _I, _I, _D, _D] + [_VP] * 10 + [_I, _I, _I, _VP],
     "backtrace_sdf_exact": [_I, _VP, _I, _I, _I, _D, _D] + [_VP] * 9 + [_I, _I, _I, _VP],
     "record_paths": [_I, _VP, _I, _I, _I, _D, _D, _VP, _VP, _VP, _VP, _I, _I, _I, _VP],
@@ -492,14 +497,15 @@ def trace_plane(data: torch.Tensor, h: float, x0: torch.Tensor, v0: torch.Tensor
     return xt, vt, miss
 
 
-def _horizon(data: torch.Tensor, n_rays: int) -> List[torch.Tensor]:
+def _horizon(data: torch.Tensor, n_rays: int, words: int = 1) -> List[torch.Tensor]:
     """The state K12's and K13's pass 1 leaves for pass 2 (x, v, steps taken,
-    inside, at each thread slot) and the word for the batch's last escape
-    step (zeroed), in the order of the kernels' arguments."""
+    inside, at each thread slot) and the words for the last escape step of
+    the batch (one) or of each chunk (K17; zeroed), in the order of the
+    kernels' arguments."""
     xv = torch.empty((2, n_rays, 3), dtype=data.dtype, device=data.device)
     return [xv[0], xv[1], torch.empty((n_rays,), dtype=torch.int32, device=data.device),
             torch.empty((n_rays,), dtype=torch.uint8, device=data.device),
-            torch.zeros((1,), dtype=torch.int32, device=data.device)]
+            torch.zeros((words,), dtype=torch.int32, device=data.device)]
 
 
 def trace_target(data: torch.Tensor, h: float, x0: torch.Tensor, v0: torch.Tensor,
@@ -769,45 +775,79 @@ def _check_horizons(horizons: torch.Tensor, data: torch.Tensor, n_rays: int) -> 
     return horizons
 
 
+def _sdf_chunk(chunk: int, n_rays: int) -> int:
+    """The rays a word of K17's ``last`` takes: ``chunk``, or the whole batch
+    where ``chunk`` is 0 or not below ``n_rays`` (the JAX package's
+    ``_to_chunks``)."""
+    return chunk if 0 < chunk < n_rays else max(n_rays, 1)
+
+
+def sdf_chunk_horizons_plain(steps: torch.Tensor, order: torch.Tensor, chunk: int, seg: int,
+                             max_steps: int) -> torch.Tensor:
+    """K17's horizons as its two passes take them, in plain torch (the kernel
+    is held to it through ``checkpointed._index_chunk_horizons``).
+
+    ``steps``: pass 1's escape step at each thread slot (int32 ``(N,)``),
+    slot ``i`` holding ray ``order[i]`` (every ray of the batch).  Pass 1
+    takes the largest into the word of the slot's ray's chunk (ray index //
+    chunk, :func:`_sdf_chunk`), and ray 0's also into the last chunk's word
+    where copies of ray 0 pad it; pass 2 rounds the word of each ray's chunk
+    up to a multiple of ``seg`` and caps it at ``max_steps``.  Returns the
+    int32 ``(N,)`` horizons at the rays' own indices."""
+    n = order.shape[0]
+    chunk = _sdf_chunk(int(chunk), n)
+    words = -(-n // chunk)
+    word = order.long() // chunk
+    last = torch.zeros((words,), dtype=torch.int64, device=steps.device)
+    last = last.scatter_reduce(0, word, steps.long(), "amax")
+    if words * chunk > n and n:
+        last[-1] = torch.maximum(last[-1], steps.long()[order.long() == 0][0])
+    hor = torch.clamp(-(-last // int(seg)) * int(seg), max=int(max_steps))
+    return hor[torch.arange(n, device=steps.device) // chunk].to(torch.int32)
+
+
 def trace_sdf_ckpt(data: torch.Tensor, sdf: torch.Tensor, h: float, x0: torch.Tensor,
                    v0: torch.Tensor, ds: float, max_steps: int, seg: int, order: torch.Tensor,
-                   horizons: Union[torch.Tensor, Callable[[torch.Tensor], torch.Tensor]],
-                   store_ckpts: bool = True):
+                   horizons: Union[torch.Tensor, int], store_ckpts: bool = True):
     """K17: the sdf variant's exact forward pass over the rays ``order``, in
     K13's two launches.
 
     Returns ``(xt, vt, c, code, ckpts, horizons)`` as :func:`trace_plane_ckpt`
     (``c`` 0 for a ray never captured); ``horizons`` (int32 ``(N,)``) the step
-    each ray runs to while it is inside the sdf.  Given as a tensor, or as a
-    function that makes it from every ray's escape step (int32 ``(N,)``, the
-    step at which the ray first escaped, ``max_steps`` if never; pass 1 finds
-    them, and the function runs between the two launches), which needs
-    ``order`` to hold every ray."""
+    each ray runs to while it is inside the sdf.  Given as a tensor (a chunk
+    of the rays takes the whole batch's), or as an int, the rays of a chunk
+    of the JAX package's exact forward (0: the whole batch), from which the
+    kernel makes them (:func:`sdf_chunk_horizons_plain`): that needs
+    ``order`` to hold every ray, and no launch runs between the passes."""
     _check_grid(data, "trace_sdf_ckpt")
     _check_sdf(sdf, data, "trace_sdf_ckpt")
     n_rays = _check_rays(data, "trace_sdf_ckpt", x0=x0, v0=v0)
     n = _check_slots(order, data, n_rays, "trace_sdf_ckpt")
     xt, vt, c, code, ckpts = _ckpt_outputs(data, x0, n, max_steps, seg, store_ckpts,
                                            "trace_sdf_ckpt")
-    make = None if isinstance(horizons, torch.Tensor) else horizons
-    if make is None:
-        _check_horizons(horizons, data, n_rays)
-    elif n != n_rays:
-        raise ValueError("trace_sdf_ckpt: a chunk of the rays needs the horizons of the whole "
-                         "batch, not a function of its escape steps")
-    hz = _horizon(data, n)
-    for pass_ in (1, 2):  # pass 1 reads no horizon
-        if pass_ == 2 and make is not None:
-            esc_steps = torch.empty((n_rays,), dtype=torch.int32, device=data.device)
-            esc_steps[order.long()] = hz[2]
-            horizons = _check_horizons(make(esc_steps), data, n_rays)
-        if n:
+    hor = hor_out = None
+    chunk = words = 1
+    if isinstance(horizons, torch.Tensor):
+        hor = _check_horizons(horizons, data, n_rays)
+    elif isinstance(horizons, int) and not isinstance(horizons, bool) and horizons >= 0:
+        if n != n_rays:
+            raise ValueError("trace_sdf_ckpt: a chunk of the rays needs the horizons of the "
+                             "whole batch, not a chunk size")
+        chunk = _sdf_chunk(horizons, n_rays)
+        words = -(-n_rays // chunk)
+        hor_out = torch.empty((n_rays,), dtype=torch.int32, device=data.device)
+    else:
+        raise ValueError(f"trace_sdf_ckpt: horizons must be an int32 ({n_rays},) tensor or a "
+                         f"chunk size (int >= 0), got {horizons!r}")
+    hz = _horizon(data, n, words)
+    if n:
+        for pass_ in (1, 2):
             _launch_on_grid("trace_sdf_ckpt", data, float(h), float(ds), sdf.data_ptr(),
                             x0.data_ptr(), v0.data_ptr(), order.data_ptr(), xt.data_ptr(),
                             vt.data_ptr(), c.data_ptr(), code.data_ptr(), _ptr(ckpts),
-                            *map(_ptr, hz), _ptr(horizons) if pass_ == 2 else None, n,
-                            int(max_steps), int(seg), pass_)
-    return xt, vt, c, code, ckpts, horizons
+                            *map(_ptr, hz), _ptr(hor), _ptr(hor_out), n, int(max_steps),
+                            int(seg), chunk, pass_)
+    return xt, vt, c, code, ckpts, hor if hor is not None else hor_out
 
 
 def backtrace_plane_exact(data: torch.Tensor, h: float, ckpts: torch.Tensor, c: torch.Tensor,

@@ -497,8 +497,7 @@ class _TraceVariantExact(torch.autograd.Function):
                                                                        horizon=stop_all)
             else:
                 xt, vt, c, code, ckpts, stop = K.trace_sdf_ckpt(
-                    rif, sdf, h, x, v, ds, steps, seg, order,
-                    lambda e: _index_chunk_horizons(e, chunk if chunked else 0, seg, steps), store)
+                    rif, sdf, h, x, v, ds, steps, seg, order, chunk if chunked else 0, store)
             esc = code != 0
         else:
             order = code = None

@@ -2631,8 +2631,9 @@ def exact_forward_kernel(case, order, store, chunk=0, stop=None):
         xt, vt, d2, c, code, ck, hz = K.trace_target_ckpt(rif, h, x, v, case["tgt"], ds, steps,
                                                           SEG, order, store, horizon=stop)
         return (xt, vt, d2), c, code, ck, hz
-    horizons = stop if stop is not None else (
-        lambda e: CK._index_chunk_horizons(e, chunk, SEG, steps))
+    # the horizons given (a chunk's recomputation), or the kernel's from the
+    # JAX chunk size
+    horizons = stop if stop is not None else chunk
     xt, vt, c, code, ck, hz = K.trace_sdf_ckpt(rif, case["sdf"], h, x, v, ds, steps, SEG, order,
                                                horizons, store)
     return (xt, vt), c, code, ck, hz
@@ -2690,6 +2691,30 @@ def run_line(row):
     """The printed form of :func:`run_counts`."""
     return (f"issued {row['issued']} ({8 * row['issued']} adds at 8 a flush), atomic adds into "
             f"device memory {row['adds']}, of them float4 {row['float4_adds']}")
+
+
+def pass_split(fn, name, reps=5):
+    """Median ms of a two-launch call's pass 1, the gap from its end to pass
+    2's start (the host's work between the launches, where the card waits
+    on it), and pass 2, from CUDA events the wrappers record around their
+    launches; the card kept busy before each call, as in :func:`time_ms`."""
+    fn()
+    events = []
+    K.record_events(events)
+    try:
+        for _ in range(reps):
+            torch.cuda._sleep(BUSY_CYCLES)
+            fn()
+    finally:
+        K.record_events(None)
+    torch.cuda.synchronize()
+    ev = [(a, b) for n_, a, b in events if n_ == name]
+    if len(ev) != 2 * reps:
+        raise AssertionError(f"{name}: {len(ev)} launches in {reps} calls, not two a call")
+    parts = [(p1[0].elapsed_time(p1[1]), p1[1].elapsed_time(p2[0]), p2[0].elapsed_time(p2[1]))
+             for p1, p2 in zip(ev[::2], ev[1::2])]
+    return {k: median([p[j] for p in parts]) for j, k in enumerate(("pass 1", "between",
+                                                                    "pass 2"))}
 
 
 def exact_variant_check(case, label, tol, chunk=0, times=False):
@@ -2814,13 +2839,16 @@ def exact_variant_check(case, label, tol, chunk=0, times=False):
         plain_ms=plain_bwd_ms, library_ms=None)
     for rec in (fwd_b, bwd_b):
         rec["share_of_bound"] = rec["bound_ms"] / rec["ms"]
+    if variant != "plane":  # two launches: pass 1, the gap between them, pass 2 apart
+        fwd_b["passes_ms"] = pass_split(lambda: exact_forward_kernel(case, order, True), fname)
     row["times"] = {fname: fwd_b, bname: bwd_b}
     print(f"exact {variant}[{label}] {fname} {fwd_b['ms']:.4f} ms (bound {fwd_b['bound_ms']:.4f}, "
           f"{fwd_b['bound_by']}: {100 * fwd_b['share_of_bound']:.2f} % of it; plain "
           f"{plain_fwd_ms:.1f} ms), {bname} {bwd_b['ms']:.4f} ms (bound {bwd_b['bound_ms']:.4f}, "
           f"{bwd_b['bound_by']}: {100 * bwd_b['share_of_bound']:.2f} % of it; plain "
-          f"{plain_bwd_ms:.1f} ms); checkpoints {ck_k.numel() * ck_k.element_size() / 1e6:.1f} MB",
-          flush=True)
+          f"{plain_bwd_ms:.1f} ms); checkpoints {ck_k.numel() * ck_k.element_size() / 1e6:.1f} MB"
+          + ("; " + fname + " " + ", ".join(f"{k} {v:.4f}" for k, v in fwd_b["passes_ms"].items())
+             + " ms" if "passes_ms" in fwd_b else ""), flush=True)
     return row, failures
 
 

@@ -371,6 +371,44 @@ def test_variant_wrappers_refuse_cpu_tensors(scene):
                                             "backtrace_sdf"))
 
 
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_backtrace_sdf_wrapper_hands_the_kernel_a_float64_sum(scene, dtype, monkeypatch):
+    """K14 adds in float64 whatever the grid's type (its run and warp sums are
+    the grid's): the wrapper hands the kernel a zeroed float64 gradient and
+    K3's path of a float64 one, and refuses an sdf, rays, an order or a
+    tally that do not fit.  The grid's device check and the launch are
+    stubbed out, so that the argument checks run on the CPU."""
+    _, x, v, *_ = (_t(a).to(dtype) for a in scene)
+    launched = []
+    monkeypatch.setattr(K, "_check_grid", lambda data, name: None)
+    monkeypatch.setattr(K, "_launch_on_grid", lambda name, data, *args: launched.append(
+        (name, args)))
+    n = x.shape[0]
+    order = torch.arange(n, dtype=torch.int32).flip(0).contiguous()
+    tally = torch.zeros(3, dtype=torch.int64)
+    for res, path in ((RES, "shared"), (40, "global")):  # 40^3 doubles pass 227 KB
+        rif = torch.ones((res, res, res), dtype=dtype)
+        K.reset_launches()
+        g = K.backtrace_sdf(rif, rif, H, x, v, x, v, DS, STEPS, 1e-9, order, tally)
+        assert g.dtype == torch.float64 and g.shape == (res ** 3,) and not bool(g.any())
+        name, args = launched[-1]
+        assert name == "backtrace_sdf" and K.backtrace_path(rif.numel(), torch.float64) == path
+        assert g.data_ptr() in args and order.data_ptr() in args and tally.data_ptr() in args
+        assert args[-3:] == (n, STEPS, int(path == "shared"))
+        assert K.BACKTRACE_SDF_PATHS == {"shared": int(path == "shared"),
+                                         "global": int(path == "global")}
+    rif = torch.ones((RES,) * 3, dtype=dtype)
+    other = torch.float64 if dtype == torch.float32 else torch.float32
+    bad = [dict(sdf=rif.to(other)), dict(sdf=rif[:-1].contiguous()), dict(xt=x.to(other)),
+           dict(order=order.long()), dict(tally=torch.zeros(4, dtype=torch.int64))]
+    for kw in bad:
+        args = {**dict(sdf=rif, xt=x, order=order, tally=tally), **kw}
+        with pytest.raises(ValueError):
+            K.backtrace_sdf(rif, args["sdf"], H, args["xt"], v, x, v, DS, STEPS, 1e-9,
+                            args["order"], args["tally"])
+    assert len(launched) == 2
+
+
 def test_compat_aliases_are_the_api():
     for name in ("ADTracerC", "ADPlaneTracerC", "ADSDFTracerC", "ADCableTracerC",
                  "BackTracerC", "BackPlaneTracerC", "BackTargetTracerC", "BackSDFTracerC",

@@ -23,6 +23,7 @@ import torch
 
 from adjointnonlinearraytracing_tpu import tracer as JT
 from adjointnonlinearraytracing_tpu.fields import grid as JG
+from adjointnonlinearraytracing_tpu.tracer import checkpointed as JCK
 from adjointnonlinearraytracing_tpu.tracer import eikonal as JE
 from adjointnonlinearraytracing_tpu_torch import tracer as TT
 from adjointnonlinearraytracing_tpu_torch.fields import grid as TG
@@ -196,6 +197,79 @@ def test_index_chunk_horizons_pad_with_ray_0():
     assert got.tolist() == [8, 8, 8, 36, 36, 36, 8]
     assert TCK._index_chunk_horizons(esc, 0, 8, 36).tolist() == [36] * 7
     assert TCK._index_chunk_horizons(esc[:3], 3, 4, 36).tolist() == [8] * 3
+
+
+@pytest.mark.parametrize("n, chunk", [(12, 4), (14, 4), (5, 8), (9, 0)])
+def test_sdf_chunk_horizons_plain_is_the_jax_chunk_rule(n, chunk):
+    """K17's horizon rule in plain torch, slot by slot as its passes take it
+    (each chunk's largest escape step over the slots whose rays it holds, ray
+    0's also into a padded last chunk, rounded up to ``seg`` and capped),
+    against ``_index_chunk_horizons`` and against the JAX package's chunks
+    (``_to_chunks``: runs of ``chunk`` rays, the last padded with copies of
+    ray 0; one chunk where ``N <= chunk`` or ``chunk`` is 0): a chunk that
+    divides N, one that does not, N <= chunk and no chunking."""
+    seg, max_steps = 7, 48
+    rng = np.random.default_rng(n + chunk)
+    esc = rng.integers(1, 12, size=n).astype(np.int32)
+    esc[0], esc[1] = 46, 30  # ray 0 pads the last chunk; 46 rounds up past the cap
+    order = rng.permutation(n).astype(np.int32)
+    got = K.sdf_chunk_horizons_plain(torch.from_numpy(esc[order]), torch.from_numpy(order),
+                                     chunk, seg, max_steps)
+    if chunk and n > chunk:
+        (chunks,), nc, pad = JCK._to_chunks([jnp.asarray(esc)], chunk)
+        last = np.repeat(np.asarray(chunks.max(axis=1)), chunk)[:n]
+    else:
+        pad, last = 0, np.full(n, esc.max())
+    want = np.minimum(-(-last // seg) * seg, max_steps)
+    assert got.dtype == torch.int32 and got.tolist() == want.tolist()
+    assert got.tolist() == TCK._index_chunk_horizons(torch.from_numpy(esc), chunk, seg,
+                                                     max_steps).tolist()
+    if pad:  # the padded last chunk runs to ray 0's horizon
+        assert int(got[-1]) == max_steps and int(esc[-(n % chunk):].max()) < 12
+
+
+def test_sdf_ckpt_wrapper_takes_the_horizons_in_the_kernel(scene, sdf_scene, monkeypatch):
+    """K17 makes the horizons itself from the JAX chunk size: the wrapper
+    hands its two launches a zeroed word for each chunk's last escape, the
+    effective chunk and an int32 (N,) tensor for pass 2 to write the
+    horizons to, and returns that tensor; given horizons (a chunk's
+    recomputation) go to the kernel as they are.  It refuses a chunk size
+    for a chunk of the rays, and anything else for the horizons.  The
+    grid's device check and the launch are stubbed out, so that the argument
+    checks run on the CPU."""
+    rif = _t(scene[0])
+    sdf, x, v = (_t(a) for a in sdf_scene)
+    n = x.shape[0]
+    order = torch.from_numpy(np.random.default_rng(5).permutation(n).astype(np.int32))
+    launched, made = [], []
+    monkeypatch.setattr(K, "_check_grid", lambda data, name: None)
+    monkeypatch.setattr(K, "_launch_on_grid", lambda name, data, *args: launched.append(
+        (name, args)))
+    horizon = K._horizon
+    monkeypatch.setattr(K, "_horizon", lambda data, n_, words=1: made.append(
+        horizon(data, n_, words)) or made[-1])
+    steps = TCK.variant_steps("sdf", rif.shape, H, DS)
+    for chunk, eff in ((CHUNK, CHUNK), (0, n), (n, n)):
+        launched.clear()
+        *_, hor = K.trace_sdf_ckpt(rif, sdf, H, x, v, DS, steps, SEG, order, chunk)
+        last = made[-1][4]
+        assert last.dtype == torch.int32 and last.shape == (-(-n // eff),) and not bool(last.any())
+        assert hor.dtype == torch.int32 and hor.shape == (n,)
+        assert [a[0] for a in launched] == ["trace_sdf_ckpt"] * 2
+        (_, a1), (_, a2) = launched
+        assert a1[:-1] == a2[:-1] and (a1[-1], a2[-1]) == (1, 2)  # nothing between the passes
+        assert a1[-8:-1] == (last.data_ptr(), None, hor.data_ptr(), n, steps, SEG, eff)
+    given = torch.full((n,), steps, dtype=torch.int32)
+    part = order[:n // 2].contiguous()
+    for o in (order, part):
+        launched.clear()
+        *_, hor = K.trace_sdf_ckpt(rif, sdf, H, x, v, DS, steps, SEG, o, given)
+        assert hor is given and launched[0][1][-7:-5] == (given.data_ptr(), None)
+    with pytest.raises(ValueError, match="a chunk of the rays"):
+        K.trace_sdf_ckpt(rif, sdf, H, x, v, DS, steps, SEG, part, CHUNK)
+    for bad in (-1, True, 2.5, lambda e: e, given[:-1], given.long()):
+        with pytest.raises(ValueError, match="horizons must be"):
+            K.trace_sdf_ckpt(rif, sdf, H, x, v, DS, steps, SEG, order, bad)
 
 
 def test_target_exact_is_the_same_at_every_chunk_size(scene, jax_refs, monkeypatch):

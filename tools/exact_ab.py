@@ -1,4 +1,4 @@
-"""Times the exact gradients' backward kernels of one checkout, for an A/B of two on one card.
+"""Times the sdf kernels and the exact backward kernels of a checkout, for an A/B on one card.
 
 Run from any directory on a machine with a CUDA device and ``nvcc``::
 
@@ -11,14 +11,19 @@ configuration 11's batches (``chip_smoke.variant_scene``: the bench scene,
 warm card, round after round, K18 ``backtrace_plane_exact``, K6
 ``backtrace_exact`` on the target's states and K19 ``backtrace_sdf_exact``,
 each from the checkpoints its forward kernel wrote (as ``trace_*_exact``
-launches them).  Then it times ``tracer.trace_plane_exact``,
-``trace_target_exact`` and ``trace_sdf_exact`` forward and backward on
-2^20 rays (four chunks of ``ANRT_EXACT_CHUNK``'s default, each recomputing
-its checkpoints), on the host clock after a warm-up call.  It uses only
-functions of ``chip_smoke`` that checkouts from before K18's PairRun have
-too, so that one call can run a parent and a change in turn (parent,
-change, change, parent).  Prints the card and
-one JSON line.  No path of the port runs it.
+launches them), K17 ``trace_sdf_ckpt`` (both passes, as
+``chip_smoke.exact_forward_kernel`` calls it), K13 ``trace_sdf`` and K14
+``backtrace_sdf`` on the sdf batch (as ``compat.BackSDFTracerC`` launches
+them), and K3 ``backtrace`` on the bench scene's exit states.  Then it
+times, on the host clock after a warm-up call, ``compat.BackSDFTracerC``
+and ``tracer.trace_sdf_exact`` forward and backward on 2^18 and 2^20 rays,
+and ``trace_plane_exact`` and ``trace_target_exact`` on 2^20 rays (four
+chunks of ``ANRT_EXACT_CHUNK``'s default, each recomputing its
+checkpoints).  It uses only functions of ``chip_smoke`` and signatures of
+the wrappers that checkouts from before K18's PairRun and K17's horizons in
+the kernel have too, so that one call can run a parent and a change in turn
+(parent, change, change, parent).  Prints the card and one JSON line.  No
+path of the port runs it.
 """
 
 from __future__ import annotations
@@ -43,8 +48,10 @@ def main(argv=None):
     import torch
 
     import chip_smoke as CS  # exits without a CUDA device
-    from adjointnonlinearraytracing_tpu_torch import tracer
+    from adjointnonlinearraytracing_tpu_torch import compat, tracer
+    from adjointnonlinearraytracing_tpu_torch.fields import grid as G
     from adjointnonlinearraytracing_tpu_torch.kernels import build
+    from adjointnonlinearraytracing_tpu_torch.kernels import wrappers as K
     from adjointnonlinearraytracing_tpu_torch.tracer import order as O
 
     if Path(CS.__file__).resolve().parent != root:
@@ -74,6 +81,24 @@ def main(argv=None):
             return out
 
         runs[f"{name} ({variant})"] = run
+        if variant == "sdf":
+            runs["trace_sdf_ckpt (K17)"] = (lambda case=case, order=order:
+                                            CS.exact_forward_kernel(case, order, True))
+    # K13 and K14 as BackSDFTracerC launches them, K3 on the bench scene
+    rif, h, ds, sdf, xs, vs = (s[k] for k in ("rif", "h", "ds", "sdf", "xs", "vs"))
+    tol = G.snap_tol(rif.dtype)
+    order_s = O.ray_order(xs, vs, rif.shape, h)
+    xt, vt = K.trace_sdf(rif, sdf, h, xs, vs, ds, s["ns"], order_s)
+    centre = torch.full((3,), s["span"] / 2, dtype=rif.dtype, device="cuda")
+    dxs, dvs = (2.0 * (xt - centre)).contiguous(), torch.ones_like(vt)
+    runs["trace_sdf (K13)"] = lambda: K.trace_sdf(rif, sdf, h, xs, vs, ds, s["ns"], order_s)
+    runs["backtrace_sdf (K14)"] = lambda: K.backtrace_sdf(rif, sdf, h, xt, vt, dxs, dvs, ds,
+                                                          s["nb"], tol, order_s)
+    order_b = O.ray_order(s["x0"], s["v0"], rif.shape, h)
+    xtb, vtb = K.trace_fwd(rif, h, s["x0"], s["v0"], ds, s["nf"], order_b)
+    dxb, dvb = (2.0 * (xtb - s["target"])).contiguous(), torch.ones_like(vtb)
+    runs["backtrace (K3, bench)"] = lambda: K.backtrace(rif, h, xtb, vtb, dxb, dvb, ds, s["nb"],
+                                                        tol, order_b)
     times = {name: [] for name in runs}
     for _ in range(args.rounds):
         for name, fn in runs.items():
@@ -82,29 +107,35 @@ def main(argv=None):
     del runs
 
     s_big = CS.variant_scene(CS.RES, CS.EXACT_CHUNKED_RAYS, "float32")
-    calls = {"plane": lambda r, sc: tracer.trace_plane_exact(
+    calls = {"trace_plane_exact": lambda r, sc: tracer.trace_plane_exact(
                  r, sc["x0"], sc["v0"], sc["pln_o"][0], sc["pln_d"][0], sc["h"], sc["ds"]),
-             "target": lambda r, sc: tracer.trace_target_exact(
+             "trace_target_exact": lambda r, sc: tracer.trace_target_exact(
                  r, sc["x0"], sc["v0"], sc["tgt"][0], sc["h"], sc["ds"]),
-             "sdf": lambda r, sc: tracer.trace_sdf_exact(
+             "trace_sdf_exact": lambda r, sc: tracer.trace_sdf_exact(
+                 r, sc["sdf"], sc["xs"], sc["vs"], sc["h"], sc["ds"]),
+             "BackSDFTracerC": lambda r, sc: compat.BackSDFTracerC(
                  r, sc["sdf"], sc["xs"], sc["vs"], sc["h"], sc["ds"])}
     big = {}
-    for variant, fn in calls.items():
-        anchor = CS.exact_case(s_big, variant)["anchor"]
-        spans = []
-        for _ in range(3):  # a warm-up call, then two timed
-            r = s_big["rif"].detach().clone().requires_grad_(True)
-            torch.cuda.synchronize()
-            t0 = time.time()
-            out = fn(r, s_big)
-            (((out[0] - anchor) ** 2).sum() + out[1].sum()).backward()
-            torch.cuda.synchronize()
-            spans.append(1e3 * (time.time() - t0))
-        big[f"trace_{variant}_exact 2^20"] = spans[1:]
+    for sc, label in ((s, "2^18"), (s_big, "2^20")):
+        for name, fn in calls.items():
+            if label == "2^18" and "sdf" not in name.lower():
+                continue
+            variant = next((v for v in ("plane", "target") if v in name), "sdf")
+            anchor = CS.exact_case(sc, variant)["anchor"]
+            spans = []
+            for _ in range(3):  # a warm-up call, then two timed
+                r = sc["rif"].detach().clone().requires_grad_(True)
+                torch.cuda.synchronize()
+                t0 = time.time()
+                out = fn(r, sc)
+                (((out[0] - anchor) ** 2).sum() + out[1].sum()).backward()
+                torch.cuda.synchronize()
+                spans.append(1e3 * (time.time() - t0))
+            big[f"{name} {label}"] = spans[1:]
     card = CS.smi_line()
     print(card)
     line = json.dumps({"root": str(root), "card": card, "rounds": args.rounds,
-                       "reps": args.reps, "ms": ms, "all": times, "api_2^20_ms": big})
+                       "reps": args.reps, "ms": ms, "all": times, "api_ms": big})
     if args.out:
         Path(args.out).parent.mkdir(parents=True, exist_ok=True)
         with open(args.out, "a") as f:
