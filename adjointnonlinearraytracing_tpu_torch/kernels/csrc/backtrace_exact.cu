@@ -66,8 +66,9 @@
 // multiply-adds (K18 3.5 %, K19 4.5 % faster, for a second copy of that
 // arithmetic); K6's corner cache, n and grad n kept per
 // replayed step, stretches of 16 steps, a kernel held to 4 blocks an SM
-// (tools/k6_designs.py).  The order of the adds varies from run to
-// run, so the gradient is reproducible to rounding only, not bitwise.
+// (PERF.md keeps the numbers, git the design tool).  The order of the adds
+// varies from run to run, so the gradient is reproducible to rounding only,
+// not bitwise.
 //
 // K18 backtrace_plane_exact and K19 backtrace_sdf_exact are the same ray
 // under the plane's and the sdf's rule (rules.cuh), replacing

@@ -12,10 +12,12 @@
 // kFixup: a ray that never escaped reports its last x, and its capture step
 // starts at max_steps (c0); without it, at 0 (a ray that is never captured
 // returns its start and has no gradient).  kHorizon: escaped rays step on to
-// a horizon (a second launch), while continues(inside) holds, from the state
+// a horizon (a second launch), while continues() holds, from the state
 // resume(i) rebuilds.  kOwnStep: the rule takes the whole step (step(), after
 // enter() at the ray's first position), not forward_step and then inside();
-// rule_step() and rule_enter() below pick.
+// rule_step() and rule_enter() below pick.  continues(r, x, v, inside) says
+// whether pass 2 steps an escaped ray on from (x, v): the sdf's while it is
+// inside, the target's until it can come no closer (TargetRule).
 #pragma once
 
 #include "trilinear.cuh"
@@ -52,7 +54,7 @@ struct PlaneRule {  // K11, K15, K18
   __device__ __forceinline__ bool inside(Ray& r, const T x[3], bool, bool in_grid) const {
     const T past = (x[0] - r.o[0]) * r.d[0] + (x[1] - r.o[1]) * r.d[1] +
                    (x[2] - r.o[2]) * r.d[2];
-    return in_grid && !(past > static_cast<T>(0));
+    return in_grid & !(past > static_cast<T>(0));
   }
   __device__ __forceinline__ bool capture(Ray&, const T*, bool cross) const { return cross; }
   __device__ __forceinline__ void finish(const Ray&, int i, bool esc) const { miss[i] = !esc; }
@@ -94,7 +96,25 @@ struct TargetRule {  // K12, K16
     return closer;
   }
   __device__ __forceinline__ void finish(const Ray& r, int i, bool) const { d2[i] = r.d2; }
-  __device__ __forceinline__ bool continues(bool) const { return true; }
+  // Pass 2's rays have escaped: outside the grid, moving away on some axis,
+  // their eval masked, so v stays fixed and each coordinate moves
+  // monotonically (x + ds*v rounds to nearest, which is monotone).  Once
+  // every axis recedes from the target or stands still (x_k >= t_k with
+  // v_k >= 0, or x_k <= t_k with v_k <= 0), no |x_k - t_k| shrinks again, and
+  // dist2 (three rounded squares summed in a fixed order) is monotone in
+  // each, so no later step is strictly closer than this one, which capture()
+  // has already seen: the ray's outputs are final, and the backward pass
+  // reads no checkpoint row past its last capture.  The ray stops there
+  // (wrappers.target_retired_plain is the plain twin).
+  __device__ __forceinline__ bool continues(const Ray& r, const T x[3], const T v[3],
+                                            bool) const {
+    bool retired = true;
+#pragma unroll
+    for (int k = 0; k < 3; ++k)
+      retired = retired & (((x[k] >= r.tgt[k]) & (v[k] >= static_cast<T>(0))) |
+                           ((x[k] <= r.tgt[k]) & (v[k] <= static_cast<T>(0))));
+    return !retired;
+  }
 };
 
 // The cell of the point the next step evaluates at, left there by the step
@@ -184,7 +204,9 @@ struct SdfRule {  // K13, K17, K19
   }
   __device__ __forceinline__ bool capture(Ray&, const T*, bool cross) const { return cross; }
   __device__ __forceinline__ void finish(const Ray&, int, bool) const {}
-  __device__ __forceinline__ bool continues(bool inside) const { return inside; }
+  __device__ __forceinline__ bool continues(const Ray&, const T*, const T*, bool inside) const {
+    return inside;
+  }
 };
 
 // The ray's first position x (inside: the rule's "inside" there), before its

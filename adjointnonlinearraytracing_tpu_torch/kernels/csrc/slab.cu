@@ -158,7 +158,7 @@ __global__ void slab_trace_phase_kernel(Grid<T> g, T ds, const int* __restrict__
     for (; k < inner && !esc && cnt < max_steps && sw.holds(cell_row(g, x)); ++k, ++cnt) {
       const bool cur_inside = rule.inside(r, x, inside, forward_step(g, ds, x, v, inside));
       const bool cross = inside && !cur_inside;
-      esc = esc || cross || escaped(g, x, v, static_cast<T>(1));
+      esc = esc | cross | escaped(g, x, v, static_cast<T>(1));
       if (rule.capture(r, x, cross)) {
         store3(st.xt, i, x);
         store3(st.vt, i, v);

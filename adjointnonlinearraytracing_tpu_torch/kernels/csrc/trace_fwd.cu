@@ -34,13 +34,15 @@
 // the capture step c (max_steps if it never crossed out) and a code: 0 never
 // escaped, 1 captured, 2 escaped without ever being inside (nothing to
 // differentiate).  The checkpoints are laid out (nseg, 7, n_rays), field k of
-// thread i at [s][k][i], so a warp's store of one field is one 128-byte line;
-// the exit state is K2's bit for bit.  The extra bytes are 28 a ray and
-// segment in f32, a few per cent of a step's work.  A cache of the current
-// cell's 8 corner values (read once a cell, not once a step) took 2-3 % off
-// at the fuel trainer's coarse stages and added as much at the fine ones and
-// on the bench scene (8 more registers), so K5 reads them at every step, as
-// K2 does (tools/k6_designs.py, PERF.md).
+// thread i at [s][k][i], so a warp's store of one field is one 128-byte line,
+// stored evict-first at the head of each segment by a loop over segments
+// around the step loop (step_with_rows); the exit state is K2's bit for bit.
+// The extra bytes are 28 a ray and segment in f32, a few per cent of a
+// step's work.  A cache of the current cell's 8 corner values (read once a
+// cell, not once a step) took 2-3 % off at the fuel trainer's coarse stages
+// and added as much at the fine ones and on the bench scene (8 more
+// registers), so K5 reads them at every step, as K2 does (PERF.md keeps the
+// numbers; the design tool that measured them is in git).
 //
 // K11 trace_plane, K12 trace_target and K13 trace_sdf are the same loop under
 // another stop and capture rule (a `Rule`, below), replacing the variants of
@@ -62,7 +64,9 @@
 //     (trace_horizon_kernel) steps each escaped ray on to S, step by step
 //     with the same step (so the rounding is the plain version's, not a
 //     closed form), capturing as before.  Pass 2's steps are straight lines:
-//     6 + 8 flops a step and no grid read.
+//     6 + 8 flops a step and no grid read.  A ray stops before S once every
+//     axis recedes from its target or stands still (TargetRule::continues):
+//     no later step can then come strictly closer, so its outputs are final.
 //   * K13 (SdfRule): "inside" at the new x is sdf < 0, the sdf read under the
 //     previous inside (an outside ray reads 0 and stays outside); escape is
 //     tested on the grid; no fix-up.  A step takes one stencil (rules.cuh,
@@ -90,7 +94,10 @@
 //   * K16: the batch's last escape step, as K12 (the JAX per-step gate
 //     ~all(esc), or the whole batch's stop step when it is chunked); the
 //     backward pass of a chunk recomputes its checkpoints with `last` set to
-//     the batch's beforehand (pass 1's atomicMax then leaves it);
+//     the batch's beforehand (pass 1's atomicMax then leaves it).  A ray
+//     stops where K12's does: its capture step is then final, and the rows
+//     after it, which it no longer writes, are rows the backward pass never
+//     reads (it reads those below the capture step);
 //   * K17: per ray, the first segment boundary at or after the last escape
 //     of the ray's chunk of the JAX package's ray chunks (the whole batch
 //     unchunked; the padded last chunk holds copies of ray 0), capped at
@@ -156,16 +163,58 @@ __device__ __forceinline__ void take_last(const Horizon<T>& hz, int i, int step)
   if (i == 0 && hz.pad_word >= 0) atomicMax(hz.last + hz.pad_word, step);
 }
 
+// How the forward loop stores its checkpoint rows and what it reports of
+// itself.  The rows are stored evict-first (__stcs): no pass reads them
+// back, and the 8.4 MB grid the steps read stays in L1 and L2.
+// tools/fwd_designs.cu derives the designs it measures from this one (plain
+// stores, clock64() cycles a ray).
+struct FwdLoop {
+  template <typename T>
+  static __device__ __forceinline__ void store(T* p, T v) { __stcs(p, v); }
+  static __device__ __forceinline__ long long clock_start() { return 0; }
+  // slot t took `steps` steps since clock_start() read t0
+  static __device__ __forceinline__ void clock_stop(int, long long, int) {}
+};
+
 // The checkpoint (x, v, inside) of one ray: field k at ck[k * field].
-template <typename T>
+template <typename Opt, typename T>
 __device__ __forceinline__ void store_ckpt(T* ck, size_t field, const T x[3], const T v[3],
                                            bool inside) {
   const T row[7] = {x[0], x[1], x[2], v[0], v[1], v[2], static_cast<T>(inside ? 1 : 0)};
 #pragma unroll
-  for (int k = 0; k < 7; ++k) ck[k * field] = row[k];
+  for (int k = 0; k < 7; ++k) Opt::store(ck + k * field, row[k]);
 }
 
-template <typename T, bool kCkpt, typename Rule>
+// The steps [step, last) of one ray while go(step) holds; body(step) takes
+// one step.  With kRows, the checkpoint row of each segment of seg steps is
+// stored at its head (ck: the column of the first head at or after `step`,
+// null for none) by a loop over segments around a loop of at most seg
+// steps, so that no row counter or test stays in the step loop (a countdown
+// to the next row in the step loop took 3.6 % longer, PERF.md).  Returns
+// the step it stopped at.
+template <bool kRows, typename Opt, typename T, typename Go, typename Body>
+__device__ __forceinline__ int step_with_rows(int step, int last, int seg, T* ck, size_t field,
+                                              const T x[3], const T v[3], const bool& inside,
+                                              Go go, Body body) {
+  if constexpr (kRows) {
+    int end = (step + seg - 1) / seg * seg;  // the first head at or after step
+    while (true) {
+      if (end > last) end = last;
+      for (; step < end && go(step); ++step) body(step);
+      if (!(step < last && go(step))) return step;
+      if (ck != nullptr) {
+        store_ckpt<Opt>(ck, field, x, v, inside);
+        ck += 7 * field;
+      }
+      end = step + seg;
+    }
+  } else {
+    for (; step < last && go(step); ++step) body(step);
+    return step;
+  }
+}
+
+template <typename T, bool kCkpt, typename Rule, typename Opt = FwdLoop>
 __global__ void trace_fwd_kernel(Grid<T> g, T ds, const T* __restrict__ x0,
                                  const T* __restrict__ v0, const int* __restrict__ order,
                                  T* __restrict__ xt_out, T* __restrict__ vt_out,
@@ -174,6 +223,7 @@ __global__ void trace_fwd_kernel(Grid<T> g, T ds, const T* __restrict__ x0,
                                  int max_steps, int seg) {
   const int t = blockIdx.x * blockDim.x + threadIdx.x;
   if (t >= n_rays) return;
+  const long long t0 = Opt::clock_start();
   const int i = ray_of(order, t);
   T x[3], v[3], xt[3], vt[3];
   load3(x0, i, x);
@@ -186,25 +236,10 @@ __global__ void trace_fwd_kernel(Grid<T> g, T ds, const T* __restrict__ x0,
   bool esc = false;
   int c = Rule::c0(max_steps);
   bool captured = false;
-  // this thread's column of the next segment's checkpoints (field k at
-  // ck[k * n_rays]), and the steps until it starts
-  T* ck = ckpts == nullptr ? nullptr : ckpts + t;
-  const size_t field = static_cast<size_t>(n_rays);
-  int until_ck = 0;
-
-  int step = 0;
-  for (; step < max_steps && !esc; ++step) {
-    if (kCkpt && ck != nullptr) {
-      if (until_ck == 0) {
-        store_ckpt(ck, field, x, v, inside);
-        ck += 7 * field;
-        until_ck = seg;
-      }
-      --until_ck;
-    }
+  auto body = [&](int step) {
     const bool cur_inside = rule_step(g, rule, r, ds, x, v, inside);
     const bool cross = inside && !cur_inside;
-    esc = esc || cross || escaped(g, x, v, static_cast<T>(1));
+    esc = esc | cross | escaped(g, x, v, static_cast<T>(1));
     if (rule.capture(r, x, cross)) {
 #pragma unroll
       for (int k = 0; k < 3; ++k) { xt[k] = x[k]; vt[k] = v[k]; }
@@ -212,7 +247,13 @@ __global__ void trace_fwd_kernel(Grid<T> g, T ds, const T* __restrict__ x0,
       captured = true;
     }
     inside = cur_inside;
-  }
+  };
+  // this thread's column of the checkpoints (field k of row s at
+  // ckpts[(s * 7 + k) * n_rays + t])
+  T* ck = kCkpt && ckpts != nullptr ? ckpts + t : nullptr;
+  const int step = step_with_rows<kCkpt, Opt>(0, max_steps, seg, ck, static_cast<size_t>(n_rays),
+                                              x, v, inside, [&](int) { return !esc; }, body);
+  Opt::clock_stop(t, t0, step);
   if constexpr (Rule::kHorizon) {
     store3(hz.x, t, x);
     store3(hz.v, t, v);
@@ -238,12 +279,14 @@ __global__ void trace_fwd_kernel(Grid<T> g, T ds, const T* __restrict__ x0,
 }
 
 // Pass 2 of a horizon rule (K12, K13; K16, K17 with kCkpt): each escaped ray
-// that the rule continues steps on from where pass 1 left it to its horizon
-// (Horizon::take), with the rule's step and capture, and rewrites its
+// steps on from where pass 1 left it to its horizon (Horizon::take) while
+// the rule continues it (the sdf's while inside, the target's until no step
+// can come closer), with the rule's step and capture, and rewrites its
 // outputs; with kCkpt also the checkpoint of each segment it starts (null
-// ckpts: none), its capture step and code.  Every ray here has escaped (one that never did
-// took max_steps).
-template <typename T, bool kCkpt, typename Rule>
+// ckpts: none), its capture step and code.  A ray the rule does not continue
+// from its first state keeps what pass 1 wrote.  Every ray here has escaped
+// (one that never did took max_steps).
+template <typename T, bool kCkpt, typename Rule, typename Opt = FwdLoop>
 __global__ void trace_horizon_kernel(Grid<T> g, T ds, const int* __restrict__ order,
                                      T* __restrict__ xt_out, T* __restrict__ vt_out,
                                      int* __restrict__ c_out, unsigned char* __restrict__ code_out,
@@ -251,41 +294,31 @@ __global__ void trace_horizon_kernel(Grid<T> g, T ds, const int* __restrict__ or
                                      int seg) {
   const int t = blockIdx.x * blockDim.x + threadIdx.x;
   if (t >= n_rays) return;
-  int step = hz.steps[t];
+  const long long t0 = Opt::clock_start();
+  const int first = hz.steps[t];
   bool inside = hz.inside[t];
   const int i = ray_of(order, t);
   const int last = hz.take(i);
-  if (step >= last || !rule.continues(inside)) return;
+  if (first >= last) return;
   T x[3], v[3], xt[3], vt[3];
   load3(hz.x, t, x);
   load3(hz.v, t, v);
+  typename Rule::Ray r = rule.resume(i);
+  if (!rule.continues(r, x, v, inside)) return;
   load3(xt_out, i, xt);
   load3(vt_out, i, vt);
-  typename Rule::Ray r = rule.resume(i);
   rule_enter(g, rule, r, x, inside);
   int c = 0;
   bool captured = false;
-  // the column of the first segment that starts at or after `step`
-  const size_t field = static_cast<size_t>(n_rays);
+  // the column of the first segment that starts at or after `first`
   T* ck = nullptr;
-  int until_ck = 0;
   if (kCkpt) {
     c = c_out[i];
     captured = code_out[i] == 1;
-    if (ckpts != nullptr) {
-      ck = ckpts + t + static_cast<size_t>((step + seg - 1) / seg) * 7 * field;
-      until_ck = (seg - step % seg) % seg;
-    }
+    if (ckpts != nullptr)
+      ck = ckpts + t + static_cast<size_t>((first + seg - 1) / seg) * 7 * n_rays;
   }
-  for (; step < last && rule.continues(inside); ++step) {
-    if (kCkpt && ck != nullptr) {
-      if (until_ck == 0) {
-        store_ckpt(ck, field, x, v, inside);
-        ck += 7 * field;
-        until_ck = seg;
-      }
-      --until_ck;
-    }
+  auto body = [&](int step) {
     const bool cur_inside = rule_step(g, rule, r, ds, x, v, inside);
     if (rule.capture(r, x, inside && !cur_inside)) {
 #pragma unroll
@@ -294,7 +327,11 @@ __global__ void trace_horizon_kernel(Grid<T> g, T ds, const int* __restrict__ or
       captured = true;
     }
     inside = cur_inside;
-  }
+  };
+  const int step = step_with_rows<kCkpt, Opt>(
+      first, last, seg, ck, static_cast<size_t>(n_rays), x, v, inside,
+      [&](int) { return rule.continues(r, x, v, inside); }, body);
+  Opt::clock_stop(t, t0, step - first);
   store3(xt_out, i, xt);
   store3(vt_out, i, vt);
   rule.finish(r, i, true);
@@ -307,20 +344,20 @@ __global__ void trace_horizon_kernel(Grid<T> g, T ds, const int* __restrict__ or
 // One pass of a variant: pass 1 (or the only one) with trace_fwd_kernel,
 // pass 2 with trace_horizon_kernel; kCkpt with c, code and ckpts (may be
 // null) as K5 takes them.
-template <typename T, bool kCkpt, typename Rule>
+template <typename T, bool kCkpt, typename Rule, typename Opt = FwdLoop>
 int launch_variant(const Grid<T>& g, double ds, const void* x0, const void* v0,
                    const int* order, void* xt, void* vt, void* c, void* code, void* ckpts,
                    const Rule& rule, const Horizon<T>& hz, int n_rays, int max_steps, int seg,
                    int pass, cudaStream_t stream) {
   if (n_rays > 0) {
     if (pass == 1) {
-      trace_fwd_kernel<T, kCkpt, Rule><<<blocks_for(n_rays), kThreads, 0, stream>>>(
+      trace_fwd_kernel<T, kCkpt, Rule, Opt><<<blocks_for(n_rays), kThreads, 0, stream>>>(
           g, static_cast<T>(ds), static_cast<const T*>(x0), static_cast<const T*>(v0), order,
           static_cast<T*>(xt), static_cast<T*>(vt), static_cast<int*>(c),
           static_cast<unsigned char*>(code), static_cast<T*>(ckpts), rule, hz, n_rays,
           max_steps, seg);
     } else if constexpr (Rule::kHorizon) {
-      trace_horizon_kernel<T, kCkpt, Rule><<<blocks_for(n_rays), kThreads, 0, stream>>>(
+      trace_horizon_kernel<T, kCkpt, Rule, Opt><<<blocks_for(n_rays), kThreads, 0, stream>>>(
           g, static_cast<T>(ds), order, static_cast<T*>(xt), static_cast<T*>(vt),
           static_cast<int*>(c), static_cast<unsigned char*>(code), static_cast<T*>(ckpts), rule,
           hz, n_rays, seg);
@@ -607,4 +644,39 @@ extern "C" int anrt_trace_sdf(int is_double, const void* rif, int W, int H, int 
   return anrt_trace_sdf_ckpt(is_double, rif, W, H, D, h, ds, sdf, x0, v0, order, xt, vt, nullptr,
                              nullptr, nullptr, hx, hv, steps, inside, last, nullptr, nullptr,
                              n_rays, max_steps, 1, 0, pass, stream);
+}
+
+namespace anrt {
+
+// div_h held to the operator for every f32 dividend: thread u of the grid's
+// 2^32 takes the dividend with the bits u; a difference (NaN against NaN is
+// none) adds one to count[0] and writes its bits to first[] while it has room.
+__global__ void div_h_check_kernel(Grid<float> g, unsigned long long* count, unsigned* first,
+                                   int n_first) {
+  const unsigned long long n = 1ULL << 32;
+  for (unsigned long long u = blockIdx.x * static_cast<unsigned long long>(blockDim.x) +
+                              threadIdx.x;
+       u < n; u += static_cast<unsigned long long>(gridDim.x) * blockDim.x) {
+    const float a = __uint_as_float(static_cast<unsigned>(u));
+    const float want = a / g.h;
+    const float got = div_h(g, a);
+    const bool same = isnan(want) ? isnan(got) : __float_as_uint(got) == __float_as_uint(want);
+    if (!same) {
+      const unsigned long long k = atomicAdd(count, 1ULL);
+      if (k < static_cast<unsigned long long>(n_first)) first[k] = static_cast<unsigned>(u);
+    }
+  }
+}
+
+}  // namespace anrt
+
+// The stencil's division (trilinear.cuh div_h) against the operator over all
+// 2^32 f32 dividends at the f32 spacing h: count (one uint64, zeroed) gets
+// the dividends whose quotients differ, first (n_first uint32) the bits of
+// the first ones.  A check, launched by chip_smoke.py, by no path of the port.
+extern "C" int anrt_div_h_check(double h, void* count, void* first, int n_first, void* stream) {
+  const auto g = anrt::make_grid<float>(nullptr, 2, 2, 2, h);
+  anrt::div_h_check_kernel<<<132 * 16, 256, 0, static_cast<cudaStream_t>(stream)>>>(
+      g, static_cast<unsigned long long*>(count), static_cast<unsigned*>(first), n_first);
+  return static_cast<int>(cudaGetLastError());
 }

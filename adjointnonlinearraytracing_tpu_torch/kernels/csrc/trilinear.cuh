@@ -40,6 +40,8 @@ struct Grid {
   T inv_h;         // 1/h, rounded from double as the plain version does
   T inv_h2;        // 1/(h*h), likewise
   T hi[3];         // upper face per axis: (res - 1) * h in T
+  double h64;      // h in f64, and its reciprocal rounded to f64: div_h's divisor
+  double rcp64;
 };
 
 template <typename T>
@@ -56,7 +58,43 @@ __host__ inline Grid<T> make_grid(const void* data, int W, int H, int D, double 
   g.hi[0] = static_cast<T>(W - 1) * g.h;
   g.hi[1] = static_cast<T>(H - 1) * g.h;
   g.hi[2] = static_cast<T>(D - 1) * g.h;
+  g.h64 = static_cast<double>(g.h);
+  g.rcp64 = 1.0 / g.h64;
   return g;
+}
+
+// a / g.h, rounded to nearest as the operator rounds it, for every a.  f64
+// grids take the operator (their kernels serve checks).  For f32 the
+// operator compiles to a fast path, a check of its operands (FCHK) and a
+// call to a slow path in a branch region of its own, three a step in the
+// stencil; the scheduler does not reach across those regions (as in the
+// cable stepper, cylinder.cuh div_rn).  Here the quotient is taken in f64
+// with no branch: q = a * RN(1/h) is within an ulp of a/h, r = h*q - a is exact
+// and q - RN(1/h)*r is a/h rounded to f64 (Markstein's correction; a and h
+// carry 24 bits, far inside f64's range, so nothing under- or overflows);
+// rounding that to f32 gives the f32 quotient, since f64 holds more than
+// twice f32's bits plus two (a double rounding of a quotient is then
+// innocuous, subnormal and overflowing quotients included).  Signed zeros
+// come out with the dividend's sign; +-inf passes through a select (h*inf
+// - inf would make NaN); NaN gives NaN.  chip_smoke.py holds it to the
+// operator on the card for every one of the 2^32 dividends at each spacing
+// its scenes use.
+template <typename T>
+__device__ __forceinline__ T div_h(const Grid<T>& g, T a) {
+  return a / g.h;
+}
+
+template <>
+__device__ __forceinline__ float div_h<float>(const Grid<float>& g, float a) {
+#ifdef ANRT_DIV_OPERATOR  // the operator, as a yardstick (tools/fwd_designs.py)
+  return a / g.h;
+#else
+  const double ad = a;
+  const double q = ad * g.rcp64;
+  const double r = fma(g.h64, q, -ad);
+  const float f = static_cast<float>(fma(-g.rcp64, r, q));
+  return isinf(a) ? a : f;
+#endif
 }
 
 // The 8 corners of the cell that holds p: flat indices idx[a][b][c]
@@ -79,7 +117,7 @@ __device__ __forceinline__ void corner_cells(const Grid<T>& g, const T p[3], int
   const int res[3] = {g.W, g.H, g.D};
 #pragma unroll
   for (int k = 0; k < 3; ++k) {
-    const T pm = p[k] / g.h;
+    const T pm = div_h(g, p[k]);
     const T posf = floor(pm);
     w0[k] = pm - posf;  // may leave [0, 1] off-grid
     // clamp in floating point first so the cast to int cannot overflow
@@ -120,7 +158,7 @@ __device__ __forceinline__ Stencil<T> stencil(const Grid<T>& g, const T p[3]) {
 // are the voxel rows cz-1 and cz, clamped.
 template <typename T>
 __device__ __forceinline__ int cell_row(const Grid<T>& g, const T p[3]) {
-  const T posf = floor(p[2] / g.h);
+  const T posf = floor(div_h(g, p[2]));
   const T lo = static_cast<T>(-1), hi = static_cast<T>(g.D - 1);
   return static_cast<int>(posf < lo ? lo : (posf > hi ? hi : posf)) + 1;
 }
@@ -305,11 +343,15 @@ struct SplatRun {
   }
 };
 
-// p inside [0, hi) on every axis.
+// p inside [0, hi) on every axis.  Here and in escaped() the tests are
+// combined with & and |, not && and ||: every one is cheap and has no side
+// effect, and a short-circuit compiles to branches, each in a region of its
+// own that the scheduler does not reach across (four of them cost the
+// forward step loop 9-11 %, PERF.md).
 template <typename T>
 __device__ __forceinline__ bool inbounds(const Grid<T>& g, const T p[3]) {
-  return p[0] >= 0 && p[0] < g.hi[0] && p[1] >= 0 && p[1] < g.hi[1] && p[2] >= 0 &&
-         p[2] < g.hi[2];
+  return (p[0] >= 0) & (p[0] < g.hi[0]) & (p[1] >= 0) & (p[1] < g.hi[1]) & (p[2] >= 0) &
+         (p[2] < g.hi[2]);
 }
 
 // Outside the grid and moving away, on any axis; sign = -1 tests against -v.
@@ -320,7 +362,7 @@ __device__ __forceinline__ bool escaped(const Grid<T>& g, const T p[3], const T 
 #pragma unroll
   for (int k = 0; k < 3; ++k) {
     const T vk = sign * v[k];
-    esc = esc || (p[k] < 0 && vk < 0) || (p[k] >= g.hi[k] && vk > 0);
+    esc = esc | ((p[k] < 0) & (vk < 0)) | ((p[k] >= g.hi[k]) & (vk > 0));
   }
   return esc;
 }
@@ -395,7 +437,7 @@ __device__ __forceinline__ void snap_to_nodes(const Grid<T>& g, const T p[3], T 
                                               T out[3]) {
 #pragma unroll
   for (int k = 0; k < 3; ++k) {
-    T pm = p[k] / g.h;
+    T pm = div_h(g, p[k]);
     const T r = rint(pm);  // round half to even, as torch.round
     if (fabs(pm - r) <= tol) pm = r;
     out[k] = pm * g.h;

@@ -71,7 +71,8 @@ K12 ``trace_target``
     target per ray.  An escaped ray goes on (straight) until the batch's last
     ray escapes, so a call is two launches: pass 1 steps each ray to its
     escape and keeps that step's maximum on the card, pass 2 steps the
-    escaped rays on to it; both counted in :data:`LAUNCHES`.
+    escaped rays on to it, each only until it can come no closer
+    (:func:`target_retired_plain`); both counted in :data:`LAUNCHES`.
 K13 ``trace_sdf``
     replaces ``tracer/paired.py::trace_sdf``: "inside" is ``sdf < 0`` on a
     second grid; the same two passes as K12, pass 2 stepping only the rays
@@ -96,7 +97,9 @@ K15 ``trace_plane_ckpt``
     one pass, writing K5's checkpoints, capture step and code.
 K16 ``trace_target_ckpt``
     the same (target): K12's two passes, pass 2 writing the checkpoints of
-    the steps an escaped ray takes on to the batch's horizon.
+    the steps an escaped ray takes on to the batch's horizon, up to where
+    K12's stops it (its rows after that are rows the backward pass never
+    reads).
 K17 ``trace_sdf_ckpt``
     the same (sdf): K13's two passes, pass 2 stepping each ray that is still
     inside the sdf on to its own horizon (given, or its JAX chunk's: pass 1
@@ -804,6 +807,41 @@ def sdf_chunk_horizons_plain(steps: torch.Tensor, order: torch.Tensor, chunk: in
         last[-1] = torch.maximum(last[-1], steps.long()[order.long() == 0][0])
     hor = torch.clamp(-(-last // int(seg)) * int(seg), max=int(max_steps))
     return hor[torch.arange(n, device=steps.device) // chunk].to(torch.int32)
+
+
+def target_retired_plain(x: torch.Tensor, v: torch.Tensor, target: torch.Tensor
+                         ) -> torch.Tensor:
+    """Where K12's and K16's pass 2 stops an escaped ray (``csrc/rules.cuh``,
+    ``TargetRule::continues``), in plain torch: every axis recedes from the
+    target or stands still, ``x_k >= t_k`` with ``v_k >= 0`` or ``x_k <= t_k``
+    with ``v_k <= 0``.  ``x, v, target``: ``(N, 3)``; returns bool ``(N,)``.
+
+    An escaped ray is outside the grid moving away on some axis, so its eval
+    is masked, ``v`` stays fixed and each coordinate moves monotonically (a
+    sum rounded to nearest is monotone).  From a state where this holds no
+    ``|x_k - t_k|`` shrinks again, so the squared distance, three rounded
+    squares summed in a fixed order, is never strictly below its running
+    minimum: nothing of the ray changes after it."""
+    away = ((x >= target) & (v >= 0)) | ((x <= target) & (v <= 0))
+    return away.all(dim=-1)
+
+
+def stencil_div_check(h: float, n_first: int = 16) -> Tuple[int, List[int]]:
+    """The f32 stencil's division (``csrc/trilinear.cuh``, ``div_h``) against
+    the operator on the card, for all 2^32 f32 dividends at the f32 spacing
+    ``h``: how many quotients differ (NaN against NaN is no difference), and
+    the bits of up to ``n_first`` of those dividends.  A check (``chip_smoke.py``
+    runs it); not counted in :data:`LAUNCHES`, which counts the port's kernels."""
+    fn = build.load("trace_fwd").anrt_div_h_check
+    fn.argtypes, fn.restype = [_D, _VP, _VP, _I, _VP], _I
+    count = torch.zeros((1,), dtype=torch.int64, device="cuda")
+    first = torch.zeros((n_first,), dtype=torch.int32, device="cuda")
+    err = fn(float(h), count.data_ptr(), first.data_ptr(), int(n_first),
+             torch.cuda.current_stream().cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"stencil_div_check: kernel launch failed with CUDA error {err}")
+    n = int(count.item())
+    return n, [int(b) & 0xFFFFFFFF for b in first[:min(n, n_first)].tolist()]
 
 
 def trace_sdf_ckpt(data: torch.Tensor, sdf: torch.Tensor, h: float, x0: torch.Tensor,

@@ -199,6 +199,7 @@ timed launch's misses must write back, and is printed once beside it for K1,
 import json
 import math
 import os
+import re
 import subprocess
 import sys
 import time
@@ -2235,12 +2236,15 @@ def variant_scene(res, nrays, dtype, noise=0.0):
     return s
 
 
-def variant_bounds(st, n, rif):
+def variant_bounds(st, n, rif, ret=None):
     """The bounds of K11-K14 on ``n`` rays from the work the plain versions
     counted: each input read once and each output written once, the
-    ray-steps, evaluations, ballistic and late steps and splats."""
+    ray-steps, evaluations, ballistic and late steps and splats.  ``ret``
+    (:func:`target_retirement`): the target's steps after escape that the
+    data needs (up to each ray's retirement), else all (to the horizon)."""
     item, grid = rif.element_size(), rif.numel() * rif.element_size()
     p, t, f, b = (st[k] for k in VARIANT_KERNELS)
+    ballistic = t["ballistic_steps"] if ret is None else ret["ballistic_needed"]
     return {
         "trace_plane": set_bound(dict(
             bytes=6 * n * 3 * item + n + grid,
@@ -2248,7 +2252,7 @@ def variant_bounds(st, n, rif):
                    + p["evals"] * FLOPS_FWD_EVAL))),
         "trace_target": set_bound(dict(
             bytes=(5 * 3 + 1) * n * item + grid,
-            flops=((t["ray_steps"] + t["ballistic_steps"]) * (FLOPS_FWD_STEP + FLOPS_TARGET_D2)
+            flops=((t["ray_steps"] + ballistic) * (FLOPS_FWD_STEP + FLOPS_TARGET_D2)
                    + t["evals"] * FLOPS_FWD_EVAL))),
         "trace_sdf": set_bound(dict(
             bytes=4 * n * 3 * item + 2 * grid,
@@ -2377,9 +2381,15 @@ def variant_check(s, label, tol, times=False):
         if not err <= tol:
             failures.append(f"K3 disagrees with its plain version on the {name}'s exit states "
                             f"at {label}: {err:.3e}")
+    ret = target_retirement(f, x0, v0, tgt, ds, nf)
+    row["target_retirement"] = ret
+    print(f"variants[{label}] K12's {retirement_line(ret)}", flush=True)
+    if ret["closer_after_retirement"] or ret["horizon"] != st["trace_target"]["horizon"]:
+        failures.append(f"the target's retirement rule fails at {label}: {ret}")
     if not times:
         return row, failures
-    bounds = variant_bounds(st, n, rif)  # the sdf's rays are as many (variant_scene)
+    # the sdf's rays are as many (variant_scene)
+    bounds, old = variant_bounds(st, n, rif, ret), variant_bounds(st, n, rif)
     timed = {
         "trace_plane": (lambda: calls["trace_plane"][1](order),
                         lambda: E.trace_plane(f, x0, v0, o, d, ds, nf)),
@@ -2399,7 +2409,15 @@ def variant_check(s, label, tol, times=False):
         row["times"][name] = rec
         print(f"variants[{label}] {name}: {rec['ms']:.4f} ms a call (bound {rec['bound_ms']:.4f}, "
               f"{rec['bound_by']}: {100 * rec['share_of_bound']:.2f} % of it), plain version "
-              f"{rec['plain_ms']:.1f} ms", flush=True)
+              f"{rec['plain_ms']:.1f} ms"
+              + (f"; against the steps to the horizon: bound {old[name]['bound_ms']:.4f}, "
+                 f"{100 * old[name]['bound_ms'] / rec['ms']:.2f} %" if name == "trace_target"
+                 else ""), flush=True)
+    row["passes_ms"] = pass_split(timed["trace_target"][0], "trace_target")
+    row["step_instructions"] = step_instructions()
+    print(f"variants[{label}] trace_target " + ", ".join(
+        f"{k} {v:.4f}" for k, v in row["passes_ms"].items()) + " ms; the step loop's machine "
+          "code an iteration: " + json.dumps(row["step_instructions"]), flush=True)
     return row, failures
 
 
@@ -2594,6 +2612,8 @@ EXACT_CHUNKED_RAYS = 1 << 20
 #: the chunk of the checks' chunked runs: the last chunk is padded (2^18 = 2 x
 #: 100,000 + 62,144; 512 = 5 x 100 + 12)
 EXACT_CHECK_CHUNK = {"float64": 100, "float32": 100_000}
+#: the segment lengths phase x also holds the plane's and the target's rows at
+EXACT_CHECK_SEGS = (48, 7)
 
 
 def exact_case(s, variant, x=None, v=None, tgt=None):
@@ -2620,21 +2640,23 @@ def exact_case(s, variant, x=None, v=None, tgt=None):
 
 def exact_forward_kernel(case, order, store, chunk=0, stop=None):
     """K15, K16 (two launches) or K17 (two) over the rays ``order``: returns
-    (the outputs the API returns, c, code, ckpts, the horizon)."""
+    (the outputs the API returns, c, code, ckpts, the horizon).  The case's
+    ``seg`` where it has one, else :data:`SEG`."""
     rif, h, ds, x, v = case["rif"], case["h"], case["ds"], case["x"], case["v"]
+    seg = case.get("seg", SEG)
     steps = CK.variant_steps(case["variant"], rif.shape, h, ds)
     if case["variant"] == "plane":
         xt, vt, miss, c, code, ck = K.trace_plane_ckpt(rif, h, x, v, case["o"], case["d"], ds,
-                                                       steps, SEG, order, store)
+                                                       steps, seg, order, store)
         return (xt, vt, miss), c, code, ck, None
     if case["variant"] == "target":
         xt, vt, d2, c, code, ck, hz = K.trace_target_ckpt(rif, h, x, v, case["tgt"], ds, steps,
-                                                          SEG, order, store, horizon=stop)
+                                                          seg, order, store, horizon=stop)
         return (xt, vt, d2), c, code, ck, hz
     # the horizons given (a chunk's recomputation), or the kernel's from the
     # JAX chunk size
     horizons = stop if stop is not None else chunk
-    xt, vt, c, code, ck, hz = K.trace_sdf_ckpt(rif, case["sdf"], h, x, v, ds, steps, SEG, order,
+    xt, vt, c, code, ck, hz = K.trace_sdf_ckpt(rif, case["sdf"], h, x, v, ds, steps, seg, order,
                                                horizons, store)
     return (xt, vt), c, code, ck, hz
 
@@ -2642,13 +2664,14 @@ def exact_forward_kernel(case, order, store, chunk=0, stop=None):
 def exact_backward_kernel(case, ck, c, code, dx, dv, order, out, tally=None):
     """K18, K6 or K19 over the rays ``order``, added into ``out`` (K19's in f64)."""
     rif, h, ds = case["rif"], case["h"], case["ds"]
+    seg = case.get("seg", SEG)
     if case["variant"] == "plane":
-        return K.backtrace_plane_exact(rif, h, ck, c, code, case["o"], case["d"], dx, dv, ds, SEG,
+        return K.backtrace_plane_exact(rif, h, ck, c, code, case["o"], case["d"], dx, dv, ds, seg,
                                        order, out=out, tally=tally)
     if case["variant"] == "target":
-        return K.backtrace_exact(rif, h, ck, c, code, dx, dv, ds, SEG, order, out=out,
+        return K.backtrace_exact(rif, h, ck, c, code, dx, dv, ds, seg, order, out=out,
                                  tally=tally)
-    return K.backtrace_sdf_exact(rif, case["sdf"], h, ck, c, code, dx, dv, ds, SEG, order,
+    return K.backtrace_sdf_exact(rif, case["sdf"], h, ck, c, code, dx, dv, ds, seg, order,
                                  out=out, tally=tally)
 
 
@@ -2732,6 +2755,7 @@ def exact_variant_check(case, label, tol, chunk=0, times=False):
     the kernels' times, the plain versions' and the bounds.  Returns the row
     of the report and the failures."""
     variant, rif, h, ds, x, v = (case[k] for k in ("variant", "rif", "h", "ds", "x", "v"))
+    seg = case.get("seg", SEG)
     f = G.GridField(rif, h)
     va = case["vargs"]
     steps = CK.variant_steps(variant, rif.shape, h, ds)
@@ -2746,12 +2770,12 @@ def exact_variant_check(case, label, tol, chunk=0, times=False):
         stop = torch.full((n,), CK._target_stop_step(f, x, v, ds, steps, chunk),
                           dtype=torch.int32, device="cuda")
     elif chunked and variant == "sdf":
-        stop = CK._index_chunk_horizons(esc_steps, chunk, SEG, steps)
+        stop = CK._index_chunk_horizons(esc_steps, chunk, seg, steps)
     fw, bw = {}, {}
     torch.cuda.synchronize()
     t0 = time.time()
     xt_p, vt_p, esc_p, c_p, cap_p, ck_p = CK._forward_with_ckpts(
-        f, x, v, ds, steps, SEG, not chunked, stats=fw, variant=variant, stop=stop, **va)
+        f, x, v, ds, steps, seg, not chunked, stats=fw, variant=variant, stop=stop, **va)
     torch.cuda.synchronize()
     plain_fwd_ms = 1e3 * (time.time() - t0)
     code_p = torch.where(esc_p, torch.where(cap_p, 1, 2), 0).to(torch.uint8)
@@ -2761,7 +2785,7 @@ def exact_variant_check(case, label, tol, chunk=0, times=False):
     got, c_k, code_k, ck_k, hz_k = exact_forward_kernel(case, order, not chunked,
                                                         chunk if chunked else 0)
     horizon_p = (int(esc_steps.max()) if variant == "target" else
-                 CK._index_chunk_horizons(esc_steps, chunk if chunked else 0, SEG, steps))
+                 CK._index_chunk_horizons(esc_steps, chunk if chunked else 0, seg, steps))
     # the outputs' largest difference (the plane's miss as 0/1)
     fwd_abs = max(float((a.double() - b.double()).abs().max()) if a.numel() else 0.0
                   for a, b in zip(got, want))
@@ -2773,7 +2797,7 @@ def exact_variant_check(case, label, tol, chunk=0, times=False):
     elif variant == "sdf":
         state["horizon"] = bool(torch.equal(hz_k, horizon_p))
     live_steps = torch.where(code_p == 2, 0, c_p)[order.long()]
-    need = (torch.arange(-(-steps // SEG), device="cuda")[:, None] * SEG) < live_steps[None, :]
+    need = (torch.arange(-(-steps // seg), device="cuda")[:, None] * seg) < live_steps[None, :]
     rows = int(need.sum())
     if not chunked:
         state["checkpoints"] = bool(torch.equal(ck_k.transpose(1, 2)[need],
@@ -2787,7 +2811,7 @@ def exact_variant_check(case, label, tol, chunk=0, times=False):
     torch.cuda.synchronize()
     t0 = time.time()
     with exact_chunk(chunk):
-        g_p = CK.backtrace_plain(rif, x, v, esc_p, c_p, ck_p, dx, dv, h, ds, SEG,
+        g_p = CK.backtrace_plain(rif, x, v, esc_p, c_p, ck_p, dx, dv, h, ds, seg,
                                  acc_dtype=torch.float64 if f32 else None, stats=bw,
                                  variant=variant, stop=stop, **va)
     torch.cuda.synchronize()
@@ -2831,6 +2855,14 @@ def exact_variant_check(case, label, tol, chunk=0, times=False):
                         f"version counts {bw['flushes']}")
     if not times:
         return row, failures
+    ret = None
+    if variant == "target":  # the steps after escape the data needs: to each ray's retirement
+        ret = target_retirement(f, x, v, case["tgt"], ds, steps)
+        row["target_retirement"] = ret
+        if ret["closer_after_retirement"] or ret["horizon"] != horizon_p:
+            failures.append(f"the target's retirement rule fails at {label}: {ret}")
+        fw_old = dict(fw)
+        fw = dict(fw, ray_steps=fw["ray_steps"] - ret["saved"])
     fwd_b, bwd_b = exact_variant_bounds(case, fw, bw, rows)
     fwd_b.update(ms=time_ms(lambda: exact_forward_kernel(case, order, True), 3),
                  plain_ms=plain_fwd_ms, library_ms=None)
@@ -2842,13 +2874,27 @@ def exact_variant_check(case, label, tol, chunk=0, times=False):
     if variant != "plane":  # two launches: pass 1, the gap between them, pass 2 apart
         fwd_b["passes_ms"] = pass_split(lambda: exact_forward_kernel(case, order, True), fname)
     row["times"] = {fname: fwd_b, bname: bwd_b}
+    extra = ""
+    if variant == "target":
+        old_b = exact_variant_bounds(case, fw_old, bw, rows)[0]["bound_ms"]
+        k12 = pass_split(lambda: K.trace_target(rif, h, x, v, case["tgt"], ds, steps, order),
+                         "trace_target")
+        row["trace_target_passes_ms"] = k12
+        extra = (f"; against the steps to the horizon: bound {old_b:.4f}, "
+                 f"{100 * old_b / fwd_b['ms']:.2f} %; K12 on these rays "
+                 + ", ".join(f"{k} {v_:.4f}" for k, v_ in k12.items()) + " ms; K12's and "
+                 f"{fname}'s pass 2 {retirement_line(ret)}")
+    row["step_instructions"] = {k: v_ for k, v_ in step_instructions().items()
+                                if k.startswith(fname)}
     print(f"exact {variant}[{label}] {fname} {fwd_b['ms']:.4f} ms (bound {fwd_b['bound_ms']:.4f}, "
           f"{fwd_b['bound_by']}: {100 * fwd_b['share_of_bound']:.2f} % of it; plain "
           f"{plain_fwd_ms:.1f} ms), {bname} {bwd_b['ms']:.4f} ms (bound {bwd_b['bound_ms']:.4f}, "
           f"{bwd_b['bound_by']}: {100 * bwd_b['share_of_bound']:.2f} % of it; plain "
           f"{plain_bwd_ms:.1f} ms); checkpoints {ck_k.numel() * ck_k.element_size() / 1e6:.1f} MB"
           + ("; " + fname + " " + ", ".join(f"{k} {v:.4f}" for k, v in fwd_b["passes_ms"].items())
-             + " ms" if "passes_ms" in fwd_b else ""), flush=True)
+             + " ms" if "passes_ms" in fwd_b else "") + extra
+          + f"; the step loop's machine code an iteration: {json.dumps(row['step_instructions'])}",
+          flush=True)
     return row, failures
 
 
@@ -3868,6 +3914,170 @@ def slab_path():
     return rec, launches, times, failures
 
 
+# ---------------------------------------------------------------------------
+# the stencil's f32 division (kernels/csrc/trilinear.cuh, div_h) and what the
+# compiler made of the forward loop
+# ---------------------------------------------------------------------------
+
+def stencil_spacings():
+    """The f32 grid spacings the script's grids use, {h: where}: the bench
+    scene and its 17^3 cut (span 20), configuration 14's 1025^3, every stage
+    of the fuel trainer, ``fuel-128`` and the four drivers, and each span's
+    17^3 grid (the compaction check's, the late sdf crossing's).  The
+    kernels take h as the f32 rounding of ``span / (res - 1)``."""
+    spans = {"bench": (20.0, (RES, 17, SLAB_RES)), "fuel": (fuel_params()["vol_span"],
+                                                           fuel_params()["res_list"]),
+             "fuel-128": (fuel128_params()["vol_span"], fuel128_params()["res_list"])}
+    for name in DRIVERS:
+        p = driver_params(name)
+        spans[name] = (p["vol_span"], p["res_list"])
+    hs = {}
+    for name, (span, res_list) in spans.items():
+        for res in sorted(set(res_list) | {17}):
+            h = float(np.float32(span / (res - 1)))
+            hs.setdefault(h, []).append(f"{name} {res}^3")
+    return hs
+
+
+def stencil_div_checks():
+    """``div_h`` against the operator over all 2^32 f32 dividends at every
+    spacing of :func:`stencil_spacings`, on the card: how many quotients
+    differ and their first dividends.  Expected none (trilinear.cuh's
+    argument); any difference fails the run."""
+    failures, rows = [], {}
+    t0 = time.time()
+    for h, where in stencil_spacings().items():
+        n, first = K.stencil_div_check(h)
+        rows[h] = n
+        if n:
+            failures.append(f"div_h differs from the operator on {n} of the 2^32 f32 dividends "
+                            f"at h = {h!r} ({', '.join(where)}): first dividends "
+                            + ", ".join(f"{np.array(b, dtype=np.uint32).view(np.float32)!r} "
+                                        f"(0x{b:08x})" for b in first))
+    torch.cuda.synchronize()
+    print(f"stencil division: div_h against the operator over all 2^32 f32 dividends at "
+          f"{len(rows)} spacings in {time.time() - t0:.1f} s; quotients that differ: "
+          + ", ".join(f"h = {h:.9g}: {n}" for h, n in rows.items()), flush=True)
+    return failures
+
+
+def demangle(text):
+    """``text`` with the C++ names in it demangled, where the toolkit has cu++filt."""
+    tool = os.path.join(os.path.dirname(build._nvcc()), "cu++filt")
+    names = sorted(set(re.findall(r"_Z\w+", text)), key=len, reverse=True)
+    if not os.path.exists(tool) or not names:
+        return text
+    out = subprocess.run([tool, *names], capture_output=True, text=True)
+    if out.returncode != 0:
+        return text
+    for name, plain in zip(names, out.stdout.splitlines()):
+        text = text.replace(name, plain)
+    return text
+
+
+def sass_functions(lib_path):
+    """``{demangled kernel name: its cuobjdump -sass text}`` of a library."""
+    cuobjdump = os.path.join(os.path.dirname(build._nvcc()), "cuobjdump")
+    sass = subprocess.run([cuobjdump, "-sass", str(lib_path)], capture_output=True, text=True,
+                          check=True).stdout
+    return {demangle(part.split("\n", 1)[0].strip()): part
+            for part in re.split(r"\n\s*Function : ", sass)[1:]}
+
+
+#: the step loop's instructions counted apart (step_loop)
+STEP_OPS = ("FCHK", "CALL", "BSSY", "MUFU", "LDG", "STG", "F2F", "DFMA", "DMUL")
+#: the forward kernels' f32 instantiations in trace_fwd.cu's machine code
+#: (patterns of their demangled names: cu++filt writes a bool argument as
+#: (bool)0 / (bool)1)
+FWD_KERNELS = {
+    label: rf"{kern}<float, (?:\(bool\){int(ckpt == 'true')}|{ckpt}), anrt::{rule}<float>, "
+           r"anrt::FwdLoop>"
+    for label, kern, ckpt, rule in (
+        ("trace_fwd", "trace_fwd_kernel", "false", "VolumeRule"),
+        ("trace_ckpt", "trace_fwd_kernel", "true", "VolumeRule"),
+        ("trace_plane", "trace_fwd_kernel", "false", "PlaneRule"),
+        ("trace_plane_ckpt", "trace_fwd_kernel", "true", "PlaneRule"),
+        ("trace_target", "trace_fwd_kernel", "false", "TargetRule"),
+        ("trace_target_ckpt", "trace_fwd_kernel", "true", "TargetRule"),
+        ("trace_target pass 2", "trace_horizon_kernel", "false", "TargetRule"),
+        ("trace_target_ckpt pass 2", "trace_horizon_kernel", "true", "TargetRule"))}
+
+
+def step_loop(sass, corners=True):
+    """One iteration of a kernel's step loop in its machine code: the
+    smallest backward branch's range that holds the stencil's 8 corner
+    loads, its instructions over its loads / 8 (in case the compiler
+    unrolled it); with ``corners`` False (pass 2 reads no grid) the largest
+    backward branch's range.  Returns {op: count an iteration, "total": ...}."""
+    lines = [(int(m.group(1), 16), m.group(2), m.group(3)) for m in re.finditer(
+        r"/\*([0-9a-f]{4,})\*/\s+(?:@!?U?P\w+\s+)?([A-Z][A-Z0-9_.]*)([^;]*);", sass)]
+    best = None
+    for addr, op, rest in lines:
+        t = re.search(r"0x([0-9a-f]+)", rest) if op.startswith("BRA") else None
+        if not t or int(t.group(1), 16) >= addr:
+            continue
+        body = [o for a, o, _ in lines if int(t.group(1), 16) <= a <= addr]
+        ldg = sum(o.startswith("LDG") for o in body)
+        if (corners and ldg >= 8 and (best is None or len(body) < len(best))) or \
+                (not corners and (best is None or len(body) > len(best))):
+            best = body
+    if best is None:
+        return None
+    per = max(1, sum(o.startswith("LDG") for o in best) // 8) if corners else 1
+    counts = {"total": len(best) / per}
+    counts.update({op: sum(o.split(".")[0] == op for o in best) / per for op in STEP_OPS})
+    return counts
+
+
+def step_instructions(lib_path=None, kernels=FWD_KERNELS):
+    """The step loop's machine code (:func:`step_loop`) of the forward
+    kernels in ``lib_path`` (the built ``trace_fwd.cu`` by default)."""
+    funcs = sass_functions(lib_path or build.load("trace_fwd")._name)
+    res = {}
+    for label, pat in kernels.items():
+        text = next((t for name, t in funcs.items() if re.search(pat, name)), None)
+        res[label] = step_loop(text, "horizon" not in pat) if text else None
+    return res
+
+
+def target_retirement(f, x0, v0, tgt, ds, max_steps):
+    """The target forward's escaped rays under K12's and K16's retirement
+    rule (``wrappers.target_retired_plain``), in plain torch: the steps they
+    take after their escape with it and without it (to the batch's horizon,
+    as before), the rays that retire before the horizon, and the steps at or
+    after a ray's retirement that came strictly closer to its target than
+    its running minimum (the rule says none)."""
+    ds_t = G._scalar(ds, x0)
+    x, v = x0, v0
+    inside = G.inbounds(f, x0)
+    esc = torch.zeros_like(inside)
+    retired = torch.zeros_like(inside)
+    d2 = E.sum_sq3(x0 - tgt)
+    ballistic = needed = closer = step = 0
+    while step < max_steps and not bool(esc.all()):
+        retired = retired | (esc & K.target_retired_plain(x, v, tgt))
+        ballistic += int(esc.sum())
+        needed += int((esc & ~retired).sum())
+        x, v = E.forward_step(f, x, v, inside, ds_t)
+        cur = E.sum_sq3(x - tgt)
+        closer += int((retired & (cur < d2)).sum())
+        d2 = torch.where(cur < d2, cur, d2)
+        cur_inside = G.inbounds(f, x)
+        esc = esc | (inside & ~cur_inside) | G.escaped(f, x, v)
+        inside = cur_inside
+        step += 1
+    return dict(horizon=step, ballistic_steps=ballistic, ballistic_needed=needed,
+                saved=ballistic - needed, retired=int(retired.sum()),
+                closer_after_retirement=closer)
+
+
+def retirement_line(ret):
+    return (f"retirement: {ret['retired']} rays retired before the horizon {ret['horizon']}, "
+            f"saving {ret['saved']} of {ret['ballistic_steps']} steps after escape "
+            f"({ret['ballistic_needed']} left); steps after a retirement that came closer: "
+            f"{ret['closer_after_retirement']}")
+
+
 MAIN_PATH_PASSES = 1 + BENCH_ITERS + 1
 
 
@@ -3963,6 +4173,7 @@ def main():
         for line in log.splitlines():
             if any(w in line for w in ("registers", "spill", "Compiling entry", "arning")):
                 print(f"  nvcc[{name}] {line.strip()}")
+    div_failures = stencil_div_checks()
 
     small = scene(17, 512, "float64", noise=0.02)
     compare_kernels(small, TOL_F64, TOL_F64, "f64 17^3 x 512")
@@ -3972,6 +4183,7 @@ def main():
 
     _, failures = exact_check(small["rif"], small["h"], small["ds"], small["x0"], small["v0"],
                               bench_cot(small), "f64 17^3", TOL_F64)
+    failures += div_failures
     api_small_check()
     exact_api_check()
     full = scene(RES, NRAYS, "float32")
@@ -4125,6 +4337,14 @@ def main():
             row, x_failures = exact_variant_check(
                 exact_case(late, "sdf", x=late["x0"], v=late["v0"]),
                 f"{dtype} 17^3, late sdf crossing", tol, chunk)
+            failures += x_failures
+            variant_exact_rows.append(row)
+    # the plane's and the target's rows at other segment lengths: 48 and 7
+    # (a horizon and capture steps that fall inside segments)
+    for variant in ("plane", "target"):
+        for seg in EXACT_CHECK_SEGS:
+            row, x_failures = exact_variant_check(dict(exact_case(var_full, variant), seg=seg),
+                                                  f"f32 {RES}^3, seg {seg}", TOL_F32_GRAD)
             failures += x_failures
             variant_exact_rows.append(row)
     failures += exact_variants_api_check(var_small)

@@ -16,6 +16,8 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+from hypothesis import given, settings
+from hypothesis import strategies as st
 
 from adjointnonlinearraytracing_tpu import compat as JCOMPAT
 from adjointnonlinearraytracing_tpu.fields import grid as JG
@@ -274,6 +276,104 @@ def test_trace_target_horizon_is_the_batch_s(scene, jax_refs):
     assert bool((got[2][1:] < fast[2]).all())
     tape = TE.trace_target_scan(f, _t(x), _t(v), _t(tgt), DS, STEPS)
     assert all(torch.equal(a, b) for a, b in zip(tape, got))
+
+
+# K12's and K16's retirement rule (wrappers.target_retired_plain): an escaped
+# ray (outside the grid, n = 0: a straight line) stops once every axis
+# recedes from its target or stands still, because no later step can come
+# strictly closer.  Held here on lines stepped with the port's own
+# forward_step, the eval masked as it is for an escaped ray.
+LINE_RES, LINE_STEPS = 17, 160
+
+
+def _escaped_lines(n, dtype, seed):
+    """``n`` rays outside a 17^3 grid of span 1, each moving away from it on
+    one axis, with zero and tiny (subnormal) velocity components, rays on
+    their target's coordinate on an axis, rays headed for their target's
+    coordinate that pass it later, and targets inside and outside the grid."""
+    rng = np.random.default_rng(seed)
+    tiny = float(torch.finfo(dtype).tiny)
+    rows = np.arange(n)
+    x = rng.uniform(-0.5, 1.5, (n, 3))
+    v = rng.standard_normal((n, 3))
+    inner = rng.uniform(size=(n, 1)) < 0.5
+    tgt = np.where(inner, rng.uniform(0.0, 1.0, (n, 3)), rng.uniform(-1.0, 2.0, (n, 3)))
+    away, below = rng.integers(0, 3, n), rng.uniform(size=n) < 0.5
+    x[rows, away] = np.where(below, -0.05 - 0.5 * rng.uniform(size=n),
+                             1.05 + 0.5 * rng.uniform(size=n))
+    v[rows, away] = np.where(below, -1.0, 1.0) * (0.1 + np.abs(v[rows, away]))
+    other, kind = (away + 1 + rng.integers(0, 2, n)) % 3, rng.integers(0, 5, n)
+    vo = v[rows, other]
+    vo = np.where(kind == 0, 0.0, vo)                                   # standing still
+    vo = np.where(kind == 1, tiny * rng.uniform(-8.0, 8.0, n), vo)      # tiny, subnormal too
+    x[rows, other] = np.where(kind == 2, tgt[rows, other], x[rows, other])  # on the target's
+    vo = np.where(kind == 3, np.sign(tgt[rows, other] - x[rows, other])  # headed past it
+                  * (0.3 + np.abs(vo)), vo)
+    v[rows, other] = vo
+    return tuple(torch.from_numpy(a).to(dtype) for a in (x, v, tgt))
+
+
+def _straight_steps(x, v, tgt, steps):
+    """Each step's squared distance to the target and the retirement rule,
+    ``(steps + 1, N)`` each, the rays stepped with ``forward_step`` masked."""
+    field = TG.GridField(torch.ones((LINE_RES,) * 3, dtype=x.dtype), 1.0 / (LINE_RES - 1))
+    ds_t = TG._scalar(0.5 / (LINE_RES - 1), x)
+    outside = torch.zeros((x.shape[0],), dtype=torch.bool)
+    d2, rule = [], []
+    for _ in range(steps + 1):
+        d2.append(TE.sum_sq3(x - tgt))
+        rule.append(K.target_retired_plain(x, v, tgt))
+        x, v = TE.forward_step(field, x, v, outside, ds_t)
+    return torch.stack(d2), torch.stack(rule)
+
+
+def _closer_after_retirement(d2, rule):
+    """The rays, among those the rule retires, with a step at or after their
+    first retired one strictly closer than the running minimum there; and
+    those whose rule turns false again after it held."""
+    has = rule.any(dim=0)
+    first = rule.int().argmax(dim=0)
+    k = torch.arange(d2.shape[0])[:, None]
+    after = (k >= first[None, :]) & has[None, :]
+    best = torch.cummin(d2, dim=0).values.gather(0, first[None, :])
+    closer = (after & (d2 < best)).any(dim=0)
+    unretired = (after & ~rule).any(dim=0)
+    return closer, unretired, has, first
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_target_retired_rays_come_no_closer(dtype):
+    x, v, tgt = _escaped_lines(1000, dtype, seed=11)
+    assert bool(TG.escaped(TG.GridField(torch.ones((LINE_RES,) * 3, dtype=dtype),
+                                        1.0 / (LINE_RES - 1)), x, v).all())
+    d2, rule = _straight_steps(x, v, tgt, LINE_STEPS)
+    closer, unretired, has, first = _closer_after_retirement(d2, rule)
+    assert not bool(closer.any()) and not bool(unretired.any())
+    # the rule bites, and not only at once: rays that pass their target's
+    # coordinate retire after it (the rest creep toward it too slowly)
+    assert int(has.sum()) > 800 and int((first > 10).sum()) > 400
+
+
+_COORD = {dt: st.one_of(st.floats(-3.0, 3.0, width=w),
+                        st.sampled_from([0.0, -0.0, float(torch.finfo(dt).tiny),
+                                         -float(torch.finfo(dt).tiny), 1e-45 if w == 32
+                                         else 5e-324]))
+          for dt, w in ((torch.float32, 32), (torch.float64, 64))}
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@settings(max_examples=150, deadline=None, derandomize=True, database=None)
+@given(data=st.data())
+def test_target_retirement_property(dtype, data):
+    coord = _COORD[dtype]
+    x, v, tgt = (torch.tensor([[data.draw(coord) for _ in range(3)]], dtype=dtype)
+                 for _ in range(3))
+    if data.draw(st.booleans()):  # on the target's coordinate on one axis
+        k = data.draw(st.integers(0, 2))
+        x[0, k] = tgt[0, k]
+    d2, rule = _straight_steps(x, v, tgt, 60)
+    closer, unretired, _, _ = _closer_after_retirement(d2, rule)
+    assert not bool(closer.any()) and not bool(unretired.any())
 
 
 def test_trace_sdf_matches_jax(scene, sdf_scene, jax_refs):

@@ -297,6 +297,57 @@ def test_target_exact_is_the_same_at_every_chunk_size(scene, jax_refs, monkeypat
     assert bool((out0[2][1:] < alone[2]).all())
 
 
+def _target_forward_retiring(field, x0, v0, tgt, ds, max_steps):
+    """The target's plain forward (``_forward_with_ckpts``'s target steps,
+    ``~all(esc)`` gating the batch) with K12's and K16's retirement: an
+    escaped ray for which ``wrappers.target_retired_plain`` holds takes no
+    more steps.  Returns ``(xt, vt, d2, c, code)`` and the steps it saved."""
+    ds_t = TG._scalar(ds, x0)
+    x, v, xt, vt = x0, v0, x0, v0
+    inside = TG.inbounds(field, x0)
+    esc = torch.zeros_like(inside)
+    retired = torch.zeros_like(inside)
+    captured = torch.zeros_like(inside)
+    c = torch.zeros((x0.shape[0],), dtype=torch.int32)
+    d2 = TE.sum_sq3(x0 - tgt)
+    saved = k = 0
+    while k < max_steps and not bool(esc.all()):
+        retired = retired | (esc & K.target_retired_plain(x, v, tgt))
+        run = ~retired
+        saved += int(retired.sum())
+        x2, v2 = TE.forward_step(field, x, v, inside, ds_t)
+        cur = TG.inbounds(field, x2)
+        cur_d2 = TE.sum_sq3(x2 - tgt)
+        cap = (cur_d2 < d2) & run
+        esc = torch.where(run, esc | (inside & ~cur) | TG.escaped(field, x2, v2), esc)
+        x, v = (torch.where(run[:, None], a, b) for a, b in ((x2, x), (v2, v)))
+        inside = torch.where(run, cur, inside)
+        d2 = torch.where(cap, cur_d2, d2)
+        xt, vt = (torch.where(cap[:, None], a, b) for a, b in ((x, xt), (v, vt)))
+        c = torch.where(cap, k + 1, c)
+        captured = captured | cap
+        k += 1
+    code = torch.where(esc, torch.where(captured, 1, 2), 0).to(torch.uint8)
+    return (xt, vt, d2, c, code), saved
+
+
+@pytest.mark.parametrize("rays", ["scene", "late"])
+def test_target_retirement_changes_no_output(rays, scene):
+    """The plain target forward with the kernels' retirement rule gives the
+    same ``(xt, vt, d2, c, code)`` as without it, and skips steps."""
+    rif = scene[0]
+    x, v, tgt = ((_t(a) for a in (scene[1], scene[2], scene[5])) if rays == "scene"
+                 else (_t(a) for a in _late_target_rays()))
+    f = TG.GridField(_t(rif), H)
+    xt, vt, esc, c, cap, _ = TCK._forward_with_ckpts(f, x, v, DS, STEPS, SEG, False,
+                                                     variant="target", target=tgt)
+    code = torch.where(esc, torch.where(cap, 1, 2), 0).to(torch.uint8)
+    want = (xt, vt, TE.sum_sq3(xt - tgt), c, code)
+    got, saved = _target_forward_retiring(f, x, v, tgt, DS, STEPS)
+    assert all(torch.equal(a, b) for a, b in zip(got, want))
+    assert saved > 0
+
+
 def test_plane_exact_missed_rays_pass_no_gradient(scene):
     """A missed ray's ``xt`` and ``vt`` both pass no gradient (``trace_plane``
     passes the ``vt`` one); a hit ray's do."""

@@ -69,7 +69,7 @@ import numpy as np  # noqa: E402
 import torch  # noqa: E402
 
 import chip_smoke as CS  # noqa: E402  (exits without a CUDA device)
-from k6_designs import demangle, ptxas_lines  # noqa: E402
+from kernel_info import demangle, ptxas_lines  # noqa: E402
 from adjointnonlinearraytracing_tpu_torch.experiments import fiber, runner  # noqa: E402
 from adjointnonlinearraytracing_tpu_torch.fields import cylinder as cyl  # noqa: E402
 from adjointnonlinearraytracing_tpu_torch.fields import grid as G  # noqa: E402

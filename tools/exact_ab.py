@@ -1,4 +1,4 @@
-"""Times the sdf kernels and the exact backward kernels of a checkout, for an A/B on one card.
+"""Times the variants' forward and backward kernels of a checkout, for an A/B on one card.
 
 Run from any directory on a machine with a CUDA device and ``nvcc``::
 
@@ -11,19 +11,22 @@ configuration 11's batches (``chip_smoke.variant_scene``: the bench scene,
 warm card, round after round, K18 ``backtrace_plane_exact``, K6
 ``backtrace_exact`` on the target's states and K19 ``backtrace_sdf_exact``,
 each from the checkpoints its forward kernel wrote (as ``trace_*_exact``
-launches them), K17 ``trace_sdf_ckpt`` (both passes, as
-``chip_smoke.exact_forward_kernel`` calls it), K13 ``trace_sdf`` and K14
-``backtrace_sdf`` on the sdf batch (as ``compat.BackSDFTracerC`` launches
-them), and K3 ``backtrace`` on the bench scene's exit states.  Then it
-times, on the host clock after a warm-up call, ``compat.BackSDFTracerC``
-and ``tracer.trace_sdf_exact`` forward and backward on 2^18 and 2^20 rays,
-and ``trace_plane_exact`` and ``trace_target_exact`` on 2^20 rays (four
-chunks of ``ANRT_EXACT_CHUNK``'s default, each recomputing its
-checkpoints).  It uses only functions of ``chip_smoke`` and signatures of
-the wrappers that checkouts from before K18's PairRun and K17's horizons in
-the kernel have too, so that one call can run a parent and a change in turn
-(parent, change, change, parent).  Prints the card and one JSON line.  No
-path of the port runs it.
+launches them), K15 ``trace_plane_ckpt``, K16 ``trace_target_ckpt`` and
+K17 ``trace_sdf_ckpt`` (as ``chip_smoke.exact_forward_kernel`` calls them;
+K16's and K17's pass 1, the gap and pass 2 apart by
+``chip_smoke.pass_split``), K11 ``trace_plane`` and K12 ``trace_target``
+(as ``compat.BackPlaneTracerC`` and ``BackTargetTracerC`` launch them; K12's
+passes apart), K13 ``trace_sdf`` and K14 ``backtrace_sdf`` on the sdf batch
+(as ``compat.BackSDFTracerC`` launches them), and K2 ``trace_fwd``, K5
+``trace_ckpt`` and K3 ``backtrace`` on the bench scene.  Then it times, on
+the host clock after a warm-up call, the three ``compat`` tracers and
+``tracer.trace_{plane,target,sdf}_exact`` forward and backward on 2^18 and
+2^20 rays (the exact ones in four chunks of ``ANRT_EXACT_CHUNK``'s default
+at 2^20, each recomputing its checkpoints).  It uses only functions of
+``chip_smoke`` and signatures of the wrappers that checkouts since K17
+took its horizons in the kernel have too, so that one call can run a parent and a change in turn (parent,
+change, change, parent).  Prints the card and one JSON line.  No path of
+the port runs it.
 """
 
 from __future__ import annotations
@@ -61,7 +64,7 @@ def main(argv=None):
     s = CS.variant_scene(CS.RES, CS.NRAYS, "float32")
     kernels = {"plane": "backtrace_plane_exact", "target": "backtrace_exact",
                "sdf": "backtrace_sdf_exact"}
-    runs = {}
+    runs, passes = {}, {}
     for variant, name in kernels.items():
         case = CS.exact_case(s, variant)
         order = O.ray_order(case["x"], case["v"], case["rif"].shape, case["h"])
@@ -81,9 +84,20 @@ def main(argv=None):
             return out
 
         runs[f"{name} ({variant})"] = run
-        if variant == "sdf":
-            runs["trace_sdf_ckpt (K17)"] = (lambda case=case, order=order:
-                                            CS.exact_forward_kernel(case, order, True))
+        fname = {"plane": "trace_plane_ckpt (K15)", "target": "trace_target_ckpt (K16)",
+                 "sdf": "trace_sdf_ckpt (K17)"}[variant]
+        runs[fname] = (lambda case=case, order=order: CS.exact_forward_kernel(case, order, True))
+        if variant != "plane":
+            passes[fname] = (fname.split(" ")[0], runs[fname])
+        if variant in ("plane", "target"):
+            per_ray = (case["o"], case["d"]) if variant == "plane" else (case["tgt"],)
+            kname = {"plane": "trace_plane (K11)", "target": "trace_target (K12)"}[variant]
+            kernel = K.trace_plane if variant == "plane" else K.trace_target
+            runs[kname] = (lambda case=case, order=order, per_ray=per_ray, kernel=kernel: kernel(
+                case["rif"], case["h"], case["x"], case["v"], *per_ray, case["ds"], s["nf"],
+                order))
+            if variant == "target":
+                passes[kname] = ("trace_target", runs[kname])
     # K13 and K14 as BackSDFTracerC launches them, K3 on the bench scene
     rif, h, ds, sdf, xs, vs = (s[k] for k in ("rif", "h", "ds", "sdf", "xs", "vs"))
     tol = G.snap_tol(rif.dtype)
@@ -99,12 +113,17 @@ def main(argv=None):
     dxb, dvb = (2.0 * (xtb - s["target"])).contiguous(), torch.ones_like(vtb)
     runs["backtrace (K3, bench)"] = lambda: K.backtrace(rif, h, xtb, vtb, dxb, dvb, ds, s["nb"],
                                                         tol, order_b)
+    runs["trace_fwd (K2, bench)"] = lambda: K.trace_fwd(rif, h, s["x0"], s["v0"], ds, s["nf"],
+                                                        order_b)
+    runs["trace_ckpt (K5, bench)"] = lambda: K.trace_ckpt(rif, h, s["x0"], s["v0"], ds, s["nf"],
+                                                          CS.SEG, order_b)
     times = {name: [] for name in runs}
     for _ in range(args.rounds):
         for name, fn in runs.items():
             times[name].append(CS.time_ms(fn, args.reps))
     ms = {name: sorted(t)[len(t) // 2] for name, t in times.items()}
-    del runs
+    passes_ms = {name: CS.pass_split(fn, kernel) for name, (kernel, fn) in passes.items()}
+    del runs, passes
 
     s_big = CS.variant_scene(CS.RES, CS.EXACT_CHUNKED_RAYS, "float32")
     calls = {"trace_plane_exact": lambda r, sc: tracer.trace_plane_exact(
@@ -114,13 +133,15 @@ def main(argv=None):
              "trace_sdf_exact": lambda r, sc: tracer.trace_sdf_exact(
                  r, sc["sdf"], sc["xs"], sc["vs"], sc["h"], sc["ds"]),
              "BackSDFTracerC": lambda r, sc: compat.BackSDFTracerC(
-                 r, sc["sdf"], sc["xs"], sc["vs"], sc["h"], sc["ds"])}
+                 r, sc["sdf"], sc["xs"], sc["vs"], sc["h"], sc["ds"]),
+             "BackPlaneTracerC": lambda r, sc: compat.BackPlaneTracerC(
+                 r, sc["x0"], sc["v0"], sc["pln_o"][0], sc["pln_d"][0], sc["h"], sc["ds"]),
+             "BackTargetTracerC": lambda r, sc: compat.BackTargetTracerC(
+                 r, sc["x0"], sc["v0"], sc["tgt"][0], sc["h"], sc["ds"])}
     big = {}
     for sc, label in ((s, "2^18"), (s_big, "2^20")):
         for name, fn in calls.items():
-            if label == "2^18" and "sdf" not in name.lower():
-                continue
-            variant = next((v for v in ("plane", "target") if v in name), "sdf")
+            variant = next((v for v in ("plane", "target") if v in name.lower()), "sdf")
             anchor = CS.exact_case(sc, variant)["anchor"]
             spans = []
             for _ in range(3):  # a warm-up call, then two timed
@@ -135,7 +156,8 @@ def main(argv=None):
     card = CS.smi_line()
     print(card)
     line = json.dumps({"root": str(root), "card": card, "rounds": args.rounds,
-                       "reps": args.reps, "ms": ms, "all": times, "api_ms": big})
+                       "reps": args.reps, "ms": ms, "all": times, "passes_ms": passes_ms,
+                       "api_ms": big})
     if args.out:
         Path(args.out).parent.mkdir(parents=True, exist_ok=True)
         with open(args.out, "a") as f:

@@ -11,9 +11,8 @@ the ray that the split times and the designs tried, which no path of the
 port launches; the file lists them) and, on configuration 11's batches
 (``chip_smoke.variant_scene``: the bench scene, 128^3 f32, 2^18 rays, the
 plane's and the sdf's, ``seg`` 32) and on K6's (the bench scene; with
-``--k6-scenes`` also the fuel stages 3^3 .. 65^3 of
-``tools/k6_designs.scenes`` and 2^18 of a Luneburg step's rays through the
-Luneburg lens at 129^3), times with ``chip_smoke.time_ms`` on a warm card,
+``--k6-scenes`` also the fuel stages 3^3 .. 65^3, ``bench_and_fuel_scenes``,
+and 2^18 of a Luneburg step's rays through the Luneburg lens at 129^3), times with ``chip_smoke.time_ms`` on a warm card,
 round after round in turn:
 
 * the shipped kernels (``kernels.wrappers``: K18 and K19 with PairRun's
@@ -61,14 +60,16 @@ sys.path.insert(0, str(ROOT))
 import torch  # noqa: E402
 
 import chip_smoke as CS  # noqa: E402  (exits without a CUDA device)
-from adjointnonlinearraytracing_tpu_torch.experiments import luneburg, voxel_scenes  # noqa: E402
+from adjointnonlinearraytracing_tpu_torch.experiments import (  # noqa: E402
+    fuel_injection, luneburg, voxel_scenes)
+from adjointnonlinearraytracing_tpu_torch.fields import grid as G  # noqa: E402
 from adjointnonlinearraytracing_tpu_torch.kernels import build  # noqa: E402
 from adjointnonlinearraytracing_tpu_torch.kernels import wrappers as K  # noqa: E402
 from adjointnonlinearraytracing_tpu_torch.tracer import eikonal as E  # noqa: E402
 from adjointnonlinearraytracing_tpu_torch.tracer import order as O  # noqa: E402
 
 sys.path.insert(0, str(ROOT / "tools"))
-import k6_designs  # noqa: E402
+import kernel_info  # noqa: E402
 
 SOURCE = Path(__file__).resolve().parent / "exact_designs.cu"
 #: anrt_exact_split's rules and modes (see exact_designs.cu)
@@ -118,7 +119,7 @@ def sass_counts(lib_path):
                           text=True, check=True).stdout
     counts = {}
     for part in re.split(r"\n\s*Function : ", sass)[1:]:
-        name = k6_designs.demangle(part.split("\n", 1)[0].strip())
+        name = kernel_info.demangle(part.split("\n", 1)[0].strip())
         ops = re.findall(r"\*/\s+(?:@!?U?P\w+\s+)?([A-Z][A-Z0-9]*(?:\.[\w]+)*)", part)
         kinds = {}
         for op in ops:
@@ -165,9 +166,27 @@ def volume_inputs(rif, h, ds, x0, v0, cot):
     return dict(order=order, c=c, code=code, ck=ck, dx=dx.contiguous(), dv=dv.contiguous())
 
 
+def bench_and_fuel_scenes():
+    """The bench scene and the fuel stages: (label, rif, h, ds, x0, v0, cot)."""
+    s = CS.scene(CS.RES, CS.NRAYS, "float32")
+    yield (f"bench {CS.RES}^3", s["rif"], s["h"], s["ds"], s["x0"], s["v0"],
+           lambda xt, vt: (2.0 * (xt - s["target"]), torch.ones_like(vt)))
+    params = CS.fuel_params()
+    res_list, span = params["res_list"], params["vol_span"]
+    ds = span / (res_list[-1] - 1) / params["step_res"]
+    gt = voxel_scenes.fuel_injection_rif(params["fuel_val"], torch.float64, "cuda")
+    rays, _ = fuel_injection.gen_start_rays(
+        params, torch.Generator(device="cuda").manual_seed(params["seed"]), torch.float32)
+    x0, v0 = rays.x.contiguous(), rays.v.contiguous()
+    for res in res_list:
+        rif = G.upres_volume(gt, res).to(torch.float32).contiguous()
+        yield (f"fuel {res}^3", rif, span / (res - 1), ds, x0, v0,
+               lambda xt, vt: (2.0 * (xt - 0.5), torch.ones_like(vt)))
+
+
 def k6_scenes(which):
     """K6's scenes: the bench scene, the fuel stages, a Luneburg batch at 129^3."""
-    for label, rif, h, ds, x0, v0, cot in k6_designs.scenes():
+    for label, rif, h, ds, x0, v0, cot in bench_and_fuel_scenes():
         kind = "bench" if label.startswith("bench") else "fuel"
         if kind in which:
             yield label, rif, h, ds, x0, v0, cot
@@ -202,9 +221,9 @@ def main(argv=None):
     for name in build.KERNELS:
         build.load(name)
     lib, log = finish_build(proc, lib_path)
-    for line in k6_designs.ptxas_lines(log):
+    for line in kernel_info.ptxas_lines(log):
         print(f"ptxas[exact_designs] {short_name(line)}")
-    for line in k6_designs.ptxas_lines(build.build_logs()["backtrace_exact"]):
+    for line in kernel_info.ptxas_lines(build.build_logs()["backtrace_exact"]):
         print(f"ptxas[backtrace_exact] {short_name(line)}")
     sass = sass_counts(Path(build.load("backtrace_exact")._name))
     sass.update(sass_counts(lib_path))

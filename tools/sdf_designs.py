@@ -62,7 +62,7 @@ from adjointnonlinearraytracing_tpu_torch.tracer import eikonal as E  # noqa: E4
 from adjointnonlinearraytracing_tpu_torch.tracer import order as O  # noqa: E402
 
 sys.path.insert(0, str(ROOT / "tools"))
-import k6_designs  # noqa: E402
+import kernel_info  # noqa: E402
 
 SOURCE = Path(__file__).resolve().parent / "sdf_designs.cu"
 #: anrt_k14_split's modes (sdf_designs.cu K14Mode)
@@ -103,7 +103,7 @@ def ptxas_lines(log):
     for line in log.splitlines():
         m = re.search(r"Compiling entry function '(\S+)'", line)
         if m:
-            name = k6_designs.demangle(m.group(1))
+            name = kernel_info.demangle(m.group(1))
             continue
         m = re.search(r"Used (\d+) registers", line)
         if m and name:
@@ -127,7 +127,7 @@ def sass_counts(lib_path):
                           text=True, check=True).stdout
     counts = {}
     for part in re.split(r"\n\s*Function : ", sass)[1:]:
-        name = k6_designs.demangle(part.split("\n", 1)[0].strip())
+        name = kernel_info.demangle(part.split("\n", 1)[0].strip())
         kinds = {}
         for op in re.findall(r"\*/\s+(?:@!?U?P\w+\s+)?([A-Z][A-Z0-9]*(?:\.[\w]+)*)", part):
             base = op.split(".")[0]
