@@ -344,7 +344,9 @@ struct ExactRay {
             v[k] = row[(k + 3) * field];
           }
           inside = row[6 * field] > static_cast<T>(0.5);
-          if (kRead != kSdfAlone && inside) sdf_enter<kRead>(g, x, cell);
+          if constexpr (kRead != kSdfAlone) {
+            if (inside) sdf_enter<kRead>(g, rule.sdf, x, cell);
+          }
           for (int j = 0; j < b0; ++j) inside = replay(rr, x, v, inside, cell);
         }
         unsigned ins = 0u;  // bit j: inside at the stretch's step j
@@ -478,14 +480,13 @@ extern "C" int anrt_backtrace_plane_exact(int is_double, const void* rif, int W,
       s);
 }
 
-// K19: as anrt_backtrace_exact, from K17's checkpoints, with the sdf grid (the
-// same shape, type and spacing); grad_out is double whatever the grid's
-// type, the run and warp sums in the grid's type; the replay steps with
-// K17's sdf_step, the grid's corners loaded at each step's start
-// (kSdfShared: K17's kSdfAhead took K19 to 125 registers and 0.4 % longer
-// on an NVIDIA H100 80GB HBM3 at 700 W; PERF.md).
+// K19: as anrt_backtrace_exact, from K17's checkpoints, with K17's node
+// pairs (rif, sdf) of the grid's type (kernels/wrappers.py node_pairs);
+// grad_out is double whatever the grid's type, the run and warp sums in the
+// grid's type; the replay steps with K17's sdf_step on the pairs
+// (kSdfPacked), the reverse evaluation reads rif.
 extern "C" int anrt_backtrace_sdf_exact(int is_double, const void* rif, int W, int H, int D,
-                                        double h, double ds, const void* sdf, const void* ckpts,
+                                        double h, double ds, const void* pairs, const void* ckpts,
                                         const void* order, const void* c, const void* code,
                                         const void* dx, const void* dv, void* grad_out,
                                         void* tally, int n_slots, int nseg, int seg,
@@ -494,13 +495,14 @@ extern "C" int anrt_backtrace_sdf_exact(int is_double, const void* rif, int W, i
   auto o = static_cast<const int*>(order);
   auto t = static_cast<unsigned long long*>(tally);
   if (is_double) {
-    const anrt::SdfRule<double, anrt::kSdfShared> rule{anrt::make_grid<double>(sdf, W, H, D, h)};
-    return anrt::launch_exact<double, double, double, anrt::kPairRun, anrt::kSdfShared>(
+    const anrt::SdfRule<double, anrt::kSdfPacked> rule{
+        anrt::make_grid<double>(pairs, W, H, D, h)};
+    return anrt::launch_exact<double, double, double, anrt::kPairRun, anrt::kSdfPacked>(
         rule, rif, W, H, D, h, ds, ckpts, o, c, code, dx, dv, grad_out, t, n_slots, nseg, seg,
         s);
   }
-  const anrt::SdfRule<float, anrt::kSdfShared> rule{anrt::make_grid<float>(sdf, W, H, D, h)};
-  return anrt::launch_exact<float, double, float, anrt::kPairRun, anrt::kSdfShared>(
+  const anrt::SdfRule<float, anrt::kSdfPacked> rule{anrt::make_grid<float>(pairs, W, H, D, h)};
+  return anrt::launch_exact<float, double, float, anrt::kPairRun, anrt::kSdfPacked>(
       rule, rif, W, H, D, h, ds, ckpts, o, c, code, dx, dv, grad_out, t, n_slots, nseg, seg,
       s);
 }

@@ -131,15 +131,45 @@ struct Cell {
 // How the sdf's step reads the two grids: kSdfAlone, the sdf with a stencil
 // of its own after K2's step (SdfRule::inside); kSdfShared, the sdf with the
 // stencil that the next step's grid read takes at the same point; kSdfAhead,
-// that, and the next step's grid corners loaded beside the sdf's.
-enum SdfRead { kSdfAlone, kSdfShared, kSdfAhead };
+// that, and the next step's grid corners loaded beside the sdf's; kSdfPacked,
+// kSdfAhead's reads from one grid of node pairs (grid value, sdf value), the
+// rule's `sdf` grid pointing at that (D, H, W, 2) array: a corner of both is
+// one 8-byte load (16 in f64) at one address.
+enum SdfRead { kSdfAlone, kSdfShared, kSdfAhead, kSdfPacked };
 
-// The ray's first position x under the sdf's step: its cell, and (kSdfAhead)
-// the grid's corners there.
+template <typename T> struct NodePair;
+template <> struct NodePair<float> { using type = float2; };
+template <> struct NodePair<double> { using type = double2; };
+
+// The corners of stencil s in a grid of node pairs: the first of each pair
+// to v, the second to w.
+template <typename T>
+__device__ __forceinline__ void fetch_pairs(const Grid<T>& pairs, const Stencil<T>& s,
+                                            T v[2][2][2], T w[2][2][2]) {
+  const auto* p = reinterpret_cast<const typename NodePair<T>::type*>(pairs.data);
+#pragma unroll
+  for (int a = 0; a < 2; ++a)
+#pragma unroll
+    for (int b = 0; b < 2; ++b)
+#pragma unroll
+      for (int c = 0; c < 2; ++c) {
+        const auto q = __ldg(p + s.idx[a][b][c]);
+        v[a][b][c] = q.x;
+        w[a][b][c] = q.y;
+      }
+}
+
+// The ray's first position x under the sdf's step: its cell, and (kSdfAhead,
+// kSdfPacked: from the pairs in `sdf`) the grid's corners there.
 template <int kRead, typename T>
-__device__ __forceinline__ void sdf_enter(const Grid<T>& g, const T x[3], Cell<T>& cell) {
+__device__ __forceinline__ void sdf_enter(const Grid<T>& g, const Grid<T>& sdf, const T x[3],
+                                          Cell<T>& cell) {
   corner_cells(g, x, cell.c, cell.w0);
   if constexpr (kRead == kSdfAhead) fetch(g, stencil_of(g, cell.c, cell.w0), true, cell.cv);
+  if constexpr (kRead == kSdfPacked) {
+    T unused[2][2][2];
+    fetch_pairs(sdf, stencil_of(g, cell.c, cell.w0), cell.cv, unused);
+  }
 }
 
 // One step of the sdf's rule with one stencil a step: K2's step from (x, v)
@@ -156,7 +186,7 @@ __device__ __forceinline__ bool sdf_step(const Grid<T>& g, const Grid<T>& sdf, T
                                          T v[3], bool inside, Cell<T>& cell) {
   if (inside) {  // an outside ray has n = 0, grad = 0: v is unchanged
     T n, grad[3];
-    if constexpr (kRead == kSdfAhead) {
+    if constexpr (kRead == kSdfAhead || kRead == kSdfPacked) {
       value_grad(g, cell.cv, cell.w0, n, grad);
     } else {
       const Stencil<T> s = stencil_of(g, cell.c, cell.w0);
@@ -174,8 +204,12 @@ __device__ __forceinline__ bool sdf_step(const Grid<T>& g, const Grid<T>& sdf, T
   corner_cells(g, x, cell.c, cell.w0);
   const Stencil<T> s = stencil_of(g, cell.c, cell.w0);
   T cs[2][2][2], n, grad[3];
-  fetch(sdf, s, true, cs);
-  if constexpr (kRead == kSdfAhead) fetch(g, s, true, cell.cv);
+  if constexpr (kRead == kSdfPacked) {
+    fetch_pairs(sdf, s, cell.cv, cs);
+  } else {
+    fetch(sdf, s, true, cs);
+    if constexpr (kRead == kSdfAhead) fetch(g, s, true, cell.cv);
+  }
   value_grad(sdf, cs, s.w0, n, grad);  // the gradient is dropped
   return n < static_cast<T>(0);
 }
@@ -196,7 +230,7 @@ struct SdfRule {  // K13, K17, K19
   }
   __device__ __forceinline__ void enter(Ray& r, const Grid<T>& g, const T x[3],
                                         bool inside) const {
-    if (inside) sdf_enter<kRead>(g, x, r.cell);
+    if (inside) sdf_enter<kRead>(g, sdf, x, r.cell);
   }
   __device__ __forceinline__ bool step(const Grid<T>& g, Ray& r, T ds, T x[3], T v[3],
                                        bool inside) const {

@@ -58,6 +58,11 @@
 // the rays idle in every launch; registers capped for more blocks an SM, and
 // asking L2 for the rows ahead of each ray, made both kernels slower.  One
 // thread a ray.
+//
+// The stencil keeps its full index arithmetic here (trilinear.cuh,
+// kOffsetIndex): with the offsets K21 took 8 fewer registers, ran more blocks
+// an SM and lost 7 %.
+#define ANRT_FULL_INDEX
 #include "adjoint.cuh"
 #include "rules.cuh"
 

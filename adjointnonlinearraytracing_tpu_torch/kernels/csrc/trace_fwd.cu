@@ -72,8 +72,10 @@
 //     tested on the grid; no fix-up.  A step takes one stencil (rules.cuh,
 //     sdf_step): the sdf's corners at the new x and the grid's that the next
 //     step evaluates at the same point are loaded together, one trip to L2
-//     a step as K2 makes, not two in turn with a stencil each.  A ray that
-//     escaped the grid while still inside the sdf (clamped corners can read
+//     a step as K2 makes, not two in turn with a stencil each, and from one
+//     grid of node pairs (rif, sdf) that the wrapper packs at each call
+//     (kSdfPacked): a corner of both is one 8-byte load at one address.  A
+//     ray that escaped the grid while still inside the sdf (clamped corners can read
 //     sdf < 0 outside the grid) may cross later, while the batch runs, so
 //     K13 takes K12's two passes, and pass 2 steps only those rays, each
 //     until it leaves the sdf (after that nothing of it can change) or S.
@@ -174,6 +176,8 @@ struct FwdLoop {
   static __device__ __forceinline__ long long clock_start() { return 0; }
   // slot t took `steps` steps since clock_start() read t0
   static __device__ __forceinline__ void clock_stop(int, long long, int) {}
+  // K20: whether each record is stored (a design stores the last one only)
+  static constexpr bool kRecords = true;
 };
 
 // The checkpoint (x, v, inside) of one ray: field k at ck[k * field].
@@ -424,12 +428,20 @@ int launch_trace_ckpt(const void* rif, int W, int H, int D, double h, double ds,
 // matrix indexes.  The stepping is K2's bit for bit (forward_step).
 //
 // Bound: the records, 12 B a ray each (415 MB at 524,288 rays and 66
-// records), against the steps' operations (520 steps a ray, most of them
-// evaluating in f64); a warp's store of one record is 384 contiguous bytes
-// when its threads take consecutive rays.  `order` as for K2 (null: thread
-// i takes ray i).
-template <typename T>
-__global__ void record_paths_kernel(Grid<T> g, T ds, const T* __restrict__ x0,
+// records), against the steps' f64 operations (520 steps a ray, 22 % of them
+// evaluating: the rays spend most of their steps outside the volume).  An
+// evaluating step is 161 instructions, 85 of them f64, which the card issues
+// at a warp instruction every other cycle; the stencil's three divisions go
+// by the exact multiply where the spacing allows it (div_h, with_division;
+// the 2008 volume's h = 1/64; the operator's reciprocal, refinement and
+// slow-path call made the step 225 instructions and K20 7 % slower).  The
+// records take 3 % (storing none), evict-first stores none of it (PERF.md).
+// A warp's store of one record is 384 contiguous bytes when its threads take
+// consecutive rays.  `order` as for K2 (null: thread i takes ray i).  Opt:
+// FwdLoop, or a design of tools/sdf_record_designs.cu that stores only the
+// last record.
+template <typename T, typename Opt = FwdLoop>
+__global__ void record_paths_kernel(Grid<T> grid, T ds, const T* __restrict__ x0,
                                     const T* __restrict__ v0, const int* __restrict__ order,
                                     float* __restrict__ path, int n_rays, int nrec, int stride) {
   const int t = blockIdx.x * blockDim.x + threadIdx.x;
@@ -438,16 +450,20 @@ __global__ void record_paths_kernel(Grid<T> g, T ds, const T* __restrict__ x0,
   T x[3], v[3];
   load3(x0, i, x);
   load3(v0, i, v);
-  bool inside = inbounds(g, x);
   float* out = path + 3 * static_cast<size_t>(i);
   const size_t rec = 3 * static_cast<size_t>(n_rays);
-  for (int k = 0; k < nrec; ++k, out += rec) {
-    if (k > 0) {
-      for (int s = 0; s < stride; ++s) inside = forward_step(g, ds, x, v, inside);
-    }
+  with_division(grid, [&](const Grid<T>& g) {
+    bool inside = inbounds(g, x);
+    for (int k = 0; k < nrec; ++k, out += rec) {
+      if (k > 0) {
+        for (int s = 0; s < stride; ++s) inside = forward_step(g, ds, x, v, inside);
+      }
+      if (Opt::kRecords || k == nrec - 1) {
 #pragma unroll
-    for (int a = 0; a < 3; ++a) out[a] = static_cast<float>(x[a]);
-  }
+        for (int a = 0; a < 3; ++a) out[a] = static_cast<float>(x[a]);
+      }
+    }
+  });
 }
 
 template <typename T>
@@ -580,9 +596,10 @@ extern "C" int anrt_trace_target_ckpt(int is_double, const void* rif, int W, int
 // before pass 1), and pass 2 writes each ray's horizon (int32 at the ray's
 // index) to hor_out; with hor, pass 2 takes that horizon per ray (a chunk's
 // recomputation); with neither, `last` is one word, the batch's last escape
-// step (K13).
+// step (K13).  pairs: the (D, H, W, 2) grid of node pairs (rif, sdf) of the
+// grid's type, which both read (rules.cuh, kSdfPacked; rif is not read).
 extern "C" int anrt_trace_sdf_ckpt(int is_double, const void* rif, int W, int H, int D,
-                                   double h, double ds, const void* sdf, const void* x0,
+                                   double h, double ds, const void* pairs, const void* x0,
                                    const void* v0, const void* order, void* xt, void* vt, void* c,
                                    void* code, void* ckpts, void* hx, void* hv, void* steps,
                                    void* inside, void* last, const void* hor, void* hor_out,
@@ -592,7 +609,8 @@ extern "C" int anrt_trace_sdf_ckpt(int is_double, const void* rif, int W, int H,
   auto o = static_cast<const int*>(order);
   const bool ckpt = c != nullptr;
   if (is_double) {
-    const anrt::SdfRule<double> rule{anrt::make_grid<double>(sdf, W, H, D, h)};
+    const anrt::SdfRule<double, anrt::kSdfPacked> rule{
+        anrt::make_grid<double>(pairs, W, H, D, h)};
     const auto g = anrt::make_grid<double>(rif, W, H, D, h);
     const auto hz = anrt::make_horizon<double>(hx, hv, steps, inside, last, hor, hor_out, chunk,
                                                n_rays, seg, max_steps);
@@ -601,7 +619,7 @@ extern "C" int anrt_trace_sdf_ckpt(int is_double, const void* rif, int W, int H,
                 : anrt::launch_variant<double, false>(g, ds, x0, v0, o, xt, vt, c, code, ckpts,
                                                       rule, hz, n_rays, max_steps, seg, pass, s);
   }
-  const anrt::SdfRule<float> rule{anrt::make_grid<float>(sdf, W, H, D, h)};
+  const anrt::SdfRule<float, anrt::kSdfPacked> rule{anrt::make_grid<float>(pairs, W, H, D, h)};
   const auto g = anrt::make_grid<float>(rif, W, H, D, h);
   const auto hz = anrt::make_horizon<float>(hx, hv, steps, inside, last, hor, hor_out, chunk,
                                             n_rays, seg, max_steps);
@@ -634,16 +652,16 @@ extern "C" int anrt_trace_target(int is_double, const void* rif, int W, int H, i
                                 n_rays, max_steps, 1, pass, stream);
 }
 
-// K13, pass 1 or 2.  sdf: a (D, H, W) grid of the same type and spacing; the
-// horizon state as for K12.
+// K13, pass 1 or 2.  pairs: the (D, H, W, 2) grid of node pairs (rif, sdf)
+// of the grid's type (rif itself is not read); the horizon state as for K12.
 extern "C" int anrt_trace_sdf(int is_double, const void* rif, int W, int H, int D, double h,
-                              double ds, const void* sdf, const void* x0, const void* v0,
+                              double ds, const void* pairs, const void* x0, const void* v0,
                               const void* order, void* xt, void* vt, void* hx, void* hv,
                               void* steps, void* inside, void* last, int n_rays, int max_steps,
                               int pass, void* stream) {
-  return anrt_trace_sdf_ckpt(is_double, rif, W, H, D, h, ds, sdf, x0, v0, order, xt, vt, nullptr,
-                             nullptr, nullptr, hx, hv, steps, inside, last, nullptr, nullptr,
-                             n_rays, max_steps, 1, 0, pass, stream);
+  return anrt_trace_sdf_ckpt(is_double, rif, W, H, D, h, ds, pairs, x0, v0, order, xt, vt,
+                             nullptr, nullptr, nullptr, hx, hv, steps, inside, last, nullptr,
+                             nullptr, n_rays, max_steps, 1, 0, pass, stream);
 }
 
 namespace anrt {
@@ -668,7 +686,61 @@ __global__ void div_h_check_kernel(Grid<float> g, unsigned long long* count, uns
   }
 }
 
+// div_h held to the operator for n f64 dividends at g.h: dividend u is
+// edge[u] for u < n_edge, else 64 random bits (splitmix64 of u and seed) for
+// even u, and for odd u those bits made a number in [-2^7, 2^7) (the
+// positions a grid's steps divide); counted as div_h_check_kernel counts.
+__device__ __forceinline__ unsigned long long splitmix64(unsigned long long z) {
+  z += 0x9e3779b97f4a7c15ULL;
+  z = (z ^ (z >> 30)) * 0xbf58476d1ce4e5b9ULL;
+  z = (z ^ (z >> 27)) * 0x94d049bb133111ebULL;
+  return z ^ (z >> 31);
+}
+
+__global__ void div_h64_check_kernel(Grid<double> g, unsigned long long n,
+                                     unsigned long long seed, const double* edge, int n_edge,
+                                     unsigned long long* count, unsigned long long* first,
+                                     int n_first) {
+  for (unsigned long long u = blockIdx.x * static_cast<unsigned long long>(blockDim.x) +
+                              threadIdx.x;
+       u < n; u += static_cast<unsigned long long>(gridDim.x) * blockDim.x) {
+    double a;
+    if (u < static_cast<unsigned long long>(n_edge)) {
+      a = edge[u];
+    } else {
+      const unsigned long long bits = splitmix64(u ^ (seed << 40));
+      a = (u & 1) ? static_cast<double>(static_cast<long long>(bits)) * 0x1p-56
+                  : __longlong_as_double(static_cast<long long>(bits));
+    }
+    const double want = a / g.h;
+    const double got = div_h(g, a);
+    const bool same = isnan(want) ? isnan(got)
+                                  : __double_as_longlong(got) == __double_as_longlong(want);
+    if (!same) {
+      const unsigned long long k = atomicAdd(count, 1ULL);
+      if (k < static_cast<unsigned long long>(n_first))
+        first[k] = static_cast<unsigned long long>(__double_as_longlong(a));
+    }
+  }
+}
+
 }  // namespace anrt
+
+// The f64 stencil's division (trilinear.cuh div_h: the exact multiply where
+// h is a power of two, else the operator) against the operator on n
+// dividends at the f64 spacing h (div_h64_check_kernel); exact gets 1 where
+// the grid took the multiply.  A check, launched by chip_smoke.py, by no path
+// of the port.
+extern "C" int anrt_div_h64_check(double h, unsigned long long n, unsigned long long seed,
+                                  const void* edge, int n_edge, void* count, void* first,
+                                  int n_first, void* exact, void* stream) {
+  const auto g = anrt::make_grid<double>(nullptr, 2, 2, 2, h);
+  *static_cast<int*>(exact) = g.rcp_exact ? 1 : 0;
+  anrt::div_h64_check_kernel<<<132 * 16, 256, 0, static_cast<cudaStream_t>(stream)>>>(
+      g, n, seed, static_cast<const double*>(edge), n_edge,
+      static_cast<unsigned long long*>(count), static_cast<unsigned long long*>(first), n_first);
+  return static_cast<int>(cudaGetLastError());
+}
 
 // The stencil's division (trilinear.cuh div_h) against the operator over all
 // 2^32 f32 dividends at the f32 spacing h: count (one uint64, zeroed) gets

@@ -22,6 +22,8 @@
 
 #include <cuda_runtime.h>
 
+#include <cmath>
+
 namespace anrt {
 
 // A grid, or a z-window of one: `data` holds the voxel rows [z_first,
@@ -42,7 +44,19 @@ struct Grid {
   T hi[3];         // upper face per axis: (res - 1) * h in T
   double h64;      // h in f64, and its reciprocal rounded to f64: div_h's divisor
   double rcp64;
+  bool rcp_exact;  // h64 a power of two with an exact reciprocal (exact_reciprocal)
 };
+
+// Whether h is a power of two whose reciprocal f64 holds exactly: 2^k with k
+// >= -1023 (frexp gives 0.5 * 2^(k+1)).  Then a / h and a * (1/h) are the
+// same real number a * 2^-k rounded once, so they round alike for every f64
+// a: zeros, infinities, subnormal and overflowing quotients included (NaN
+// stays NaN).  kernels/wrappers.py::exact_reciprocal is its twin on the host.
+__host__ inline bool exact_reciprocal(double h) {
+  int e = 0;
+  const double m = std::frexp(h, &e);
+  return m == 0.5 && e >= -1022;
+}
 
 template <typename T>
 __host__ inline Grid<T> make_grid(const void* data, int W, int H, int D, double h,
@@ -60,11 +74,17 @@ __host__ inline Grid<T> make_grid(const void* data, int W, int H, int D, double 
   g.hi[2] = static_cast<T>(D - 1) * g.h;
   g.h64 = static_cast<double>(g.h);
   g.rcp64 = 1.0 / g.h64;
+  g.rcp_exact = exact_reciprocal(g.h64);
   return g;
 }
 
-// a / g.h, rounded to nearest as the operator rounds it, for every a.  f64
-// grids take the operator (their kernels serve checks).  For f32 the
+// a / g.h, rounded to nearest as the operator rounds it, for every a.  An
+// f64 grid whose spacing is a power of two (rcp_exact: the 2008 baseline's
+// 65^3 fuel volume, h = 1/64) multiplies by the exact reciprocal; any other
+// f64 grid takes the operator, whose reciprocal seed, refinement, operand
+// check and slow-path call take K20's step from 161 instructions to 225
+// (PERF.md).  K20 takes the choice out of its loop (with_division); the
+// other kernels test the flag, which is the same for every thread.  For f32 the
 // operator compiles to a fast path, a check of its operands (FCHK) and a
 // call to a slow path in a branch region of its own, three a step in the
 // stencil; the scheduler does not reach across those regions (as in the
@@ -82,6 +102,30 @@ __host__ inline Grid<T> make_grid(const void* data, int W, int H, int D, double 
 template <typename T>
 __device__ __forceinline__ T div_h(const Grid<T>& g, T a) {
   return a / g.h;
+}
+
+template <>
+__device__ __forceinline__ double div_h<double>(const Grid<double>& g, double a) {
+  return g.rcp_exact ? a * g.rcp64 : a / g.h;
+}
+
+// body(grid) with an f64 grid's rcp_exact a constant the compiler sees, so
+// that the loop inside holds either the multiply or the operator, not a test
+// of the flag at each of its divisions; an f32 grid goes as it is.
+template <typename T, typename Body>
+__device__ __forceinline__ void with_division(const Grid<T>& g, Body body) {
+  if constexpr (sizeof(T) == sizeof(double)) {
+    Grid<T> f = g;
+    if (g.rcp_exact) {
+      f.rcp_exact = true;
+      body(f);
+    } else {
+      f.rcp_exact = false;
+      body(f);
+    }
+  } else {
+    body(g);
+  }
 }
 
 template <>
@@ -109,6 +153,21 @@ __device__ __forceinline__ int clampi(int v, int lo, int hi) {
   return v < lo ? lo : (v > hi ? hi : v);
 }
 
+// Whether an f32 stencil converts its cell with a saturating conversion and
+// takes its 8 indices from one base index and three offsets: the same
+// corners in fewer instructions, 3-8 % off the f32 forward kernels, up to 6
+// % off the backward ones, K3 and K6 level.  Not in f64 (K20 2 % slower),
+// nor in a source that defines ANRT_FULL_INDEX before this header (slab.cu:
+// K21, freed of 8 registers, ran more blocks an SM and lost 7 % to its band
+// sweeps; PERF.md).
+#ifdef ANRT_FULL_INDEX
+template <typename T>
+constexpr bool kOffsetIndex = false;
+#else
+template <typename T>
+constexpr bool kOffsetIndex = sizeof(T) == sizeof(float);
+#endif
+
 // The clamped corner nodes c[axis][0 or 1] of the cell that holds p, and the
 // fractional offsets w0: what stencil() computes before the flat indices.
 template <typename T>
@@ -120,9 +179,17 @@ __device__ __forceinline__ void corner_cells(const Grid<T>& g, const T p[3], int
     const T pm = div_h(g, p[k]);
     const T posf = floor(pm);
     w0[k] = pm - posf;  // may leave [0, 1] off-grid
-    // clamp in floating point first so the cast to int cannot overflow
-    const T lo = static_cast<T>(-2), hi = static_cast<T>(res[k] + 1);
-    const int pos = static_cast<int>(posf < lo ? lo : (posf > hi ? hi : posf));
+    int pos;
+    if constexpr (kOffsetIndex<T>) {
+      // the conversion saturates (NaN gives 0), and min() keeps pos + 1 from
+      // overflowing: the corners of the clamp in floating point below, with
+      // fewer instructions
+      pos = min(__float2int_rz(posf), res[k]);
+    } else {
+      // clamp in floating point first so the cast to int cannot overflow
+      const T lo = static_cast<T>(-2), hi = static_cast<T>(res[k] + 1);
+      pos = static_cast<int>(posf < lo ? lo : (posf > hi ? hi : posf));
+    }
     c[k][0] = clampi(pos, 0, res[k] - 1);
     c[k][1] = clampi(pos + 1, 0, res[k] - 1);
   }
@@ -135,13 +202,28 @@ __device__ __forceinline__ Stencil<T> stencil_of(const Grid<T>& g, const int c[3
   Stencil<T> s;
 #pragma unroll
   for (int k = 0; k < 3; ++k) s.w0[k] = w0[k];
+  if constexpr (kOffsetIndex<T>) {
+    // one base index and the steps to the far corners (0 where a corner is
+    // clamped onto the near one): the same indices in fewer instructions
+    const int base = ((c[2][0] - g.z_first) * g.H + c[1][0]) * g.W + c[0][0];
+    const int off[3] = {c[0][1] - c[0][0], (c[1][1] - c[1][0]) * g.W,
+                        (c[2][1] - c[2][0]) * (g.W * g.H)};
 #pragma unroll
-  for (int a = 0; a < 2; ++a)
+    for (int a = 0; a < 2; ++a)
 #pragma unroll
-    for (int b = 0; b < 2; ++b)
+      for (int b = 0; b < 2; ++b)
 #pragma unroll
-      for (int cc = 0; cc < 2; ++cc)
-        s.idx[a][b][cc] = ((c[2][cc] - g.z_first) * g.H + c[1][b]) * g.W + c[0][a];
+        for (int cc = 0; cc < 2; ++cc)
+          s.idx[a][b][cc] = base + (a ? off[0] : 0) + (b ? off[1] : 0) + (cc ? off[2] : 0);
+  } else {
+#pragma unroll
+    for (int a = 0; a < 2; ++a)
+#pragma unroll
+      for (int b = 0; b < 2; ++b)
+#pragma unroll
+        for (int cc = 0; cc < 2; ++cc)
+          s.idx[a][b][cc] = ((c[2][cc] - g.z_first) * g.H + c[1][b]) * g.W + c[0][a];
+  }
   return s;
 }
 

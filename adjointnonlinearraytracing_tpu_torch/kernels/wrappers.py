@@ -190,6 +190,7 @@ K22 ``slab_backtrace_phase`` (csrc/slab.cu)
 from __future__ import annotations
 
 import ctypes
+import math
 from typing import Callable, List, Optional, Tuple, Union
 
 import torch
@@ -533,21 +534,33 @@ def trace_target(data: torch.Tensor, h: float, x0: torch.Tensor, v0: torch.Tenso
     return xt, vt, d2
 
 
+def node_pairs(data: torch.Tensor, sdf: torch.Tensor) -> torch.Tensor:
+    """The ``(D, H, W, 2)`` grid of node pairs ``(data, sdf)`` that K13, K17
+    and K19 read: each corner of both grids is one load at one address
+    (``rules.cuh``, ``kSdfPacked``; K19's replay too).  Made as the real view of a complex
+    tensor, one coalesced pass (at 128^3 f32 0.011 ms on an H100, where
+    ``torch.stack`` along the last axis took 0.023)."""
+    return torch.view_as_real(torch.complex(data, sdf))
+
+
 def trace_sdf(data: torch.Tensor, sdf: torch.Tensor, h: float, x0: torch.Tensor,
               v0: torch.Tensor, ds: float, max_steps: int,
               order: Optional[torch.Tensor] = None) -> Tuple[torch.Tensor, torch.Tensor]:
     """K13: ``(xt, vt)`` of the rays ``(x0, v0)`` at their crossing out of
     ``sdf < 0`` (``sdf``: a grid of ``data``'s shape, type and spacing), in
-    two launches as :func:`trace_target`.  ``order`` as for :func:`trace_fwd`."""
+    two launches as :func:`trace_target`, both reading the grids packed node
+    by node (:func:`node_pairs`, made at each call).  ``order`` as for
+    :func:`trace_fwd`."""
     _check_grid(data, "trace_sdf")
     _check_sdf(sdf, data, "trace_sdf")
     n_rays = _check_rays(data, "trace_sdf", x0=x0, v0=v0)
     _check_order(order, data, n_rays, "trace_sdf")
     xt, vt = torch.empty_like(x0), torch.empty_like(v0)
     if n_rays:
+        pairs = node_pairs(data, sdf)
         hz = _horizon(data, n_rays)
         for pass_ in (1, 2):
-            _launch_on_grid("trace_sdf", data, float(h), float(ds), sdf.data_ptr(),
+            _launch_on_grid("trace_sdf", data, float(h), float(ds), pairs.data_ptr(),
                             x0.data_ptr(), v0.data_ptr(), _ptr(order), xt.data_ptr(),
                             vt.data_ptr(), *map(_ptr, hz), n_rays, int(max_steps), pass_)
     return xt, vt
@@ -844,11 +857,54 @@ def stencil_div_check(h: float, n_first: int = 16) -> Tuple[int, List[int]]:
     return n, [int(b) & 0xFFFFFFFF for b in first[:min(n, n_first)].tolist()]
 
 
+def exact_reciprocal(h: float) -> bool:
+    """Whether the f64 spacing ``h`` is a power of two whose reciprocal f64
+    holds exactly, so that the stencil's ``a / h`` is ``a * (1 / h)`` for
+    every ``a`` (``csrc/trilinear.cuh``, ``exact_reciprocal``, whose twin
+    this is: the f64 kernels multiply where it holds)."""
+    m, e = math.frexp(float(h))
+    return m == 0.5 and e >= -1022
+
+
+#: the f64 dividends the division check always takes (then random ones)
+DIV64_EDGES = (0.0, -0.0, math.inf, -math.inf, math.nan, 5e-324, -5e-324,
+               2.2250738585072014e-308, -2.2250738585072014e-308, 2.225073858507201e-308,
+               1.7976931348623157e308, -1.7976931348623157e308, 1.0, -1.0, 0.5, 64.0,
+               1e-300, 1e300, 3.0, 1.0 / 3.0)
+
+
+def stencil_div64_check(h: float, n: int = 1 << 32, seed: int = 0, n_first: int = 16
+                        ) -> Tuple[int, List[float], bool]:
+    """The f64 stencil's division (``csrc/trilinear.cuh``, ``div_h``: the
+    exact multiply where :func:`exact_reciprocal` holds, else the operator)
+    against the operator on the card at the f64 spacing ``h``, for the
+    dividends :data:`DIV64_EDGES` and then random ones up to ``n`` (random
+    bits, and numbers in [-128, 128)): how many quotients differ (NaN against
+    NaN is none), up to ``n_first`` of those dividends, and whether the grid
+    took the multiply.  A check; not counted in :data:`LAUNCHES`."""
+    fn = build.load("trace_fwd").anrt_div_h64_check
+    fn.argtypes = [_D, ctypes.c_ulonglong, ctypes.c_ulonglong, _VP, _I, _VP, _VP, _I, _VP, _VP]
+    fn.restype = _I
+    edge = torch.tensor(DIV64_EDGES, dtype=torch.float64, device="cuda")
+    count = torch.zeros((1,), dtype=torch.int64, device="cuda")
+    first = torch.zeros((n_first,), dtype=torch.int64, device="cuda")
+    exact = ctypes.c_int(-1)
+    err = fn(float(h), int(n), int(seed), edge.data_ptr(), edge.numel(), count.data_ptr(),
+             first.data_ptr(), int(n_first), ctypes.byref(exact),
+             torch.cuda.current_stream().cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"stencil_div64_check: kernel launch failed with CUDA error {err}")
+    k = int(count.item())
+    bits = first[:min(k, n_first)].cpu()
+    return k, bits.view(torch.float64).tolist(), bool(exact.value)
+
+
 def trace_sdf_ckpt(data: torch.Tensor, sdf: torch.Tensor, h: float, x0: torch.Tensor,
                    v0: torch.Tensor, ds: float, max_steps: int, seg: int, order: torch.Tensor,
                    horizons: Union[torch.Tensor, int], store_ckpts: bool = True):
     """K17: the sdf variant's exact forward pass over the rays ``order``, in
-    K13's two launches.
+    K13's two launches, reading K13's node pairs (:func:`node_pairs`, made at
+    each call).
 
     Returns ``(xt, vt, c, code, ckpts, horizons)`` as :func:`trace_plane_ckpt`
     (``c`` 0 for a ray never captured); ``horizons`` (int32 ``(N,)``) the step
@@ -879,8 +935,9 @@ def trace_sdf_ckpt(data: torch.Tensor, sdf: torch.Tensor, h: float, x0: torch.Te
                          f"chunk size (int >= 0), got {horizons!r}")
     hz = _horizon(data, n, words)
     if n:
+        pairs = node_pairs(data, sdf)
         for pass_ in (1, 2):
-            _launch_on_grid("trace_sdf_ckpt", data, float(h), float(ds), sdf.data_ptr(),
+            _launch_on_grid("trace_sdf_ckpt", data, float(h), float(ds), pairs.data_ptr(),
                             x0.data_ptr(), v0.data_ptr(), order.data_ptr(), xt.data_ptr(),
                             vt.data_ptr(), c.data_ptr(), code.data_ptr(), _ptr(ckpts),
                             *map(_ptr, hz), _ptr(hor), _ptr(hor_out), n, int(max_steps),
@@ -919,7 +976,9 @@ def backtrace_sdf_exact(data: torch.Tensor, sdf: torch.Tensor, h: float, ckpts: 
                         tally: Optional[torch.Tensor] = None) -> torch.Tensor:
     """K19: the sdf variant's exact flat voxel gradient, added into ``out``
     (float64 whatever the grid's type), from :func:`trace_sdf_ckpt`'s
-    checkpoints for the same ``order``; otherwise as :func:`backtrace_exact`."""
+    checkpoints for the same ``order``, its replay reading K17's node pairs
+    (:func:`node_pairs`, made at each call); otherwise as
+    :func:`backtrace_exact`."""
     _check_grid(data, "backtrace_sdf_exact")
     _check_sdf(sdf, data, "backtrace_sdf_exact")
     n_rays = _check_rays(data, "backtrace_sdf_exact", dx=dx, dv=dv)
@@ -928,7 +987,8 @@ def backtrace_sdf_exact(data: torch.Tensor, sdf: torch.Tensor, h: float, ckpts: 
     out = _exact_out(data, out, "backtrace_sdf_exact", torch.float64)
     _check_tally(tally, data, "backtrace_sdf_exact", len(EXACT_TALLY))
     if n:
-        _launch_on_grid("backtrace_sdf_exact", data, float(h), float(ds), sdf.data_ptr(),
+        pairs = node_pairs(data, sdf)
+        _launch_on_grid("backtrace_sdf_exact", data, float(h), float(ds), pairs.data_ptr(),
                         ckpts.data_ptr(), order.data_ptr(), c.data_ptr(), code.data_ptr(),
                         dx.data_ptr(), dv.data_ptr(), out.data_ptr(), _ptr(tally), n,
                         ckpts.shape[0], int(seg))

@@ -2414,10 +2414,13 @@ def variant_check(s, label, tol, times=False):
                  f"{100 * old[name]['bound_ms'] / rec['ms']:.2f} %" if name == "trace_target"
                  else ""), flush=True)
     row["passes_ms"] = pass_split(timed["trace_target"][0], "trace_target")
+    row["sdf_passes_ms"] = pass_split(timed["trace_sdf"][0], "trace_sdf")
     row["step_instructions"] = step_instructions()
     print(f"variants[{label}] trace_target " + ", ".join(
-        f"{k} {v:.4f}" for k, v in row["passes_ms"].items()) + " ms; the step loop's machine "
-          "code an iteration: " + json.dumps(row["step_instructions"]), flush=True)
+        f"{k} {v:.4f}" for k, v in row["passes_ms"].items()) + " ms; trace_sdf " + ", ".join(
+        f"{k} {v:.4f}" for k, v in row["sdf_passes_ms"].items()) + " ms (its grids packed "
+          "before pass 1); the step loop's machine code an iteration: "
+          + json.dumps(row["step_instructions"]), flush=True)
     return row, failures
 
 
@@ -3112,7 +3115,9 @@ RECORD_STRIDES = (8, 3)
 
 def record_paths_case(rif, h, ds, x0, v0, stride, label, order=None):
     """K20 against its plain version on the card: the float32 records bitwise
-    (the plain version's f64 positions cast as the kernel casts them)."""
+    (the plain version's f64 positions cast as the kernel casts them).  In
+    f64 the label names the stencil's division the grid takes (the exact
+    multiply where h is a power of two, ``wrappers.exact_reciprocal``)."""
     plain = fuel2008.record_paths_plain(rif, x0, v0, h, ds, stride)
     nrec = plain.shape[0]
     got = K.record_paths(rif, h, x0, v0, ds, nrec, stride, order)
@@ -3120,8 +3125,10 @@ def record_paths_case(rif, h, ds, x0, v0, stride, label, order=None):
     torch.cuda.synchronize()
     err = float((got - want).abs().max())
     bitwise = bool(torch.equal(got, want))
+    division = ("" if rif.dtype != torch.float64 else
+                ", h = %r: %s" % (h, "the multiply" if K.exact_reciprocal(h) else "the operator"))
     print(f"K20[{label}, stride {stride}, {nrec} records{', ordered' if order is not None else ''}"
-          f"] bitwise: {bitwise} (max abs err {err})", flush=True)
+          f"{division}] bitwise: {bitwise} (max abs err {err})", flush=True)
     return err, [] if bitwise else [f"K20 record_paths differs from its plain version ({label}, "
                                     f"stride {stride}): max abs {err}"]
 
@@ -3129,8 +3136,11 @@ def record_paths_case(rif, h, ds, x0, v0, stride, label, order=None):
 def record_paths_checks():
     """K20 bitwise against its plain version: 17^3 x 512 f64 with strides 8 and
     3 (the step bound not a multiple), two more rays that start outside and
-    never enter; 2^15 of ``combo_recon16_true``'s rays through the 65^3 fuel
-    volume in f64; then at that configuration's full width (524,288 rays, 66
+    never enter (h = 1.25: the stencil's division by the operator); 2^15 of
+    ``combo_recon16_true``'s rays through the 65^3 fuel volume in f64 (h =
+    1/64: by the exact multiply), and the same volume and rays scaled to h =
+    0.9/64 (the operator), each with and without the ray order; then at that
+    configuration's full width (524,288 rays, 66
     records), the main path's call, with and without the ray order: bitwise
     against the plain version on the same rays, its times beside the plain
     version's, and its bounds.  ``max_abs_err`` is the largest of the
@@ -3159,6 +3169,17 @@ def record_paths_checks():
     failures += record_paths_case(gt, h, ds, x[sub].contiguous(), v[sub].contiguous(), stride,
                                   "combo_recon16_true, f64 65^3, 2^15 rays",
                                   O.ray_order(x[sub], v[sub], gt.shape, h))[1]
+    # the same volume and rays at a spacing that is not a power of two: the
+    # stencil's division by the operator (the 17^3 scene's h = 1.25 too)
+    hq = K20_OPERATOR_H
+    xq, vq = (x[sub] * (hq / h)).contiguous(), v[sub].contiguous()
+    for o_ in (None, O.ray_order(xq, vq, gt.shape, hq)):
+        failures += record_paths_case(gt, hq, hq / 2, xq, vq, stride,
+                                      "combo_recon16_true's volume at h = 0.9/64, 2^15 rays",
+                                      o_)[1]
+    if K.exact_reciprocal(s["h"]) or K.exact_reciprocal(hq) or not K.exact_reciprocal(h):
+        failures.append("K20's checks must run both f64 divisions: the operator at h = "
+                        f"{s['h']!r} and {hq!r}, the multiply at {h!r}")
     order = O.ray_order(x, v, gt.shape, h)
     nrec, steps = fuel2008.record_steps(gt.shape[0], h, ds, stride)
     flush = torch.empty(64 << 20, dtype=torch.float32, device="cuda")
@@ -3919,24 +3940,82 @@ def slab_path():
 # compiler made of the forward loop
 # ---------------------------------------------------------------------------
 
-def stencil_spacings():
-    """The f32 grid spacings the script's grids use, {h: where}: the bench
-    scene and its 17^3 cut (span 20), configuration 14's 1025^3, every stage
-    of the fuel trainer, ``fuel-128`` and the four drivers, and each span's
-    17^3 grid (the compaction check's, the late sdf crossing's).  The
-    kernels take h as the f32 rounding of ``span / (res - 1)``."""
+def grid_spans():
+    """{name: (span, grid sides)} of the script's grids: the bench scene and
+    its 17^3 cut (span 20), configuration 14's 1025^3, every stage of the
+    fuel trainer, ``fuel-128`` and the four drivers, and each span's 17^3
+    grid (the compaction check's, the late sdf crossing's)."""
     spans = {"bench": (20.0, (RES, 17, SLAB_RES)), "fuel": (fuel_params()["vol_span"],
                                                            fuel_params()["res_list"]),
              "fuel-128": (fuel128_params()["vol_span"], fuel128_params()["res_list"])}
     for name in DRIVERS:
         p = driver_params(name)
         spans[name] = (p["vol_span"], p["res_list"])
+    return {name: (span, sorted(set(res_list) | {17})) for name, (span, res_list) in spans.items()}
+
+
+def stencil_spacings():
+    """The f32 grid spacings the script's grids use (:func:`grid_spans`), {h:
+    where}.  The kernels take h as the f32 rounding of ``span / (res - 1)``."""
     hs = {}
-    for name, (span, res_list) in spans.items():
-        for res in sorted(set(res_list) | {17}):
+    for name, (span, res_list) in grid_spans().items():
+        for res in res_list:
             h = float(np.float32(span / (res - 1)))
             hs.setdefault(h, []).append(f"{name} {res}^3")
     return hs
+
+
+# the 2008 baseline's f64 grids: the 65^3 fuel volume, the small check's 17^3
+# bump (span 1), and the non-power-of-two spacing record_paths_checks steps
+# the fuel volume at
+F2008_SPACINGS = {1.0 / 64: "fuel2008 65^3", 1.0 / 16: "fuel2008 small 17^3"}
+K20_OPERATOR_H = 0.9 / 64
+
+
+def stencil_spacings64():
+    """The f64 grid spacings the script's grids use, {h: where}: those of
+    :func:`grid_spans` in f64, the 2008 baseline's (``F2008_SPACINGS``) and
+    ``K20_OPERATOR_H``."""
+    hs = {}
+    for name, (span, res_list) in grid_spans().items():
+        for res in res_list:
+            hs.setdefault(span / (res - 1), []).append(f"{name} {res}^3")
+    for h, where in F2008_SPACINGS.items():
+        hs.setdefault(h, []).append(where)
+    hs.setdefault(K20_OPERATOR_H, []).append("K20 at a spacing not a power of two")
+    return hs
+
+
+def stencil_div64_checks():
+    """The f64 stencil's division (``div_h``: the exact multiply where the
+    spacing is a power of two, else the operator) against the operator at
+    every spacing of :func:`stencil_spacings64`, on the card, for the edge
+    dividends and 2^32 random ones (``wrappers.stencil_div64_check``): any
+    difference fails the run, as does a grid that took the multiply where
+    ``wrappers.exact_reciprocal`` (the host's twin) says it may not, or the
+    other way round."""
+    failures, rows = [], {}
+    t0 = time.time()
+    for h, where in stencil_spacings64().items():
+        n, first, exact = K.stencil_div64_check(h)
+        rows[h] = (n, exact)
+        if n:
+            failures.append(f"the f64 div_h differs from the operator on {n} dividends at h = "
+                            f"{h!r} ({', '.join(where)}): first {first}")
+        if exact != K.exact_reciprocal(h):
+            failures.append(f"at h = {h!r} the f64 grid took the "
+                            f"{'multiply' if exact else 'operator'}; exact_reciprocal says "
+                            f"{K.exact_reciprocal(h)}")
+    torch.cuda.synchronize()
+    kinds = {exact for _, exact in rows.values()}
+    if kinds != {True, False}:
+        failures.append(f"the f64 division check ran only the {kinds} branch")
+    print(f"stencil division f64: div_h against the operator on {len(K.DIV64_EDGES)} edge and "
+          f"2^32 random dividends at {len(rows)} spacings in {time.time() - t0:.1f} s; "
+          f"quotients that differ: " + ", ".join(
+              f"h = {h:.9g} ({'multiply' if e else 'operator'}): {n}"
+              for h, (n, e) in rows.items()), flush=True)
+    return failures
 
 
 def stencil_div_checks():
@@ -3990,17 +4069,21 @@ STEP_OPS = ("FCHK", "CALL", "BSSY", "MUFU", "LDG", "STG", "F2F", "DFMA", "DMUL")
 #: (patterns of their demangled names: cu++filt writes a bool argument as
 #: (bool)0 / (bool)1)
 FWD_KERNELS = {
-    label: rf"{kern}<float, (?:\(bool\){int(ckpt == 'true')}|{ckpt}), anrt::{rule}<float>, "
+    label: rf"{kern}<float, (?:\(bool\){int(ckpt == 'true')}|{ckpt}), anrt::{rule}, "
            r"anrt::FwdLoop>"
     for label, kern, ckpt, rule in (
-        ("trace_fwd", "trace_fwd_kernel", "false", "VolumeRule"),
-        ("trace_ckpt", "trace_fwd_kernel", "true", "VolumeRule"),
-        ("trace_plane", "trace_fwd_kernel", "false", "PlaneRule"),
-        ("trace_plane_ckpt", "trace_fwd_kernel", "true", "PlaneRule"),
-        ("trace_target", "trace_fwd_kernel", "false", "TargetRule"),
-        ("trace_target_ckpt", "trace_fwd_kernel", "true", "TargetRule"),
-        ("trace_target pass 2", "trace_horizon_kernel", "false", "TargetRule"),
-        ("trace_target_ckpt pass 2", "trace_horizon_kernel", "true", "TargetRule"))}
+        ("trace_fwd", "trace_fwd_kernel", "false", "VolumeRule<float>"),
+        ("trace_ckpt", "trace_fwd_kernel", "true", "VolumeRule<float>"),
+        ("trace_plane", "trace_fwd_kernel", "false", "PlaneRule<float>"),
+        ("trace_plane_ckpt", "trace_fwd_kernel", "true", "PlaneRule<float>"),
+        ("trace_target", "trace_fwd_kernel", "false", "TargetRule<float>"),
+        ("trace_target_ckpt", "trace_fwd_kernel", "true", "TargetRule<float>"),
+        ("trace_target pass 2", "trace_horizon_kernel", "false", "TargetRule<float>"),
+        ("trace_target_ckpt pass 2", "trace_horizon_kernel", "true", "TargetRule<float>"),
+        ("trace_sdf", "trace_fwd_kernel", "false", r"SdfRule<float, (?:\(int\))?3>"))}
+#: K20's f64 kernel: its step loop at the 2008 volume's spacing, the smaller
+#: of its two (the multiply's; the operator's is the other)
+FWD_KERNELS["record_paths (f64)"] = r"record_paths_kernel<double, anrt::FwdLoop>"
 
 
 def step_loop(sass, corners=True):
@@ -4173,7 +4256,7 @@ def main():
         for line in log.splitlines():
             if any(w in line for w in ("registers", "spill", "Compiling entry", "arning")):
                 print(f"  nvcc[{name}] {line.strip()}")
-    div_failures = stencil_div_checks()
+    div_failures = stencil_div_checks() + stencil_div64_checks()
 
     small = scene(17, 512, "float64", noise=0.02)
     compare_kernels(small, TOL_F64, TOL_F64, "f64 17^3 x 512")

@@ -189,3 +189,38 @@ def test_fuel_reconstruction_needs_a_gpu_unless_asked_for_the_cpu():
     rays = TF.gen_rays(TINY, device="cpu")
     n = TINY["nviews"] * TINY["nbins"] ** 2 * TINY["spp"]
     assert rays.x.shape == (n, 3) and rays.x.dtype == torch.float64
+
+
+@pytest.mark.parametrize("h, exact", [
+    (1.0 / 64, True), (1.0 / 16, True), (0.5, True), (1.0, True), (8.0, True),
+    (2.0 ** -1022, True), (2.0 ** -1023, True), (2.0 ** 1023, True),
+    (1.0 / 127, False), (0.9 / 16, False), (1.25, False), (20.0 / 127, False),
+    (0.9 / 64, False), (-1.0 / 64, False), (0.0, False), (2.0 ** -1024, False),
+    (5e-324, False), (float("inf"), False), (float("nan"), False)])
+def test_exact_reciprocal_picks_the_powers_of_two(h, exact):
+    """The host's rule for the f64 stencil's division (``trilinear.cuh``'s
+    ``exact_reciprocal`` and its twin in the wrappers): the exact multiply at
+    a power of two whose reciprocal f64 holds, the operator anywhere else
+    (1/127, 0.9/16, a reciprocal that overflows, zero, inf, NaN)."""
+    assert kernels.exact_reciprocal(h) is exact
+
+
+def test_exact_reciprocal_multiply_equals_the_division():
+    """At every power-of-two spacing the rule admits, ``a / h`` and ``a * (1 /
+    h)`` are the same f64 for random bit patterns, random positions and the
+    edge dividends (zeros, infinities, NaN, subnormals, the largest finite):
+    each is the real a * 2^-k rounded once.  At 1/127 they are not, which is
+    why the rule keeps the operator there."""
+    gen = np.random.default_rng(0)
+    bits = gen.integers(-2 ** 63, 2 ** 63 - 1, size=1 << 18, dtype=np.int64).view(np.float64)
+    a = np.concatenate([np.array(kernels.DIV64_EDGES), bits,
+                        gen.uniform(-128.0, 128.0, size=1 << 18)])
+    with np.errstate(all="ignore"):
+        for h in (1.0 / 64, 1.0 / 16, 0.5, 8.0, 2.0 ** -1022, 2.0 ** -1023, 2.0 ** 1023):
+            assert kernels.exact_reciprocal(h)
+            want, got = a / h, a * (1.0 / h)
+            same = (want.view(np.int64) == got.view(np.int64)) | (np.isnan(want) & np.isnan(got))
+            assert same.all(), h
+        h = 1.0 / 127
+        assert not kernels.exact_reciprocal(h)
+        assert (a / h != a * (1.0 / h)).any()

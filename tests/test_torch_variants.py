@@ -472,6 +472,36 @@ def test_variant_wrappers_refuse_cpu_tensors(scene):
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_trace_sdf_wrapper_hands_the_kernel_node_pairs(scene, dtype, monkeypatch):
+    """K13 reads the grid and the sdf as one ``(D, H, W, 2)`` grid of node
+    pairs (``wrappers.node_pairs``): node ``(z, y, x)``'s grid value at flat
+    element ``2 * ((z * H + y) * W + x)``, its sdf value next to it.  The
+    wrapper makes the pairs at each call and hands both passes their
+    address (the grid's device check and the launch stubbed out)."""
+    rif = torch.from_numpy(np.random.default_rng(0).random((5, 4, 3))).to(dtype)
+    sdf = -rif * 2.0 + 0.5
+    pairs = K.node_pairs(rif, sdf)
+    assert pairs.shape == (5, 4, 3, 2) and pairs.dtype == dtype and pairs.is_contiguous()
+    flat = pairs.reshape(-1)
+    assert torch.equal(flat[0::2], rif.reshape(-1)) and torch.equal(flat[1::2], sdf.reshape(-1))
+    z, y, x = 3, 2, 1
+    assert flat[2 * ((z * 4 + y) * 3 + x)] == rif[z, y, x]
+    assert flat[2 * ((z * 4 + y) * 3 + x) + 1] == sdf[z, y, x]
+    _, xr, vr, *_ = (_t(a).to(dtype) for a in scene)
+    made, launched = [], []
+    monkeypatch.setattr(K, "_check_grid", lambda data, name: None)
+    monkeypatch.setattr(K, "_launch_on_grid", lambda name, data, *args: launched.append(
+        (name, args)))
+    monkeypatch.setattr(K, "node_pairs", lambda a, b: made.append(torch.stack((a, b), -1))
+                        or made[-1])
+    K.trace_sdf(rif, sdf, H, xr, vr, DS, STEPS)
+    assert len(made) == 1 and torch.equal(made[0], pairs)
+    assert [name for name, _ in launched] == ["trace_sdf", "trace_sdf"]
+    assert all(args[2] == made[0].data_ptr() and args[-1] == p
+               for p, (_, args) in enumerate(launched, 1))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
 def test_backtrace_sdf_wrapper_hands_the_kernel_a_float64_sum(scene, dtype, monkeypatch):
     """K14 adds in float64 whatever the grid's type (its run and warp sums are
     the grid's): the wrapper hands the kernel a zeroed float64 gradient and

@@ -17,8 +17,11 @@ K16's and K17's pass 1, the gap and pass 2 apart by
 ``chip_smoke.pass_split``), K11 ``trace_plane`` and K12 ``trace_target``
 (as ``compat.BackPlaneTracerC`` and ``BackTargetTracerC`` launch them; K12's
 passes apart), K13 ``trace_sdf`` and K14 ``backtrace_sdf`` on the sdf batch
-(as ``compat.BackSDFTracerC`` launches them), and K2 ``trace_fwd``, K5
-``trace_ckpt`` and K3 ``backtrace`` on the bench scene.  Then it times, on
+(as ``compat.BackSDFTracerC`` launches them; K13's passes apart), K2
+``trace_fwd``, K5 ``trace_ckpt`` and K3 ``backtrace`` on the bench scene, and
+K20 ``record_paths`` on ``combo_recon16_true``'s 524,288 f64 rays in the
+caller's order (the L2 flushed before each call, as ``chip_smoke.py`` times
+it).  Then it times, on
 the host clock after a warm-up call, the three ``compat`` tracers and
 ``tracer.trace_{plane,target,sdf}_exact`` forward and backward on 2^18 and
 2^20 rays (the exact ones in four chunks of ``ANRT_EXACT_CHUNK``'s default
@@ -52,6 +55,8 @@ def main(argv=None):
 
     import chip_smoke as CS  # exits without a CUDA device
     from adjointnonlinearraytracing_tpu_torch import compat, tracer
+    from adjointnonlinearraytracing_tpu_torch.experiments import voxel_scenes
+    from adjointnonlinearraytracing_tpu_torch.pathmatrix import fuel2008
     from adjointnonlinearraytracing_tpu_torch.fields import grid as G
     from adjointnonlinearraytracing_tpu_torch.kernels import build
     from adjointnonlinearraytracing_tpu_torch.kernels import wrappers as K
@@ -106,6 +111,7 @@ def main(argv=None):
     centre = torch.full((3,), s["span"] / 2, dtype=rif.dtype, device="cuda")
     dxs, dvs = (2.0 * (xt - centre)).contiguous(), torch.ones_like(vt)
     runs["trace_sdf (K13)"] = lambda: K.trace_sdf(rif, sdf, h, xs, vs, ds, s["ns"], order_s)
+    passes["trace_sdf (K13)"] = ("trace_sdf", runs["trace_sdf (K13)"])
     runs["backtrace_sdf (K14)"] = lambda: K.backtrace_sdf(rif, sdf, h, xt, vt, dxs, dvs, ds,
                                                           s["nb"], tol, order_s)
     order_b = O.ray_order(s["x0"], s["v0"], rif.shape, h)
@@ -117,10 +123,22 @@ def main(argv=None):
                                                         order_b)
     runs["trace_ckpt (K5, bench)"] = lambda: K.trace_ckpt(rif, h, s["x0"], s["v0"], ds, s["nf"],
                                                           CS.SEG, order_b)
+    # K20 on combo_recon16_true's rays in the caller's order, as the 2008
+    # baseline launches it, L2 flushed before each call as chip_smoke.py times it
+    gt = voxel_scenes.fuel_injection_rif(dtype=torch.float64, device="cuda")
+    h20 = 1.0 / (gt.shape[0] - 1)
+    stride = CS.F2008_TRUE_CONFIG["path_stride"]
+    rays = fuel2008.gen_rays(CS.F2008_TRUE_CONFIG, device="cuda")
+    x20, v20 = rays.x.contiguous(), rays.v.contiguous()
+    nrec, _ = fuel2008.record_steps(gt.shape[0], h20, h20 / 2, stride)
+    k20 = "record_paths (K20, combo_recon16_true)"
+    runs[k20] = lambda: K.record_paths(gt, h20, x20, v20, h20 / 2, nrec, stride)
+    flush = torch.empty(64 << 20, dtype=torch.float32, device="cuda")
     times = {name: [] for name in runs}
     for _ in range(args.rounds):
         for name, fn in runs.items():
-            times[name].append(CS.time_ms(fn, args.reps))
+            times[name].append(CS.time_ms(fn, args.reps, flush if name == k20 else None))
+    del flush
     ms = {name: sorted(t)[len(t) // 2] for name, t in times.items()}
     passes_ms = {name: CS.pass_split(fn, kernel) for name, (kernel, fn) in passes.items()}
     del runs, passes
