@@ -17,21 +17,22 @@ from .benchmarks.scenes import build_case
 from .tracer import api
 
 
-def bench_loss(rif, x0, v0, span):
-    """The bench objective: ``sum((xt - target)^2) + sum(vt)`` through ``api.trace``."""
+def bench_loss(rif, x0, v0, span, ds=None):
+    """The bench objective: ``sum((xt - target)^2) + sum(vt)`` through ``api.trace``,
+    at ``ds`` (default ``h/2``)."""
     res = rif.shape[0]
     h = span / (res - 1)
-    ds = h / 2
+    ds = h / 2 if ds is None else ds
     target = torch.tensor([span / 2, span * 1.1, span / 2], dtype=rif.dtype,
                           device=rif.device)
     xt, vt = api.trace(rif, x0, v0, h, ds)
     return ((xt - target) ** 2).sum() + vt.sum()
 
 
-def fwd_bwd(rif, x0, v0, span):
+def fwd_bwd(rif, x0, v0, span, ds=None):
     """One forward + adjoint pass; returns ``(loss, d loss / d rif)``."""
     r = rif.detach().requires_grad_(True)
-    loss = bench_loss(r, x0, v0, span)
+    loss = bench_loss(r, x0, v0, span, ds)
     loss.backward()
     return loss.detach(), r.grad
 

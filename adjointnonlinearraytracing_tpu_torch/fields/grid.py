@@ -240,6 +240,12 @@ def splat_delta(field: GridField, p, val, grad, mask=None) -> torch.Tensor:
     return scatter_into(out, field, p, val, grad, mask)
 
 
+def splat(field: GridField, p, val, grad, mask=None) -> GridField:
+    """A new field: ``field`` plus :func:`splat_delta` of ``(val, grad)`` at ``p``."""
+    delta = splat_delta(field, p, val, grad, mask)
+    return GridField(field.data + delta.reshape(field.data.shape), field.h)
+
+
 def scatter_into(acc_flat: torch.Tensor, field: GridField, p, val, grad, mask=None) -> torch.Tensor:
     """Accumulate splat contributions into ``acc_flat`` **in place**; returns it.
 

@@ -1,4 +1,4 @@
-"""Ray-bundle generators (sources): the ones the experiment drivers reach.
+"""Ray-bundle generators (sources), 2D and 3D, and the 1D intensity sensor.
 
 Twin of ``adjointnonlinearraytracing_tpu/sources/sources.py``.  Every
 generator returns initial conditions ``(x, v, planes)`` where ``planes`` is
@@ -11,14 +11,16 @@ Randomness comes from an explicit ``torch.Generator`` in place of the JAX
 package's key, and the tensors are made on the generator's device.  Where the
 JAX package splits its key into one key per view, the multi-view rigs here
 draw from the one generator in view order.  Each random source is a draw
-(:func:`_uniform`, the only place a random number is made) followed by a
-deterministic body (``*_from_samples``) that takes the drawn uniforms (and,
-for :func:`random_rotmat`, normals: :func:`_normal`) as tensors, so that the
-same samples can be fed to both packages.  Where the JAX package splits a key
+(:func:`_uniform` and :func:`_normal`, the only places a random number is
+made) followed by a deterministic body (``*_from_samples``) that takes the
+drawn samples as tensors, so that the same samples can be fed to both
+packages.  Where the JAX package splits a key
 for two draws, the port draws them from the one generator in the same order.
 
 Angles are degrees.  ``pixels`` is an ``(H, W)`` tuple and ``spp`` the samples
-per pixel; the batch size is ``H * W * spp``.
+per pixel; the batch size is ``H * W * spp``.  The 2D functions
+(:func:`rotate_ray`, :func:`plane_source`, :func:`rays_in_circle`,
+:func:`create_sensor`, :func:`render_intensities`) take rays ``(N, 2)``.
 """
 
 from __future__ import annotations
@@ -59,6 +61,14 @@ def _normal(gen: torch.Generator, shape, dtype) -> torch.Tensor:
 def _axis(values, like: torch.Tensor) -> torch.Tensor:
     """``values`` (a unit vector) tiled to ``like``'s ``(N, 3)``, dtype and device."""
     return torch.tensor([values], dtype=like.dtype, device=like.device).repeat(like.shape[0], 1)
+
+
+def rotate_ray(x: torch.Tensor, angle) -> torch.Tensor:
+    """2D rotation of the rows of ``x`` ``(N, 2)`` by ``angle`` degrees."""
+    theta = torch.deg2rad(torch.as_tensor(angle, dtype=x.dtype, device=x.device))
+    c, s = torch.cos(theta), torch.sin(theta)
+    rot = torch.stack([torch.stack([c, -s]), torch.stack([s, c])])
+    return x @ rot.T
 
 
 def rotate_ray3(x: torch.Tensor, angle, vert: bool = False) -> torch.Tensor:
@@ -144,6 +154,35 @@ def hatbox_sample(gen, v: torch.Tensor, angle) -> torch.Tensor:
     uz = _uniform(gen, (n,), v.dtype)
     ut = _uniform(gen, (n,), v.dtype)
     return hatbox_from_samples(uz, ut, v, angle)
+
+
+def perturb_vector_from_samples(p: torch.Tensor, v: torch.Tensor, spp: int) -> torch.Tensor:
+    """Body of :func:`perturb_vector`; ``p`` ``(N * spp, d)`` is its normal draw."""
+    p = p / torch.linalg.norm(p, dim=-1, keepdim=True)
+    vn = v.repeat(spp, 1) + p
+    return vn / torch.linalg.norm(vn, dim=-1, keepdim=True)
+
+
+def perturb_vector(gen, v: torch.Tensor, spp: int) -> torch.Tensor:
+    """Each direction of ``v`` ``(N, d)`` jittered ``spp`` times by a random unit
+    vector and re-normalised; the copies are stacked copy by copy."""
+    return perturb_vector_from_samples(_normal(gen, (v.shape[0] * spp, v.shape[1]), v.dtype),
+                                       v, spp)
+
+
+def plane_source(angle, num_rays: int, width, dtype=torch.float32, device="cuda"):
+    """2D parallel beam of ``num_rays`` rays across ``width``, turned by ``angle``
+    degrees.  Returns ``(x, v, planes)``: ``planes`` ``(N, 2, 2)`` is the
+    sensor line's ``[origin, normal]``."""
+    dev = require_device(device)
+    x = torch.stack([torch.linspace(-width / 2, width / 2, num_rays, dtype=dtype, device=dev),
+                     torch.zeros(num_rays, dtype=dtype, device=dev)], dim=1)
+    v = rotate_ray(torch.tensor([[0.0, 1.0]], dtype=dtype, device=dev).repeat(num_rays, 1),
+                   angle)
+    x = rotate_ray(x, angle) + width / 2
+    x = x - np.sqrt(2) * width * v / 2
+    plane_x = np.sqrt(2) * width * v / 2 + width / 2
+    return x, v, torch.stack([plane_x, v], dim=1)
 
 
 def _standard_planes(v_template, angle, width, sensor_dist, xaxis):
@@ -396,6 +435,91 @@ def cone_source3_rand(gen, angle, pixels, spp: int, width, circle=False, xaxis=F
                                      xaxis=xaxis, sensor_dist=sensor_dist, cone_angle=cone_angle)
 
 
+def area_source3_from_samples(offset, hemi, angle, pixels, spp: int, width, circle=False,
+                              xaxis=False, sensor_dist=1.0):
+    """Body of :func:`area_source3_rand`; ``offset`` ``(2*spp, ph, pw)`` is its
+    uniform draw in ``[0, 1)`` and ``hemi`` ``(N, 3)`` its normal draw."""
+    ph, _ = pixels
+    offset = (offset - 0.5) * (width / ph)
+    g0, g1 = _pixel_grid(pixels, width, offset, centred=True)
+    pts = [g0[None] + offset[:spp], torch.zeros_like(offset[:spp]), g1[None] + offset[spp:]]
+    pos = torch.stack([p.reshape(-1) for p in pts], dim=-1)
+    n = pos.shape[0]
+
+    vel = hemi / torch.linalg.norm(hemi, dim=-1, keepdim=True)
+    vel = torch.cat([vel[:, :1], vel[:, 1:2].abs(), vel[:, 2:]], dim=1)
+    if circle:
+        mask = torch.linalg.norm(pos, dim=-1) < width / 2
+    else:
+        mask = _full_mask(n, pos.device)
+
+    pt = -pos
+    ydir = torch.tensor([[0.0, 1.0, 0.0]], dtype=pos.dtype, device=pos.device)
+    pos = pos - (sensor_dist + width / 2) * ydir
+    pt = pt + (sensor_dist + width / 2) * ydir
+
+    # a true division: a Python number over a tensor multiplies by the
+    # reciprocal, and the test below lands on the face |y| = width / 2
+    tpv = torch.full_like(vel[:, 1], sensor_dist) / vel[:, 1]
+    npos = pos + tpv[:, None] * vel
+    mask = mask & (npos.abs() <= width / 2).all(dim=-1)
+
+    xt = rotate_ray3(pt, angle, vert=xaxis) + width / 2
+    x = rotate_ray3(pos, angle, vert=xaxis) + width / 2
+    v = rotate_ray3(vel, angle, vert=xaxis)
+    planes = _standard_planes(v, angle, width, sensor_dist, xaxis)
+    return Rays(x, v, planes, mask), xt, tpv
+
+
+def area_source3_rand(gen, angle, pixels, spp: int, width, circle=False, xaxis=False,
+                      sensor_dist=1.0, dtype=torch.float32):
+    """Hemispherical area source: stratified points on a plane ``sensor_dist``
+    below the volume, directions uniform over the half sphere facing it.  A ray
+    whose straight line misses the volume's face is masked out, not dropped.
+    Returns ``(Rays, xt, tpv)``."""
+    ph, pw = pixels
+    offset = _uniform(gen, (2 * spp, ph, pw), dtype)
+    hemi = _normal(gen, (spp * ph * pw, 3), dtype)
+    return area_source3_from_samples(offset, hemi, angle, pixels, spp, width, circle=circle,
+                                     xaxis=xaxis, sensor_dist=sensor_dist)
+
+
+def sample_sphere_from_samples(xs, uz, ut, tangent, width, cone_angle=90.0,
+                               lens_type="luneburg"):
+    """Body of :func:`sample_sphere`; ``xs`` and ``tangent`` ``(N, 3)`` are its
+    normal draws, ``uz`` and ``ut`` ``(N,)`` the hat-box's uniform ones."""
+    xn = xs / torch.linalg.norm(xs, dim=1, keepdim=True)
+    v = -xn
+    vn = hatbox_from_samples(uz, ut, v, cone_angle)
+    vn = vn / torch.linalg.norm(vn, dim=1, keepdim=True)
+    xn = xn * width / 2
+    plane_t = tangent / torch.linalg.norm(tangent, dim=1, keepdim=True)
+    if lens_type == "luneburg":
+        plane_x = width / 2 + vn * (width / 2)
+    else:
+        plane_x = -xn + width / 2
+    nrays = xs.shape[0]
+    planes = torch.stack([plane_x, v, plane_t], dim=1)
+    return Rays(xn + width / 2, vn, planes, _full_mask(nrays, xs.device)), [nrays]
+
+
+def sample_sphere(gen, nrays: int, width, cone_angle=90.0, lens_type="luneburg",
+                  dtype=torch.float32):
+    """Rays leaving random points of the sphere of diameter ``width`` inward,
+    in a cone of ``cone_angle`` degrees about the inward normal.  Returns
+    ``(Rays, [nrays])``.
+
+    As in the JAX package, the directions are re-normalised: the hat-box's
+    tangent frame is made of unnormalised cross products, which for an
+    arbitrary axis would give ``|v| < 1`` against the tracer's ``|v| = n``."""
+    xs = _normal(gen, (nrays, 3), dtype)
+    uz = _uniform(gen, (nrays,), dtype)
+    ut = _uniform(gen, (nrays,), dtype)
+    tangent = _normal(gen, (nrays, 3), dtype)
+    return sample_sphere_from_samples(xs, uz, ut, tangent, width, cone_angle=cone_angle,
+                                      lens_type=lens_type)
+
+
 # ---------------------------------------------------------------------------
 # multi-view rigs
 # ---------------------------------------------------------------------------
@@ -407,6 +531,15 @@ def _cat_rays(views: Sequence[Rays]):
 
 def _view_angles(nviews, angle_span):
     return np.linspace(0, angle_span, nviews + 1)[:nviews]
+
+
+def rays_in_circle(nviews, rays_per_view, width, angle_span=360, dtype=torch.float32,
+                   device="cuda"):
+    """2D ring of ``nviews`` parallel-beam views (:func:`plane_source`);
+    returns their ``(x, v, planes)`` concatenated view by view."""
+    views = [plane_source(a, rays_per_view, width, dtype=dtype, device=device)
+             for a in _view_angles(nviews, angle_span)]
+    return tuple(torch.cat(parts) for parts in zip(*views))
 
 
 def rays_in_sphere(nviews, rays_per_view, width, angle_span=360, circle=False,
@@ -502,3 +635,77 @@ def norm_image(im):
     """The image mapped onto [0, 1]; a constant image is returned as it is."""
     rng = im.max() - im.min()
     return torch.where(torch.isclose(rng, torch.zeros_like(rng)), im, (im - im.min()) / rng)
+
+
+# ---------------------------------------------------------------------------
+# 1D sensors
+# ---------------------------------------------------------------------------
+
+def tent_filter(x, r=1):
+    """The tent ``max(r - x, 0)`` and its derivative (-1 inside, 0 outside)."""
+    inv_dist = r - x
+    dx = torch.where(inv_dist < 0, torch.zeros_like(x), -torch.ones_like(x))
+    return torch.clamp(inv_dist, min=0), dx
+
+
+def gauss_filter(x, r=1.0, a=0.5):
+    """A Gaussian lowered by its value at ``r``, and its derivative, both 0 where
+    ``|x| > 1``."""
+    v = torch.exp(-a * x ** 2) - np.exp(-a * r ** 2)
+    vx = -2 * a * x * torch.exp(-a * x ** 2) - np.exp(-a * r ** 2)
+    mask = x.abs() > 1
+    zero = torch.zeros_like(x)
+    return torch.where(mask, zero, v), torch.where(mask, zero, vx)
+
+
+def create_sensor(x, v, plane, nbins: int, span, e=1.0):
+    """1D tent-filtered intensity histogram of 2D rays on a sensor line, with
+    the analytic ``dI/dx`` parts.
+
+    ``plane`` ``(2, 2)`` is the line's ``[origin, normal]``; each ray adds ``e``
+    split between its two nearest of ``nbins`` bins across ``span``.  Returns
+    ``(sensor (nbins,), (sx, sv, lo, hi))``: per ray the position and
+    direction parts ``(N, 2)`` and its two bins, clamped into range.
+    """
+    p, n = plane[None, 0], plane[None, 1]
+    t = rotate_ray(plane[None, 1], 90)
+    h = span / nbins
+
+    dp = ((x - p) * t).sum(dim=-1)
+    dpn = nbins * (0.5 + dp / span) - 0.5
+    vals = (e * torch.ones_like(dpn)).abs()
+
+    dpl = torch.floor(dpn).to(torch.int64)
+    dph = dpl + 1
+    lm = (dpl < nbins) & (dpl >= 0)
+    hm = (dph < nbins) & (dph >= 0)
+
+    wl, wlx = tent_filter(dpn - dpl)
+    wh, whx = tent_filter(dpn - dph)
+    ws = wl + wh
+
+    lo, hi = dpl.clamp(0, nbins - 1), dph.clamp(0, nbins - 1)
+    zero = torch.zeros_like(dpn)
+    sensor = torch.zeros(nbins, dtype=vals.dtype, device=vals.device)
+    sensor = sensor.index_add(0, lo, torch.where(lm, wl * vals / ws, zero))
+    sensor = sensor.index_add(0, hi, torch.where(hm, wh * vals / ws, zero))
+
+    zero2 = torch.zeros_like(x)
+    sv = torch.where(lm[:, None], wl[:, None] * n, zero2)
+    sv = sv + torch.where(hm[:, None], wh[:, None] * n, zero2)
+    sx = torch.where(lm[:, None], (wlx * vals)[:, None] * t / h, zero2)
+    sx = sx + torch.where(hm[:, None], (whx * vals)[:, None] * t / h, zero2)
+    return sensor, (sx, sv, lo, hi)
+
+
+def render_intensities(x, v, planes, nviews, nrays, nbins, dim, grad=False):
+    """The 1D intensity render of each of ``nviews`` views of ``nrays`` rays,
+    concatenated; with ``grad`` also :func:`create_sensor`'s four ``dI/dx``
+    parts, each concatenated over the views."""
+    out = [create_sensor(x[i * nrays:(i + 1) * nrays], v[i * nrays:(i + 1) * nrays],
+                         planes[i * nrays], nbins, dim, e=1.0 / nrays)
+           for i in range(nviews)]
+    ims = torch.cat([o[0] for o in out])
+    if grad:
+        return ims, [torch.cat(parts) for parts in zip(*[o[1] for o in out])]
+    return ims

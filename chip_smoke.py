@@ -145,6 +145,23 @@ result.  Phases (any failure is an uncaught exception):
       L2), ms forward + backward of both, peak memory; the plain phases'
       times on the first phase's inputs, and the kernels' ms a phase from
       that phase's band sweep replayed on the card alone.
+   q. the measurement modules (``benchmarks/``), each through its own entry
+      point with the launch counts zeroed before and asserted after:
+      ``probe_evalmath.run`` (K1 bitwise against its plain version, masked,
+      unmasked and on the points sorted by cell; K1 in ray order and sorted,
+      ``grid_sample``, the plain version and the plain Hessian + splat timed
+      beside K1's bound), ``sweeps`` (33^3 x 2^18 rays at ``ds`` 0.5 h with
+      the tape and 1.0 h without; the resolution sweep 9^3 .. 129^3 at
+      2^16), ``ds_study`` in f64 at 17^3 x 64 rays on two scenes, the card's
+      rows against the CPU's within 1e-9, ``compaction_bench`` at its full
+      size (128^3, 2^18 spread rays, 1, 2, 4, 8 buckets), ``scaling`` at one
+      rank, ``probe_ds_speed`` at its four alphas, ``probe_exact_envelope`` at
+      65^3 (1,310,720 rays in 5 chunks), the three scatter probes at fewer
+      steps (f32, timed; then in f64, each case within 1e-9 of its baseline
+      and of the f64 sums of its terms), and the
+      area and sphere sources drawn on the card at a Luneburg step's 983,040
+      rays and traced forward + backward through the 129^3 lens, timed, one
+      pass under ``utils.profiling.trace`` (device time by kernel).
    Exit-step compaction: each driver run logs the buckets its trace took
    (``exit_buckets``; k makes an adjoint step k K2 and k K3 launches,
    asserted in c-g; on the card a run takes them only from
@@ -202,6 +219,7 @@ import os
 import re
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
@@ -213,6 +231,9 @@ if not torch.cuda.is_available():
 from adjointnonlinearraytracing_tpu_torch import bench, compat
 from adjointnonlinearraytracing_tpu_torch.benchmarks import probe_dma_gather
 from adjointnonlinearraytracing_tpu_torch.benchmarks import scenes
+from adjointnonlinearraytracing_tpu_torch.benchmarks import (
+    compaction_bench, ds_study, probe_bandscatter, probe_ds_speed, probe_evalmath,
+    probe_exact_envelope, probe_hotops, probe_scatter3, scaling, sweeps)
 from adjointnonlinearraytracing_tpu_torch.benchmarks.scenes import build_case
 from adjointnonlinearraytracing_tpu_torch import sensors
 from adjointnonlinearraytracing_tpu_torch.experiments import fuel_injection, voxel_scenes
@@ -228,12 +249,14 @@ from adjointnonlinearraytracing_tpu_torch.native import loader as native_loader
 from adjointnonlinearraytracing_tpu_torch import parallel
 from adjointnonlinearraytracing_tpu_torch.parallel import slabs
 from adjointnonlinearraytracing_tpu_torch.pathmatrix import fuel2008
+from adjointnonlinearraytracing_tpu_torch.sources import sources
 from adjointnonlinearraytracing_tpu_torch import tracer
 from adjointnonlinearraytracing_tpu_torch.tracer import api
 from adjointnonlinearraytracing_tpu_torch.tracer import checkpointed as CK
 from adjointnonlinearraytracing_tpu_torch.tracer import compaction
 from adjointnonlinearraytracing_tpu_torch.tracer import eikonal as E
 from adjointnonlinearraytracing_tpu_torch.tracer import order as O
+from adjointnonlinearraytracing_tpu_torch.utils import profiling
 from adjointnonlinearraytracing_tpu_torch.utils.metrics import MetricsLogger
 
 RES, NRAYS = 128, 1 << 18
@@ -244,10 +267,7 @@ GATHER_ROWS, GATHER_N, GATHER_REPS = 66 ** 3, 1 << 18, 8
 FUEL_ITERS, FUEL_ITERS_SHIPPED = 10, 300
 # the exact gradient's checkpoint interval: trace_exact's and make_trace's default
 SEG = 32
-# ~0.5 ms of the card's clock: longer than the host takes to launch a kernel,
-# K6's wrapper included (its checks, allocation and launch took more than the
-# 0.1 ms allowed before, and the gap showed as kernel time)
-BUSY_CYCLES = 1_000_000
+BUSY_CYCLES = profiling.BUSY_CYCLES
 PEAK_BYTES_PER_S = 3.35e12
 PEAK_F32_FLOPS = 67e12
 # f64 outside the tensor cores (NVIDIA's H100 SXM data sheet: 34 TFLOP/s)
@@ -345,38 +365,9 @@ def rel_err(got, want):
     return err / max(1.0, float(want.abs().max())), err
 
 
-def time_ms(fn, reps, flush=None, dirty=False, warm=True):
-    """Median CUDA-event time of ``fn`` over ``reps`` calls after one warm-up.
-
-    ``flush``: a 256 MB buffer, read before each call so that the 50 MB L2
-    holds none of the call's data, only clean lines; with ``dirty`` it is
-    written instead (the earlier yardstick), leaving dirty lines that the
-    call's misses must write back first.  Before each call the card is kept
-    busy for ~0.5 ms (``BUSY_CYCLES``), so that the host's own work before
-    the launch (Python, argument checks, allocations) does not show as idle
-    time between the two events: without it a call of 0.02 ms on the card
-    read up to twice that."""
-    if warm:
-        fn()
-        if flush is not None:  # the flush's and the wait's own kernels load at first use
-            flush.sum()
-        torch.cuda._sleep(BUSY_CYCLES)
-    times = []
-    for _ in range(reps):
-        if flush is not None:
-            if dirty:
-                flush.add_(1.0)
-            else:
-                flush.sum()
-        torch.cuda._sleep(BUSY_CYCLES)
-        start = torch.cuda.Event(enable_timing=True)
-        stop = torch.cuda.Event(enable_timing=True)
-        start.record()
-        fn()
-        stop.record()
-        torch.cuda.synchronize()
-        times.append(start.elapsed_time(stop))
-    return sorted(times)[len(times) // 2]
+# median CUDA-event ms of one call after an L2 flush and ~0.5 ms of busy card
+# (``utils/profiling.py``; the design tools call it under this name)
+time_ms = profiling.kernel_ms
 
 
 def set_bound(rec, peak_flops=PEAK_F32_FLOPS):
@@ -687,7 +678,7 @@ def time_kernels(s, cmp):
     n, item = s["x0"].shape[0], rif.element_size()
     grid_bytes = rif.numel() * item
     mask = cmp["mask"]
-    flush = torch.zeros(64 << 20, dtype=torch.float32, device="cuda")
+    flush = profiling.l2_flush_buffer()
 
     # one trilinear grid_sample gives the value alone (no gradient, no mask):
     # the nearest single library call, timed as a yardstick and used nowhere
@@ -780,7 +771,7 @@ def gather_check_and_time():
             if err != 0.0 or not torch.equal(got, want):
                 raise AssertionError("gather_rows disagrees with its plain version")
     del tab, got, want
-    flush = torch.zeros(64 << 20, dtype=torch.float32, device="cuda")
+    flush = profiling.l2_flush_buffer()
     row_bytes = table.shape[1] * table.element_size()
     rec = dict(
         ms=time_ms(lambda: K.gather_rows(table, idx), 10, flush),
@@ -3936,6 +3927,180 @@ def slab_path():
 
 
 # ---------------------------------------------------------------------------
+# phase q: the measurement modules (benchmarks/, utils/profiling.py)
+# ---------------------------------------------------------------------------
+
+MEASURE_ITERS = 1          # timed iterations a sweep row
+MEASURE_REPS = 10          # K1 launches timed a case in probe_evalmath
+MEASURE_RES_LIST = (9, 17, 33, 65, 129)
+MEASURE_DS_MULTS = (0.5, 1.0)      # the step-size sweep's rows; the tape at the first
+DS_STUDY_SIZE = (17, 64)           # res, rays: f64 on the card and on the CPU
+DS_STUDY_SCENES = ("bench_bump", "luneburg")
+COMPACTION_BUCKETS, COMPACTION_ITERS = (1, 2, 4, 8), 2
+SCALING_ITERS = 2
+DS_SPEED_ITERS = 3
+ENVELOPE_RES, ENVELOPE_STEPS = 65, 2
+# a Luneburg step's batch: six faces of 128^2 x 10 spp
+SOURCE_RAYS, SOURCE_PIXELS, SOURCE_SPP, SOURCE_RES, SOURCE_ITERS = 983_040, (128, 128), 60, 129, 2
+SCATTER3_SMALL = dict(steps=4, reps=1)
+HOTOPS_SMALL = dict(steps=10, reps=1)
+BANDSCATTER_SMALL = dict(steps=8, reps=1)
+# The scatter probes' cases are held in f64: each within TOL_F64 of its
+# baseline and of the f64 sums of its terms.  Their f32 runs (the timed ones)
+# print both distances ungated: probe_scatter3's LCG (the JAX probe's) puts
+# every row on one of 40 words modulo 139,000 after the first step, ~2e4 f32
+# terms a word a step, and on an H100 two f32 orders of those sums differed by
+# 1.2e-5 of the largest, and one order from the f64 sum by 1.01e-5, from run
+# to run: a 1e-5 limit in f32 is a coin flip there, not a check.
+
+
+def _launches(**counts):
+    return {**{name: 0 for name in build.KERNELS}, **counts}
+
+
+def measured(label, fn, want, total, out):
+    """Run one module's entry point with the counts zeroed before and read after;
+    its launches must be ``want``.  Adds them to ``total``; the result to ``out``."""
+    K.reset_launches()
+    t0 = time.time()
+    rec = fn()
+    torch.cuda.synchronize()
+    got = dict(K.LAUNCHES)
+    if got != want:
+        raise AssertionError(f"phase q: {label} must launch {want}, counted {got}")
+    for name, n in got.items():
+        total[name] += n
+    out[label] = dict(seconds=time.time() - t0, launches={k: v for k, v in got.items() if v},
+                      result=rec)
+    print(f"measure[{label}] {out[label]['seconds']:.1f} s, launches "
+          f"{out[label]['launches']}: {json.dumps(rec)}", flush=True)
+    return rec
+
+
+def source_path():
+    """``sources.area_source3_rand`` and ``sample_sphere`` drawn on the card at a
+    Luneburg step's batch and traced through ``api.trace`` forward + backward on
+    the Luneburg lens at 129^3 (K2, K3), each timed; one pass under
+    ``utils.profiling.trace``, whose device time per kernel is read back."""
+    span = 20.0
+    lens = ds_study.scenes(SOURCE_RES, span, dtype=torch.float32, names=("luneburg",))["luneburg"]
+    h = span / (SOURCE_RES - 1)
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    draws = {
+        "area_source3_rand": lambda: sources.area_source3_rand(
+            gen, 30.0, SOURCE_PIXELS, SOURCE_SPP, span, sensor_dist=0.5),
+        "sample_sphere": lambda: sources.sample_sphere(gen, SOURCE_RAYS, span),
+    }
+    rec = {}
+    for name, draw in draws.items():
+        draw_s = profiling.timeit(draw, iters=3, warmup=1)
+        rays = draw()[0]
+        if rays.x.shape != (SOURCE_RAYS, 3) or not bool(torch.isfinite(rays.v).all()):
+            raise AssertionError(f"{name}: wrong or non-finite rays")
+        live = rays.mask.to(lens.dtype)
+
+        def step():
+            r = lens.detach().requires_grad_(True)
+            xt, vt = api.trace(r, rays.x, rays.v, h, h / 2)
+            ((xt ** 2).sum(dim=1) * live).sum().backward()
+            return r.grad
+
+        step_s = profiling.timeit(step, iters=SOURCE_ITERS, warmup=1)
+        g = step()
+        if not bool(torch.isfinite(g).all()) or not float(g.abs().max()) > 0:
+            raise AssertionError(f"{name}: the gradient is not finite or all zero")
+        rec[name] = dict(rays=SOURCE_RAYS, live=int(rays.mask.sum()), draw_ms=1e3 * draw_s,
+                         fwd_bwd_ms=1e3 * step_s, rays_per_s=SOURCE_RAYS / step_s)
+    with tempfile.TemporaryDirectory() as logdir:
+        with profiling.trace(logdir) as prof:
+            step()
+        device_us = {e.key: e.device_time_total for e in prof.key_averages()
+                     if e.device_time_total > 0}
+        rec["profiler"] = dict(trace_bytes=os.path.getsize(os.path.join(logdir, "trace.json")),
+                               device_us_top=dict(sorted(device_us.items(),
+                                                         key=lambda kv: -kv[1])[:6]))
+    return rec
+
+
+def measure_path():
+    """Phase q: every measurement module through its own entry point on the
+    card, each module's launches asserted exactly; returns the records and the
+    phase's launches."""
+    total, out, failures = _launches(), {}, []
+    it = MEASURE_ITERS
+
+    k1 = measured("probe_evalmath", lambda: probe_evalmath.run(reps=MEASURE_REPS),
+                  _launches(eval_grad=3 + 2 * (MEASURE_REPS + 1)), total, out)
+    if not all(k1["bitwise"].values()):
+        failures.append(f"probe_evalmath: K1 not bitwise {k1['bitwise']}")
+
+    def sweep():
+        rows = [*sweeps.profile_stepsize(nrays=NRAYS, res=33, iters=it, include_ad=True,
+                                         ds_mults=MEASURE_DS_MULTS[:1]),
+                *sweeps.profile_stepsize(nrays=NRAYS, res=33, iters=it, include_ad=False,
+                                         ds_mults=MEASURE_DS_MULTS[1:]),
+                *sweeps.profile_resolution(iters=it, res_list=MEASURE_RES_LIST)]
+        if any(r["back_time_s"] == "oom" for r in rows) or rows[0]["ad_time_s"] == "oom":
+            raise AssertionError(f"sweeps: a row ran out of memory: {rows}")
+        return rows
+
+    rows = len(MEASURE_DS_MULTS) + len(MEASURE_RES_LIST)
+    measured("sweeps", sweep, _launches(trace_fwd=rows * (1 + it), backtrace=rows * (1 + it)),
+             total, out)
+
+    res, n = DS_STUDY_SIZE
+    calls = len(DS_STUDY_SCENES) * (1 + len(ds_study.ALPHAS))
+    card = measured("ds_study", lambda: ds_study.study(res, n, names=DS_STUDY_SCENES),
+                    _launches(trace_ckpt=calls, backtrace_exact=calls), total, out)
+    cpu = ds_study.study(res, n, device="cpu", names=DS_STUDY_SCENES)
+    worst = max(abs(a[k] - b[k]) / max(1.0, abs(b[k])) for a, b in zip(card, cpu)
+                for k in a if isinstance(a[k], float))
+    same = all(a[k] == b[k] for a, b in zip(card, cpu) for k in a if not isinstance(a[k], float))
+    out["ds_study"]["card_vs_cpu_rel_err"] = worst
+    print(f"ds_study[f64 {res}^3 x {n}] card rows against CPU rows: rel_err {worst:.3e} "
+          f"(tol {TOL_F64:g}); other fields equal: {same}", flush=True)
+    if not (worst <= TOL_F64 and same):
+        failures.append(f"ds_study: card rows differ from CPU rows ({worst:.3e}, {same})")
+
+    nb = sum(COMPACTION_BUCKETS) * (1 + COMPACTION_ITERS)
+    measured("compaction_bench",
+             lambda: compaction_bench.run(buckets=COMPACTION_BUCKETS, iters=COMPACTION_ITERS),
+             _launches(trace_fwd=nb, backtrace=nb), total, out)
+    measured("scaling", lambda: scaling.profile_scaling(iters=SCALING_ITERS),
+             _launches(trace_fwd=1 + SCALING_ITERS, backtrace=1 + SCALING_ITERS), total, out)
+    na = len(probe_ds_speed.ALPHAS) * (1 + DS_SPEED_ITERS)
+    measured("probe_ds_speed", lambda: probe_ds_speed.run(iters=DS_SPEED_ITERS),
+             _launches(trace_fwd=na, backtrace=na), total, out)
+    chunks = len(CK._chunks(probe_exact_envelope.NRAYS, CK.exact_chunk_rays()))
+    ne = 1 + ENVELOPE_STEPS
+    env = measured("probe_exact_envelope",
+                   lambda: probe_exact_envelope.run_case(ENVELOPE_RES, steps=ENVELOPE_STEPS),
+                   _launches(trace_ckpt=ne * (1 + chunks), backtrace_exact=ne * chunks),
+                   total, out)
+    if not env["grad_finite"]:
+        failures.append("probe_exact_envelope: the gradient is not finite")
+    for label, probe, small in (("probe_scatter3", probe_scatter3, SCATTER3_SMALL),
+                                ("probe_hotops", probe_hotops, HOTOPS_SMALL),
+                                ("probe_bandscatter", probe_bandscatter, BANDSCATTER_SMALL)):
+        rows = measured(label, lambda: probe.run(**small), _launches(), total, out)
+        rows64 = probe.run(**small, dtype=torch.float64)
+        errs = {k: max((r[k] for r in rows64 if r[k] is not None), default=0.0)
+                for k in ("max_rel_err", "max_rel_err_f64")}
+        f32 = max((r["max_rel_err_f64"] for r in rows if r["max_rel_err_f64"] is not None),
+                  default=0.0)
+        out[label]["f64_check"] = errs
+        print(f"{label}[f64] largest distance of a case to its baseline "
+              f"{errs['max_rel_err']:.3e}, to the f64 sums {errs['max_rel_err_f64']:.3e} (tol "
+              f"{TOL_F64:g}); in f32 to the f64 sums {f32:.3e} (printed)", flush=True)
+        if not all(e <= TOL_F64 for e in errs.values()):
+            failures.append(f"{label}: a case is off its baseline in f64: {errs}")
+    # each source: a warm-up, the timed passes and the checked one; then the traced pass
+    ns = 2 * (SOURCE_ITERS + 2) + 1
+    measured("sources", source_path, _launches(trace_fwd=ns, backtrace=ns), total, out)
+    return out, total, failures
+
+
+# ---------------------------------------------------------------------------
 # the stencil's f32 division (kernels/csrc/trilinear.cuh, div_h) and what the
 # compiler made of the forward loop
 # ---------------------------------------------------------------------------
@@ -4469,9 +4634,16 @@ def main():
     failures += s_failures
     times.update(slab_times)
     phase_s_s = time.time() - t_s
+    # phase q: the measurement modules
+    torch.cuda.empty_cache()
+    t_q = time.time()
+    measure, measure_launches, q_failures = measure_path()
+    failures += q_failures
+    phase_q_s = time.time() - t_q
     print(f"phases: v (variants) {phase_v_s:.1f} s, x (exact variants) {phase_x_s:.1f} s, "
           f"p (fuel2008) {phase_p_s:.1f} s, m (mesh, fuel-128) {phase_m_s:.1f} s, "
-          f"s (sharded variants, slab ring) {phase_s_s:.1f} s", flush=True)
+          f"s (sharded variants, slab ring) {phase_s_s:.1f} s, q (measurement modules) "
+          f"{phase_q_s:.1f} s", flush=True)
     full_run = fuel_path(FUEL_ITERS_SHIPPED, "f32 full width, shipped optim_iters", work)
     print(f"fuel[shipped] {full_run['steps']} steps in {full_run['seconds']:.1f} s, escalated "
           f"at stage {full_run['escalated']}, rel_norm {full_run['rel_norm']:.4f}", flush=True)
@@ -4486,13 +4658,16 @@ def main():
     print("fuel128: " + json.dumps(fuel128), flush=True)
     print("slab: " + json.dumps(slab_rec), flush=True)
     print("compaction: " + json.dumps(comp), flush=True)
+    print("measure: " + json.dumps({k: {kk: vv for kk, vv in v.items() if kk != "result"}
+                                    for k, v in measure.items()}), flush=True)
 
     paths = {"bench": bench_launches, "probe": probe_launches, "fuel": fuel["launches"],
              **{name: d["launches"] for name, d in drivers.items()},
              "fiber": fiber_rec["launches"], "fiber_exact": fiber_exact["launches"],
              "variants": variants["launches"], "variants_exact": exact_path["launches"],
              "fuel2008": f2008["launches"], "fuel2008_true": f2008_true["launches"],
-             "fuel128": fuel128["launches"], "sharded": sharded_launches, "slab": slab_launches}
+             "fuel128": fuel128["launches"], "sharded": sharded_launches, "slab": slab_launches,
+             "measure": measure_launches}
     replaces = {
         "eval_grad": "adjointnonlinearraytracing_tpu/benchmarks/probe_evalmath.py:107",
         "trace_fwd": "adjointnonlinearraytracing_tpu/tracer/paired.py:64",
@@ -4553,17 +4728,19 @@ def main():
     # and the data-dependent work this run's inputs needed
     extra = {
         "eval_grad": {"rel_tol": TOL_F32_STATE, "points": NRAYS,
+                      "probe": {k: measure["probe_evalmath"]["result"][k]
+                                for k in ("ms", "bound_ms", "share_of_bound", "bitwise")},
                       "before": times["eval_grad"]["before"],
                       "ms_dirty_flush": times["eval_grad"]["ms_dirty_flush"],
                       "library_ms_dirty_flush": times["eval_grad"]["library_ms_dirty_flush"],
-                      "launched_by": "fields.grid.eval_grad"},
+                      "launched_by": "fields.grid.eval_grad, benchmarks.probe_evalmath.run"},
         "trace_fwd": {"rel_tol": 0.0, **cmp["fstats"],
                       "ms_unordered": times["trace_fwd"]["ms_unordered"],
                       "order_ms": times["order_ms"],
                       "fuel_ms_by_stage": fuel_stage_ms["trace_fwd"],
                       "launched_by": "bench.run, tracer.api.trace, the spot checks, "
                                      "experiments.fuel_injection.run_opt, the drivers "
-                                     "before their escalation"},
+                                     "before their escalation, the measurement modules"},
         "backtrace": {"rel_tol": TOL_F32_GRAD, **cmp["bstats"],
                       "atomic_adds": 8 * cmp["issued"],
                       "ms_unordered": times["backtrace"]["ms_unordered"],
@@ -4578,15 +4755,16 @@ def main():
                       "launched_by": "bench.run, tracer.api.trace, the spot checks, "
                                      "experiments.fuel_injection.run_opt, the drivers "
                                      "before their escalation, compat.BackPlaneTracerC and "
-                                     "BackTargetTracerC (backward)"},
+                                     "BackTargetTracerC (backward), the measurement modules"},
         "trace_ckpt": {"rel_tol": 0.0, **ex_bench["fwd"],
                        "fuel_ms_by_stage": fuel_stage_ms["trace_ckpt"],
                        "fuel_ms_by_stage_alone": {r["label"]: r["k5_ms"] for r in exact_rows},
                        "fuel_share_of_bound_by_stage": {r["label"]: r["k5"]["share_of_bound"]
                                                         for r in exact_rows},
                        "checkpoint_mb": ex_bench["ckpt_mb"],
-                       "launched_by": "tracer.trace_exact: the spot checks, and every "
-                                      "driver after its stage escalation"},
+                       "launched_by": "tracer.trace_exact: the spot checks, every "
+                                      "driver after its stage escalation, "
+                                      "benchmarks.ds_study and probe_exact_envelope"},
         "backtrace_exact": {"rel_tol": TOL_F32_GRAD, **ex_bench["bwd"],
                             "fuel_ms_by_stage": fuel_stage_ms["backtrace_exact"],
                             "stage_checks": [
@@ -4600,8 +4778,9 @@ def main():
                                                    "horizon")}
                                 for r in variant_exact_rows if r["variant"] == "target"],
                             "target_exact_times": exact_path.get("backtrace_exact (target)"),
-                            "launched_by": "tracer.trace_exact: the spot checks, and "
-                                           "every driver after its stage escalation; "
+                            "launched_by": "tracer.trace_exact: the spot checks, "
+                                           "every driver after its stage escalation, "
+                                           "benchmarks.ds_study and probe_exact_envelope; "
                                            "tracer.trace_target_exact (backward)"},
         **{name: {"rel_tol": TOL_F32_GRAD if name.startswith("backtrace") else 0.0,
                   "rel_tol_against": ("the f64 sum of the plain version's f32 terms"

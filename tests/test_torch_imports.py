@@ -27,7 +27,7 @@ def _modules():
 
 def test_every_module_imports_without_jax():
     names = _modules()
-    assert len(names) >= 28
+    assert len(names) >= 60
     code = (
         "import importlib, sys\n"
         "from adjointnonlinearraytracing_tpu_torch.kernels import build\n"
@@ -109,6 +109,48 @@ def test_trainer_probe_and_trace_closure_need_a_gpu_and_never_use_the_cpu_instea
     assert trace(rif, x0, v0)[0].shape == (4, 3)
     with pytest.raises(RuntimeError, match="this trace was made for cpu"):
         trace(rif.to("meta"), x0, v0)
+
+
+def test_measurement_modules_and_sources_need_a_gpu_unless_asked_for_the_cpu():
+    """The entry points of the measurement modules, the profiling helpers and
+    the 2D sources default to the GPU; asked for it where there is none they
+    raise, and with ``device="cpu"`` they run."""
+    if torch.cuda.is_available():
+        pytest.skip("a GPU is present: this checks the GPU-less behaviour")
+    from adjointnonlinearraytracing_tpu_torch.benchmarks import (
+        compaction_bench, ds_study, probe_bandscatter, probe_ds_speed, probe_evalmath,
+        probe_exact_envelope, probe_hotops, probe_scatter3, scaling, sweeps)
+    from adjointnonlinearraytracing_tpu_torch.sources import sources
+    from adjointnonlinearraytracing_tpu_torch.utils import profiling
+
+    one = torch.ones(2)
+    for call in (
+            lambda: probe_evalmath.run(res=5, n=4, reps=1),
+            lambda: sweeps.profile_stepsize(nrays=4, res=5, iters=1),
+            lambda: sweeps.profile_resolution(nrays=4, iters=1, res_list=(5,)),
+            lambda: ds_study.study(res=5, nrays=4),
+            lambda: ds_study.main(["--res", "5", "--nrays", "4", "--out", ""]),
+            lambda: ds_study.entry_rays(4, 1.0),
+            lambda: compaction_bench.run(res=5, nrays=8),
+            lambda: compaction_bench.spread_case(res=5, nrays=8),
+            lambda: scaling.profile_scaling(res=5, rays_per_device=4, iters=1),
+            lambda: probe_ds_speed.run(res=5, nrays=4, iters=1),
+            lambda: probe_exact_envelope.run_case(5, nrays=4, steps=1),
+            lambda: probe_scatter3.run(n=4, steps=1, reps=1),
+            lambda: probe_hotops.run(steps=1, reps=1),
+            lambda: probe_bandscatter.run(n=4, steps=1, reps=1),
+            lambda: profiling.force(one),
+            lambda: profiling.timeit(lambda: one),
+            lambda: profiling.device_memory_gb(),
+            lambda: profiling.trace("unused").__enter__(),
+            lambda: sources.plane_source(0.0, 4, 1.0),
+            lambda: sources.rays_in_circle(2, 4, 1.0)):
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            call()
+    assert profiling.force(one, device="cpu") == 2.0
+    assert sources.plane_source(0.0, 4, 1.0, device="cpu")[0].device.type == "cpu"
+    assert scaling.profile_scaling(res=5, rays_per_device=4, iters=1, device="cpu")[0][
+        "devices"] == 1
 
 
 def test_kernel_wrappers_refuse_cpu_tensors():
