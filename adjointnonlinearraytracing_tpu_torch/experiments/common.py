@@ -57,6 +57,19 @@ def masked_sum_sq(diff, mask):
     return (_per_ray(mask, diff) * diff ** 2).sum()
 
 
+def exit_buckets(vol_span, ds, probe_rays=None) -> int:
+    """The exit-step buckets a run's adjoint trace takes: ``ANRT_BUCKETED``
+    where it is set; else, where the probe ``(x, v)`` of the run's rays lies
+    off the card, the JAX package's rule (``compaction.auto_buckets``: 4 where
+    the chord spread is at least 3); else none (the card's rule, ``PERF.md``)."""
+    env_buckets = os.environ.get("ANRT_BUCKETED")
+    if env_buckets is not None:
+        return int(env_buckets)
+    if probe_rays is not None and probe_rays[0].device.type != "cuda":
+        return compaction.auto_buckets(vol_span, probe_rays[0], probe_rays[1], ds)
+    return 0
+
+
 def make_trace(vol_span, ds, autodiff=False, use_mesh=False, res=None,
                gradient=None, seg=32, probe_rays=None, device=None):
     """Volume trace closure: ``h`` is derived from the *current* grid
@@ -99,13 +112,7 @@ def make_trace(vol_span, ds, autodiff=False, use_mesh=False, res=None,
     dev = None if device is None else require_device(device)
     the_mesh = pmesh.make_ray_mesh() if use_mesh else None
     cache = {}
-    env_buckets = os.environ.get("ANRT_BUCKETED")
-    if env_buckets is not None:
-        default_buckets = int(env_buckets)
-    elif probe_rays is not None and probe_rays[0].device.type != "cuda":
-        default_buckets = compaction.auto_buckets(vol_span, probe_rays[0], probe_rays[1], ds)
-    else:
-        default_buckets = 0
+    default_buckets = exit_buckets(vol_span, ds, probe_rays)
 
     def _pad_call(fn, nt, x, v):
         # pad the ray axis to the shard count with copies of ray 0: the same

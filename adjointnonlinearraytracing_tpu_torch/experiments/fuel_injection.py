@@ -121,19 +121,9 @@ def run_opt(params: Dict, result_dir: Optional[str] = None, gtruth=None, *,
     with torch.no_grad():
         x_gt, v_gt = trace_rays_to_plane(trace(gtruth, rays.x, rays.v), (sp, sn))
 
-    # optional smoothness prior on the signal-scaled deviation
-    # e = (eta - 1) / fuel_val, so reg_weight is amplitude-independent.
-    # reg='tv' is (smoothed) anisotropic total variation; reg='h1' is the
-    # quadratic gradient norm.
+    # optional smoothness prior (:func:`regularizer`)
     reg_weight = float(params.get("reg_weight", 0.0))
     reg_kind = params.get("reg", "tv")
-
-    def regularizer(eta):
-        e = (eta - 1.0) / fuel_val
-        diffs = (e[1:] - e[:-1], e[:, 1:] - e[:, :-1], e[:, :, 1:] - e[:, :, :-1])
-        if reg_kind == "h1":
-            return sum((d ** 2).mean() for d in diffs)
-        return sum(torch.sqrt(d ** 2 + 1e-6).mean() for d in diffs)
 
     def loss_function(eta, key):
         xmp, vmp = trace_rays_to_plane(trace(eta, rays.x, rays.v), (sp, sn))
@@ -141,7 +131,7 @@ def run_opt(params: Dict, result_dir: Optional[str] = None, gtruth=None, *,
         defl_loss = common.masked_mean_sq(vmp - v_gt, rays.mask) / 3.0
         loss = (disp_loss + defl_weight * defl_loss) / fuel_val
         if reg_weight:
-            loss = loss + reg_weight * regularizer(eta)
+            loss = loss + reg_weight * regularizer(eta, fuel_val, reg_kind)
         return loss
 
     def log_function(iter_count, eta):
@@ -178,6 +168,23 @@ def run_opt(params: Dict, result_dir: Optional[str] = None, gtruth=None, *,
         from ..utils.plotting import save_loss_plot
         save_loss_plot(loss_hist, f"{result_dir}/loss_plot.png")
     return final_eta, loss_hist, gtruth
+
+
+def regularizer(eta, fuel_val=0.0003, kind="tv"):
+    """Smoothness prior on the signal-scaled deviation ``e = (eta - 1) / fuel_val``,
+    so that its weight does not depend on the signal's amplitude.
+
+    ``kind="tv"`` is the (smoothed) anisotropic total variation, the mean of
+    ``sqrt(d^2 + 1e-6)`` over the differences ``d`` along each axis;
+    ``kind="h1"`` the quadratic gradient norm, the mean of ``d^2``.  The
+    fuel trainer (``reg_weight``) and the north star (``NS_TV``) add it
+    to their losses.
+    """
+    e = (eta - 1.0) / fuel_val
+    diffs = (e[1:] - e[:-1], e[:, 1:] - e[:, :-1], e[:, :, 1:] - e[:, :, :-1])
+    if kind == "h1":
+        return sum((d ** 2).mean() for d in diffs)
+    return sum(torch.sqrt(d ** 2 + 1e-6).mean() for d in diffs)
 
 
 def reconstruction_error(eta, gtruth, background=1.0):

@@ -55,6 +55,15 @@ def get_lib() -> ctypes.CDLL:
         if not out.exists():
             _build(out)
         lib = ctypes.CDLL(str(out))
+        fl = lib.accumulate_linear_paths
+        fl.restype = ctypes.c_int64
+        fl.argtypes = [
+            ctypes.c_void_p, ctypes.c_void_p,   # spos, epos
+            ctypes.c_int64, ctypes.c_int32,     # num_rays, dim_count
+            ctypes.c_double, ctypes.c_int32,    # box_dim, res
+            ctypes.c_int32,                     # int_res
+            ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,  # out buffers
+        ]
         fn = lib.accumulate_paths
         fn.restype = ctypes.c_int64
         fn.argtypes = [
@@ -68,6 +77,29 @@ def get_lib() -> ctypes.CDLL:
         ]
         _lib = lib
         return _lib
+
+
+def accumulate_linear_paths(spos, epos, box_dim, res, int_res):
+    """Native marching over straight paths; returns the COO triplets
+    ``(data, row, col)`` as numpy arrays.
+
+    Buffers are sized ``num_rays * (int_res + 1)``: one emit per substep at most.
+    """
+    lib = get_lib()
+    spos = np.ascontiguousarray(spos, dtype=np.float64)
+    epos = np.ascontiguousarray(epos, dtype=np.float64)
+    num_rays, dim = spos.shape
+    cap = num_rays * (int_res + 1)
+    data = np.empty(cap, dtype=np.float64)
+    row = np.empty(cap, dtype=np.int64)
+    col = np.empty(cap, dtype=np.int64)
+    n = lib.accumulate_linear_paths(
+        spos.ctypes.data, epos.ctypes.data,
+        ctypes.c_int64(num_rays), ctypes.c_int32(dim),
+        ctypes.c_double(box_dim), ctypes.c_int32(res),
+        ctypes.c_int32(int_res),
+        data.ctypes.data, row.ctypes.data, col.ctypes.data)
+    return data[:n], row[:n], col[:n]
 
 
 _MODES = {"linear": 0, "hermite": 1, "true": 2}

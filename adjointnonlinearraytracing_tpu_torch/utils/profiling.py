@@ -1,5 +1,5 @@
-"""Profiling helpers: a synchronising checksum, timing, a profiler trace and the
-peak memory.
+"""Profiling helpers: a synchronising checksum, timing, a profiler trace, the
+peak memory and the card's name and power limit.
 
 Twin of ``adjointnonlinearraytracing_tpu/utils/profiling.py``.  PyTorch returns
 from a CUDA call before the card has finished, so a time read on the host
@@ -13,7 +13,9 @@ from __future__ import annotations
 
 import contextlib
 import os
+import subprocess
 import time
+from typing import Optional
 
 import torch
 
@@ -146,3 +148,17 @@ def device_memory_gb(device="cuda"):
     if dev.type != "cuda":
         return None
     return torch.cuda.max_memory_allocated(dev) / 1e9
+
+
+def card_line() -> Optional[str]:
+    """The first card's name and power limit as ``nvidia-smi
+    --query-gpu=name,power.limit --format=csv,noheader`` prints them (a card
+    set below its maximum runs slower under load), or None where
+    ``nvidia-smi`` is missing or fails."""
+    try:
+        out = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                              "--format=csv,noheader"], capture_output=True, text=True,
+                             timeout=60)
+    except (OSError, subprocess.SubprocessError):
+        return None
+    return out.stdout.strip().splitlines()[0] if out.returncode == 0 and out.stdout else None

@@ -162,6 +162,23 @@ result.  Phases (any failure is an uncaught exception):
       area and sphere sources drawn on the card at a Luneburg step's 983,040
       rays and traced forward + backward through the 129^3 lens, timed, one
       pass under ``utils.profiling.trace`` (device time by kernel).
+   n. the fuel north star (``experiments/northstar.py``, the twin of the JAX
+      system's ``run_fuel_northstar.py``): n1, the shipped ladder uncut
+      (9^3 .. 129^3, 760 iterations; a fixed set of 32 views x 128^2 x 20 spp
+      = 10,485,760 f32 rays, 16 microbatches of 655,360 an iteration at
+      129^3; the ground truth traced once): launches asserted exactly in all,
+      by K3's path and by stage (K2 2,581, K3 2,565, K5 5, K6 5), per stage
+      the ms an iteration, rays/s, K2 + K3 and the host's share, the spot
+      check, ``rel_norm`` (from 17^3 on within 15 % of the JAX record's,
+      falling, at most 0.30 at the end) and the peak memory; K2 bitwise and
+      K3 within 1e-5 of the f64 sum on a whole 129^3 microbatch (655,360
+      rays; ``stage_check``, with K5 and K6); n2, the JAX record's 129^3
+      stage resumed from its ``eta_65.npy`` (20 iterations, lr 6.25e-6),
+      launches asserted, its ``rel_norm`` before the first step and at the
+      end within 10 % of a control's (n1's own 65^3 field resumed the same
+      way), each resume's end at most 1.5 times its start, and its end
+      printed beside the band of 5 % around the record's; the ray order's
+      ms a microbatch.
    Exit-step compaction: each driver run logs the buckets its trace took
    (``exit_buckets``; k makes an adjoint step k K2 and k K3 launches,
    asserted in c-g; on the card a run takes them only from
@@ -213,6 +230,7 @@ timed launch's misses must write back, and is printed once beside it for K1,
 ``grid_sample`` and K4.
 """
 
+import dataclasses
 import json
 import math
 import os
@@ -238,7 +256,7 @@ from adjointnonlinearraytracing_tpu_torch.benchmarks.scenes import build_case
 from adjointnonlinearraytracing_tpu_torch import sensors
 from adjointnonlinearraytracing_tpu_torch.experiments import fuel_injection, voxel_scenes
 from adjointnonlinearraytracing_tpu_torch.experiments import fiber, focalstack, image, luneburg
-from adjointnonlinearraytracing_tpu_torch.experiments import common, runner
+from adjointnonlinearraytracing_tpu_torch.experiments import common, northstar, runner
 from adjointnonlinearraytracing_tpu_torch.fields import cylinder as cyl
 from adjointnonlinearraytracing_tpu_torch.fields import grid as G
 from adjointnonlinearraytracing_tpu_torch.fields import sdf_utils
@@ -352,11 +370,9 @@ TOL_F32_GRAD = 1e-5
 COARSE_RES = 33
 
 
-def smi_line():
-    out = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-        capture_output=True, text=True, timeout=60, check=True)
-    return out.stdout.strip().splitlines()[0]
+# the card's name and power limit (``nvidia-smi``); the design tools call it
+# under this name
+smi_line = profiling.card_line
 
 
 def rel_err(got, want):
@@ -4101,6 +4117,269 @@ def measure_path():
 
 
 # ---------------------------------------------------------------------------
+# phase n: the fuel north star (experiments/northstar.py)
+# ---------------------------------------------------------------------------
+
+# the JAX record (results/fuel_northstar/report.json, reconstruction_per_stage):
+# rel_norm at the end of each stage of the shipped ladder, on the JAX package's
+# own rays; the port draws others, so the card is held to bands around it
+NS_JAX_REL_NORM = {9: 3.860800266265869, 17: 0.3937952220439911, 33: 0.346317857503891,
+                   65: 0.3002689480781555, 129: 0.27131563425064087}
+NS_BAND, NS_FINAL_MAX = 0.15, 0.30          # n1: every stage from 17^3 on, and the end
+NS_RESUME_BAND = 0.05                       # n2: the end, against the record's
+# n2: the JAX record's own final stage, resumed from its 65^3 field: the lr the
+# shipped ladder reaches at 129^3 and the 20 iterations the JAX report ran
+NS_INIT = os.path.join(os.path.dirname(os.path.abspath(__file__)), "results",
+                       "fuel_northstar", "eta_65.npy")
+NS_RESUME_STAGES, NS_RESUME_LR = ((129, 20, 16),), 1e-4 / 2 ** 4
+# A resume starts Adam afresh (the JAX script resumes eta alone), so its
+# rel_norm climbs, the JAX script's too; n2 is held to its control instead,
+# n1's own 65^3 field resumed the same way: n2's rel_norm before its first step
+# and at its end each within NS_CONTROL_BAND of the control's (the JAX record's
+# 65^3 field and n1's differ by 4 % at 65^3), and each resume's end at most
+# NS_RESUME_CLIMB times its start (a load or a resume gone wrong fails one)
+NS_CONTROL_BAND, NS_RESUME_CLIMB = 0.10, 1.5
+# the measurement set at full width: 32 views x 128^2 x 20 spp
+NS_FULL_RAYS = northstar.NVIEWS * northstar.NBINS ** 2 * northstar.SPP
+
+
+def northstar_expected_launches(stages):
+    """The launches a north-star run of ``stages`` implies, from the code
+    (``experiments/northstar.py``), with no exit-step buckets (the card's rule).
+
+    Each microbatch is one ``tracer.trace`` with its gradient: one K2 and one
+    K3 on its stage's grid.  The ground truth is traced once, a microbatch at a
+    time, forward only: ``NCHUNKS`` K2 on the last stage's grid, before the
+    first stage.  Each stage's spot check (2,048 rays, one exact chunk) is one
+    K2 and one K3 (``tracer.trace``) and one K5 and one K6 (``trace_exact``).
+    Returns the launches in all, K3's by path and each stage's (the first with
+    the ground truth's)."""
+    paths = {"backtrace": {"shared": 0, "global": 0}}
+    total = {name: 0 for name in build.KERNELS}
+    per_stage = []
+    for s, (res, iters, cpi) in enumerate(stages):
+        k = {name: 0 for name in build.KERNELS}
+        k["trace_fwd"] = iters * cpi + 1 + (northstar.NCHUNKS if s == 0 else 0)
+        k["backtrace"] = iters * cpi + 1
+        k["trace_ckpt"] = k["backtrace_exact"] = 1
+        paths["backtrace"][K.backtrace_path(res ** 3, torch.float32)] += k["backtrace"]
+        per_stage.append(k)
+        for name in total:
+            total[name] += k[name]
+    return total, paths, per_stage
+
+
+def northstar_path(settings, label, failures, out):
+    """A north-star run of ``settings`` on the card, its files into ``out``.
+
+    The launches are held to :func:`northstar_expected_launches`, in all, by
+    K3's path and stage by stage.  Per stage from the rows of the run's
+    ``metrics.jsonl`` (each iteration ends with its losses read back, so the
+    host clock includes the card's work) and from events around every launch:
+    the median ms an iteration, rays/s, the kernels' ms (K2 + K3) and the rest
+    (the host's share: the ray order, the loss, autograd, Adam, the read-back),
+    the spot check, ``rel_norm`` and the peak device memory.  Appends to
+    ``failures``; returns the record and the final field."""
+    if os.environ.get("ANRT_BUCKETED") is not None:
+        raise AssertionError("ANRT_BUCKETED is set: the run would not be a user's run")
+    stages = settings.ladder
+    rows, events = [], []
+
+    def on_row(row):
+        rows.append((row, len(events), torch.cuda.max_memory_allocated(), time.time()))
+        if "stage_start" in row:
+            torch.cuda.reset_peak_memory_stats()
+
+    want, want_paths, want_stages = northstar_expected_launches(stages)
+    K.reset_launches()
+    torch.cuda.reset_peak_memory_stats()
+    K.record_events(events)
+    t0 = time.time()
+    try:
+        eta, report = northstar.run(dataclasses.replace(settings, result_dir=out),
+                                    device="cuda", on_row=on_row)
+        torch.cuda.synchronize()
+    finally:
+        K.record_events(None)
+    seconds = time.time() - t0
+    files = sorted(os.listdir(out))
+    launches, paths = dict(K.LAUNCHES), kernel_paths()
+    want_files = sorted(["metrics.jsonl", "report.json", "final_eta.npy"]
+                        + [f"eta_{res}.npy" for res, _, _ in stages])
+    if files != want_files:
+        failures.append(f"northstar[{label}] wrote {files}, not {want_files}")
+    got_stages, start = [], 0
+    for row, n_ev, _, _ in rows:
+        if "stage" in row:
+            counts = {name: 0 for name in build.KERNELS}
+            for name, _, _ in events[start:n_ev]:
+                counts[name] += 1
+            got_stages.append(counts)
+            start = n_ev
+    if launches != want or paths != want_paths or got_stages != want_stages \
+            or start != len(events):
+        raise AssertionError(f"northstar[{label}] must launch {want}, by path {want_paths}, "
+                             f"by stage {want_stages}; counted {launches}, {paths}, "
+                             f"{got_stages} and {len(events) - start} after the last stage")
+    card = report["card"]
+    per_stage, setup_gb = [], None
+    for res, iters, cpi in stages:
+        start_row = next(r for r in rows if r[0].get("stage_start") == res)
+        end_row = next(r for r in rows if r[0].get("stage") == res)
+        its = [r for r in rows if "iter" in r[0] and r[0]["res"] == res]
+        if setup_gb is None:  # the measurement set, its ground truth and the first spot check
+            setup_gb = start_row[2] / 2 ** 30
+        secs, kern, k2, k3, prev = [], [], [], [], start_row[1]
+        for row, n_ev, _, _ in its:
+            mine, prev = events[prev:n_ev], n_ev
+            if [name for name, _, _ in mine] != ["trace_fwd", "backtrace"] * cpi:
+                raise AssertionError(f"northstar[{label}] an iteration at {res}^3 launched "
+                                     f"{[name for name, _, _ in mine]}")
+            t = [a.elapsed_time(b) for _, a, b in mine]
+            k2 += t[0::2]
+            k3 += t[1::2]
+            kern.append(sum(t))
+            secs.append(row["secs"])
+        med, k_med = median(secs), median(kern)
+        sc, rel_norm = start_row[0], end_row[0]["rel_norm"]
+        rec = dict(res=res, iters=iters, microbatches=cpi, rays=its[0][0]["rays"],
+                   ms_per_iter=1e3 * med, rays_per_s=its[0][0]["rays"] / med,
+                   kernel_ms_per_iter=k_med, host_ms_per_iter=1e3 * med - k_med,
+                   k2_ms=median(k2), k3_ms=median(k3),
+                   k3_path=K.backtrace_path(res ** 3, torch.float32),
+                   max_rel=sc["max_rel"], rel_l2=sc["rel_l2"], cos=sc["cos"],
+                   rel_norm=rel_norm, loss_first=its[0][0]["loss"], loss_last=its[-1][0]["loss"],
+                   peak_gb=end_row[2] / 2 ** 30, stage_s=sum(secs))
+        per_stage.append(rec)
+        print(f"northstar[{label}] stage {res}^3, {iters} iterations of {cpi} x "
+              f"{rec['rays'] // cpi} rays: median {rec['ms_per_iter']:.3f} ms an iteration = "
+              f"{rec['rays_per_s']:.4g} rays/s; K2 + K3 {k_med:.3f} ms (a launch K2 "
+              f"{rec['k2_ms']:.3f}, K3 {rec['k3_ms']:.3f} on its {rec['k3_path']} path), the "
+              f"host's share {rec['host_ms_per_iter']:.3f} ms; spot check max_rel "
+              f"{sc['max_rel']:.3e}, rel_l2 {sc['rel_l2']:.3e}, cos {sc['cos']:.5f}; rel_norm "
+              f"{rel_norm:.4f} (JAX record {NS_JAX_REL_NORM.get(res, float('nan')):.4f}); loss "
+              f"{rec['loss_first']:.6g} -> {rec['loss_last']:.6g}; peak {rec['peak_gb']:.3f} GB; "
+              f"{card}", flush=True)
+    # the draw, the ground truth's trace and the first spot check
+    setup_s = rows[0][3] - t0
+    final = report["reconstruction"]["rel_norm"]
+    if not math.isfinite(report["final_loss"]) or eta.shape != (stages[-1][0],) * 3 \
+            or eta.dtype != torch.float32 or not eta.is_cuda \
+            or not bool(torch.isfinite(eta).all()) or float(eta.min()) < 1.0:
+        failures.append(f"northstar[{label}] the final field or loss is not a finite f32 "
+                        f"{stages[-1][0]}^3 field >= 1 on the card")
+    if report["nbuckets"] != 0 or report["rays_per_iter"] != stages[-1][2] * NS_FULL_RAYS \
+            // northstar.NCHUNKS:
+        failures.append(f"northstar[{label}] took {report['nbuckets']} buckets or "
+                        f"{report['rays_per_iter']} rays an iteration")
+    print(f"northstar[{label}] {len(stages)} stages {[list(s) for s in stages]}, "
+          f"{sum(r['iters'] for r in per_stage)} iterations in {seconds:.1f} s (set-up "
+          f"{setup_s:.2f} s, peak {setup_gb:.3f} GB); launches {launches}; by path {paths}; final rel_norm "
+          f"{final:.4f}, loss {report['final_loss']:.6g}; {card}", flush=True)
+    return dict(seconds=seconds, launches=launches, paths=paths, per_stage=per_stage,
+                rel_norm=final, final_loss=report["final_loss"], setup_s=setup_s,
+                setup_peak_gb=setup_gb,
+                spot_checks=report["grad_spotcheck_per_stage"], card=card), eta
+
+
+def northstar_order_ms(settings, rays):
+    """ms of ``tracer.order.ray_order`` (CUDA events, L2 flushed) on one
+    microbatch of the shipped measurement set at each stage's grid: the host
+    column's share that B9 would cache (the rays never change)."""
+    chunk = rays.x.shape[0] // northstar.NCHUNKS
+    x, v = rays.x[:chunk].contiguous(), rays.v[:chunk].contiguous()
+    return {f"{res}^3": time_ms(lambda: O.ray_order(x, v, (res,) * 3,
+                                                    northstar.VOL_SPAN / (res - 1)), 5)
+            for res, _, _ in settings.ladder}
+
+
+def northstar_phase(failures):
+    """Phase n: case n1, the shipped ladder uncut (10,485,760 rays in 16
+    microbatches of 655,360 at 129^3, f32, the real 65^3 volume resampled),
+    each stage from 17^3 within ``NS_BAND`` of the JAX record's ``rel_norm``,
+    falling, the end at most ``NS_FINAL_MAX``; then K2, K3, K5 and K6 held
+    against their plain versions (:func:`stage_check`) on the whole third
+    129^3 microbatch through the recovered field.  Case n2, the JAX record's
+    final stage resumed from its 65^3 field (``NS_INIT``), and its control,
+    n1's own 65^3 field resumed the same way: n2 is held to the control
+    (``NS_CONTROL_BAND``, ``NS_RESUME_CLIMB``); its end beside the band of
+    ``NS_RESUME_BAND`` around the record's is printed with its verdict, not
+    held (a resume starts Adam afresh, where the record's 129^3 stage went
+    on from the moments of 700 iterations; ``PERF.md`` §6).  Then the ray
+    order's ms a microbatch at each grid."""
+    shipped = northstar.Settings()
+    res = shipped.ladder[-1][0]
+    with tempfile.TemporaryDirectory() as out:
+        for sub in ("n1", "n2", "n2_control"):
+            os.makedirs(os.path.join(out, sub))
+        n1, eta = northstar_path(shipped, "n1, shipped stages", failures,
+                                 os.path.join(out, "n1"))
+        bands = {r: NS_JAX_REL_NORM[r] for r, _, _ in shipped.ladder[1:]}
+        got = {st["res"]: st["rel_norm"] for st in n1["per_stage"]}
+        for r, want in bands.items():
+            if not abs(got[r] - want) <= NS_BAND * want:
+                failures.append(f"northstar n1: rel_norm {got[r]:.4f} at {r}^3 is outside "
+                                f"{100 * NS_BAND:.0f} % of the JAX record's {want:.4f}")
+        seq = [got[r] for r in bands]
+        if not all(b < a for a, b in zip(seq, seq[1:])) or not n1["rel_norm"] <= NS_FINAL_MAX:
+            failures.append(f"northstar n1: rel_norm {seq} does not fall from 17^3 on, or "
+                            f"ends above {NS_FINAL_MAX}")
+        # one whole 129^3 microbatch (the third), through the recovered field
+        rays = northstar.measurement_set(device="cuda")
+        chunk = rays.x.shape[0] // northstar.NCHUNKS
+        s = slice(2 * chunk, 3 * chunk)
+        x0, v0 = rays.x[s].contiguous(), rays.v[s].contiguous()
+        check_row, _ = stage_check(eta.contiguous(), northstar.VOL_SPAN / (res - 1),
+                                   shipped.stage_ds(res), x0, v0, failures,
+                                   f"f32 {res}^3, a north-star microbatch")
+        check_row.pop("exact", None)
+        del eta, x0, v0
+        torch.cuda.empty_cache()
+        resume = dict(stages=NS_RESUME_STAGES, lr=NS_RESUME_LR)
+        cases = {"n2": (NS_INIT, "n2, the JAX record's 129^3 stage resumed"),
+                 "n2_control": (os.path.join(out, "n1", "eta_65.npy"),
+                                "n2 control, n1's own 65^3 field resumed")}
+        gt = G.upres_volume(voxel_scenes.fuel_injection_rif(northstar.FUEL_VAL, torch.float32,
+                                                            "cuda"), (res,) * 3)
+        recs = {}
+        for key, (init, label) in cases.items():
+            settings = northstar.Settings(init=init, **resume)
+            start = fuel_injection.reconstruction_error(
+                northstar.initial_field(settings, torch.float32, "cuda"), gt,
+                background=northstar.BG)["rel_norm"]
+            recs[key], _ = northstar_path(settings, label, failures, os.path.join(out, key))
+            recs[key]["rel_norm_start"] = start
+        del gt
+    n2, control = recs["n2"], recs["n2_control"]
+    for when in ("rel_norm_start", "rel_norm"):
+        if not abs(n2[when] - control[when]) <= NS_CONTROL_BAND * control[when]:
+            failures.append(f"northstar n2: {when} {n2[when]:.4f} is outside "
+                            f"{100 * NS_CONTROL_BAND:.0f} % of the control's {control[when]:.4f}")
+    for key, rec in recs.items():
+        if not rec["rel_norm"] <= NS_RESUME_CLIMB * rec["rel_norm_start"]:
+            failures.append(f"northstar {key}: rel_norm climbed from {rec['rel_norm_start']:.4f} "
+                            f"to {rec['rel_norm']:.4f}, past {NS_RESUME_CLIMB} times its start")
+    want = NS_JAX_REL_NORM[res]
+    n2["inside_band"] = abs(n2["rel_norm"] - want) <= NS_RESUME_BAND * want
+    print(f"northstar n2: rel_norm {n2['rel_norm_start']:.4f} -> {n2['rel_norm']:.4f} "
+          f"(loss {n2['per_stage'][0]['loss_first']:.6g} -> "
+          f"{n2['per_stage'][0]['loss_last']:.6g}), the control from n1's own 65^3 field "
+          f"{control['rel_norm_start']:.4f} -> {control['rel_norm']:.4f} (loss "
+          f"{control['per_stage'][0]['loss_first']:.6g} -> "
+          f"{control['per_stage'][0]['loss_last']:.6g}), held within "
+          f"{100 * NS_CONTROL_BAND:.0f} % of each other and each end at most "
+          f"{NS_RESUME_CLIMB} times its start; n1's continuous 129^3 stage {n1['rel_norm']:.4f}; "
+          f"n2's end {'inside' if n2['inside_band'] else 'OUTSIDE'} "
+          f"{100 * NS_RESUME_BAND:.0f} % of the JAX record's {want:.4f} (not held)", flush=True)
+    order = northstar_order_ms(shipped, rays)
+    del rays
+    print(f"northstar: the ray order on a microbatch of {chunk} rays "
+          + ", ".join(f"{k} {v:.3f} ms" for k, v in order.items())
+          + f"; {n1['card']}", flush=True)
+    return dict(n1=n1, stage_check=check_row, n2=n2, n2_control=control, order_ms=order)
+
+
+# ---------------------------------------------------------------------------
 # the stencil's f32 division (kernels/csrc/trilinear.cuh, div_h) and what the
 # compiler made of the forward loop
 # ---------------------------------------------------------------------------
@@ -4112,7 +4391,8 @@ def grid_spans():
     grid (the compaction check's, the late sdf crossing's)."""
     spans = {"bench": (20.0, (RES, 17, SLAB_RES)), "fuel": (fuel_params()["vol_span"],
                                                            fuel_params()["res_list"]),
-             "fuel-128": (fuel128_params()["vol_span"], fuel128_params()["res_list"])}
+             "fuel-128": (fuel128_params()["vol_span"], fuel128_params()["res_list"]),
+             "northstar": (northstar.VOL_SPAN, [r for r, _, _ in northstar.SHIPPED_STAGES])}
     for name in DRIVERS:
         p = driver_params(name)
         spans[name] = (p["vol_span"], p["res_list"])
@@ -4410,6 +4690,8 @@ def main_path():
 def main():
     t_start = time.time()
     card = smi_line()
+    if card is None:
+        raise RuntimeError("nvidia-smi does not read the card's name and power limit")
     print(f"device: {card}", flush=True)
 
     t0 = time.time()
@@ -4640,10 +4922,15 @@ def main():
     measure, measure_launches, q_failures = measure_path()
     failures += q_failures
     phase_q_s = time.time() - t_q
+    # phase n: the fuel north star
+    torch.cuda.empty_cache()
+    t_n = time.time()
+    ns = northstar_phase(failures)
+    phase_n_s = time.time() - t_n
     print(f"phases: v (variants) {phase_v_s:.1f} s, x (exact variants) {phase_x_s:.1f} s, "
           f"p (fuel2008) {phase_p_s:.1f} s, m (mesh, fuel-128) {phase_m_s:.1f} s, "
           f"s (sharded variants, slab ring) {phase_s_s:.1f} s, q (measurement modules) "
-          f"{phase_q_s:.1f} s", flush=True)
+          f"{phase_q_s:.1f} s, n (north star) {phase_n_s:.1f} s", flush=True)
     full_run = fuel_path(FUEL_ITERS_SHIPPED, "f32 full width, shipped optim_iters", work)
     print(f"fuel[shipped] {full_run['steps']} steps in {full_run['seconds']:.1f} s, escalated "
           f"at stage {full_run['escalated']}, rel_norm {full_run['rel_norm']:.4f}", flush=True)
@@ -4660,6 +4947,7 @@ def main():
     print("compaction: " + json.dumps(comp), flush=True)
     print("measure: " + json.dumps({k: {kk: vv for kk, vv in v.items() if kk != "result"}
                                     for k, v in measure.items()}), flush=True)
+    print("northstar: " + json.dumps(ns), flush=True)
 
     paths = {"bench": bench_launches, "probe": probe_launches, "fuel": fuel["launches"],
              **{name: d["launches"] for name, d in drivers.items()},
@@ -4667,7 +4955,9 @@ def main():
              "variants": variants["launches"], "variants_exact": exact_path["launches"],
              "fuel2008": f2008["launches"], "fuel2008_true": f2008_true["launches"],
              "fuel128": fuel128["launches"], "sharded": sharded_launches, "slab": slab_launches,
-             "measure": measure_launches}
+             "measure": measure_launches, "northstar": ns["n1"]["launches"],
+             "northstar_n2": ns["n2"]["launches"],
+             "northstar_n2_control": ns["n2_control"]["launches"]}
     replaces = {
         "eval_grad": "adjointnonlinearraytracing_tpu/benchmarks/probe_evalmath.py:107",
         "trace_fwd": "adjointnonlinearraytracing_tpu/tracer/paired.py:64",
@@ -4715,7 +5005,7 @@ def main():
                        max(r["fwd_rel_err"] for r in rows_b))
         if bname in EXACT_VARIANT_KERNELS:
             errs[bname] = (max(r["abs_err"] for r in rows_b), max(r["rel_err"] for r in rows_b))
-    stage_rows.append(big_row)
+    stage_rows += [big_row, ns["stage_check"]]
     exact_rows = [row.pop("exact") for row in stage_rows if "exact" in row]
     fuel_stage_ms = {}
     for kf, kb, grad in (("trace_fwd", "backtrace", "adjoint"),
@@ -4738,15 +5028,21 @@ def main():
                       "ms_unordered": times["trace_fwd"]["ms_unordered"],
                       "order_ms": times["order_ms"],
                       "fuel_ms_by_stage": fuel_stage_ms["trace_fwd"],
+                      "northstar_ms_by_stage": {f"{st['res']}^3": st["k2_ms"]
+                                                for st in ns["n1"]["per_stage"]},
                       "launched_by": "bench.run, tracer.api.trace, the spot checks, "
                                      "experiments.fuel_injection.run_opt, the drivers "
-                                     "before their escalation, the measurement modules"},
+                                     "before their escalation, the measurement modules, "
+                                     "experiments.northstar.run"},
         "backtrace": {"rel_tol": TOL_F32_GRAD, **cmp["bstats"],
                       "atomic_adds": 8 * cmp["issued"],
                       "ms_unordered": times["backtrace"]["ms_unordered"],
                       "fuel_ms_by_stage": fuel_stage_ms["backtrace"],
+                      "northstar_ms_by_stage": {f"{st['res']}^3": st["k3_ms"]
+                                                for st in ns["n1"]["per_stage"]},
                       "launches_by_k3_path": {"bench": bench_paths["backtrace"],
-                                              "fuel": fuel["paths"]["backtrace"]},
+                                              "fuel": fuel["paths"]["backtrace"],
+                                              "northstar": ns["n1"]["paths"]["backtrace"]},
                       "stage_checks": stage_rows,
                       "variant_checks": {
                           "f64 17^3": var_small_row["backtrace_on_variants"],
@@ -4755,7 +5051,8 @@ def main():
                       "launched_by": "bench.run, tracer.api.trace, the spot checks, "
                                      "experiments.fuel_injection.run_opt, the drivers "
                                      "before their escalation, compat.BackPlaneTracerC and "
-                                     "BackTargetTracerC (backward), the measurement modules"},
+                                     "BackTargetTracerC (backward), the measurement modules, "
+                                     "experiments.northstar.run"},
         "trace_ckpt": {"rel_tol": 0.0, **ex_bench["fwd"],
                        "fuel_ms_by_stage": fuel_stage_ms["trace_ckpt"],
                        "fuel_ms_by_stage_alone": {r["label"]: r["k5_ms"] for r in exact_rows},

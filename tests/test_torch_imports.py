@@ -182,3 +182,20 @@ def test_chip_smoke_fails_without_a_gpu():
                          capture_output=True, text=True, timeout=120)
     assert out.returncode != 0
     assert '"ok"' not in out.stdout
+
+
+def test_northstar_needs_a_gpu_unless_asked_for_the_cpu(tmp_path):
+    """The north star defaults to the GPU: where there is none its
+    entry points raise, before they draw or write anything."""
+    if torch.cuda.is_available():
+        pytest.skip("a GPU is present: this checks the GPU-less behaviour")
+    from adjointnonlinearraytracing_tpu_torch.experiments import northstar
+
+    tiny = northstar.Settings(stages=((3, 1, 1),), scale=16, result_dir=str(tmp_path / "ns"))
+    for call in (lambda: northstar.run(tiny),
+                 lambda: northstar.measurement_set(scale=16),
+                 lambda: northstar.initial_field(tiny)):
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            call()
+    assert not (tmp_path / "ns").exists()
+    assert northstar.initial_field(tiny, device="cpu").shape == (3, 3, 3)

@@ -47,6 +47,18 @@ def test_profiling_on_cpu_tensors(tmp_path):
         assert "traceEvents" in json.load(f)
 
 
+def test_card_line_reads_nvidia_smi_or_gives_none(monkeypatch, tmp_path):
+    smi = tmp_path / "nvidia-smi"
+    smi.write_text("#!/bin/sh\n[ \"$1 $2\" = \"--query-gpu=name,power.limit "
+                   "--format=csv,noheader\" ] || exit 3\n"
+                   "printf 'NVIDIA H100 80GB HBM3, 700.00 W\\nNVIDIA H100 80GB HBM3, 700.00 W\\n'\n")
+    smi.chmod(0o755)
+    monkeypatch.setenv("PATH", str(tmp_path))
+    assert profiling.card_line() == "NVIDIA H100 80GB HBM3, 700.00 W"
+    smi.unlink()
+    assert profiling.card_line() is None
+
+
 @pytest.fixture(scope="module")
 def jax_sweep_rows():
     """The JAX sweeps' rows at res 9, 128 rays, one iteration, their timing
