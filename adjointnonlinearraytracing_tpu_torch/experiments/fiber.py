@@ -175,6 +175,8 @@ def multires_exp(params: Dict, result_dir: Optional[str] = None, *, device="cuda
     seed = params.get("seed", 0)
     dtype = common.param_dtype(params)
 
+    if result_dir:  # its checkpoints and files, with or without a metrics file there
+        os.makedirs(result_dir, exist_ok=True)
     if metrics is None:
         metrics = MetricsLogger(f"{result_dir}/metrics.jsonl" if result_dir else None,
                                 append=params.get("resume_from") is not None)

@@ -14,6 +14,7 @@ the run's device and dtype once.
 
 from __future__ import annotations
 
+import os
 from typing import Callable, Dict, Optional
 
 import numpy as np
@@ -141,6 +142,8 @@ def multires_exp(params: Dict, result_dir: Optional[str] = None, *, device="cuda
     span = vol_span
     nviews = max(len(disp_ims), len(defl_ims))
 
+    if result_dir:  # its checkpoints and files, with or without a metrics file there
+        os.makedirs(result_dir, exist_ok=True)
     if metrics is None:
         metrics = MetricsLogger(
             f"{result_dir}/metrics.jsonl" if result_dir else None,
@@ -255,8 +258,10 @@ def multires_exp(params: Dict, result_dir: Optional[str] = None, *, device="cuda
 
 
 def run_multiview_exp(result_dir="results/multiview", resolution=128, optim_iters=10,
-                      device="cuda", **overrides):
-    """The einstein / turing two-view experiment."""
+                      device="cuda", *, stat_fn=None, metrics: Optional[MetricsLogger] = None,
+                      sample_rays=None, **overrides):
+    """The einstein / turing two-view experiment.  ``stat_fn``, ``metrics``
+    and ``sample_rays`` go to :func:`multires_exp`."""
     from .voxel_scenes import data_path
 
     ims = [S.sum_norm(load_image(data_path(name), resolution, device=device))
@@ -264,7 +269,8 @@ def run_multiview_exp(result_dir="results/multiview", resolution=128, optim_iter
     params = dict(disp_ims=ims, optim_iters=optim_iters, record_iters=optim_iters,
                   nbins=resolution)
     params.update(overrides)  # explicit overrides win (e.g. record_iters)
-    return multires_exp(params, result_dir, device=device)
+    return multires_exp(params, result_dir, device=device, stat_fn=stat_fn, metrics=metrics,
+                        sample_rays=sample_rays)
 
 
 if __name__ == "__main__":

@@ -41,7 +41,9 @@ to start the first stage from, the JAX script's files too), ``NS_SCALE``
 versions on the CPU.  Results go to ``NS_DIR`` (default
 ``results/fuel_northstar_torch``, beside the JAX record): ``metrics.jsonl``
 (appended to; an iteration's ``secs`` and ``rays_per_s`` unrounded),
-``report.json``, ``eta_<res>.npy`` after each stage and ``final_eta.npy``.
+``report.json`` (with ``rel_norm`` at the end of every stage,
+``reconstruction_per_stage``; :func:`read_report` reads it back),
+``eta_<res>.npy`` after each stage and ``final_eta.npy``.
 """
 
 from __future__ import annotations
@@ -136,6 +138,10 @@ class Settings:
         return VOL_SPAN / (res - 1) * self.ds_alpha
 
 
+#: where a run with the default settings writes its report
+REPORT = os.path.join(Settings.result_dir, "report.json")
+
+
 def measurement_set(gen: Optional[torch.Generator] = None, scale: int = 1, device="cuda",
                     dtype=torch.float32) -> S.Rays:
     """The fixed measurement rays: ``32/scale`` views of ``(128/scale)^2``
@@ -227,6 +233,24 @@ def initial_field(settings: Settings, dtype=torch.float32, device="cuda"):
     return torch.ones((res0,) * 3, dtype=dtype, device=dev) + FUEL_VAL
 
 
+def read_report(path: str) -> Tuple[int, float, dict]:
+    """The reconstruction errors of a north-star ``report.json`` (this module's
+    or the JAX system's record): ``(final grid, its rel_norm, {stage grid:
+    rel_norm})``.  Raises, naming ``path``, where the file or a key is missing."""
+    if not os.path.isfile(path):
+        raise FileNotFoundError(f"no north-star report at {path}: run python -m "
+                                f"adjointnonlinearraytracing_tpu_torch.experiments.northstar "
+                                f"first, or name another report")
+    with open(path) as f:
+        report = json.load(f)
+    try:
+        final = int(str(report["grid"]).split("^")[0])
+        per_stage = {int(r): float(v) for r, v in report["reconstruction_per_stage"].items()}
+        return final, float(report["reconstruction"]["rel_norm"]), per_stage
+    except KeyError as e:
+        raise KeyError(f"the north-star report {path} has no {e}") from None
+
+
 def run(settings: Settings, rays: Optional[S.Rays] = None, device="cuda",
         on_row: Optional[Callable[[dict], None]] = None):
     """The north-star run of ``settings`` on ``device``.
@@ -270,7 +294,7 @@ def run(settings: Settings, rays: Optional[S.Rays] = None, device="cuda",
     eta = initial_field(settings, dtype, dev)
     adam = adam_init(eta)
     stage_lr = settings.lr
-    spotchecks, it_total, loss, cpi = {}, 0, 0.0, 1
+    spotchecks, per_stage, it_total, loss, cpi = {}, {}, 0, 0.0, 1
     try:
         for stage, (res, iters, cpi) in enumerate(stages):
             ds = settings.stage_ds(res)
@@ -306,6 +330,7 @@ def run(settings: Settings, rays: Optional[S.Rays] = None, device="cuda",
                 it_total += 1
 
             err = fuel_injection.reconstruction_error(eta, gt, background=BG)
+            per_stage[str(res)] = err["rel_norm"]
             write(dict(stage=res, **err))
             if out:
                 np.save(os.path.join(out, f"eta_{res}.npy"), eta.cpu().numpy())
@@ -322,7 +347,8 @@ def run(settings: Settings, rays: Optional[S.Rays] = None, device="cuda",
         grid=f"{res_final}^3", rays_per_iter=stages[-1][2] * data.chunk,
         final_loss=float(loss / cpi),
         reconstruction=fuel_injection.reconstruction_error(eta, gt, background=BG),
-        grad_spotcheck_per_stage=spotchecks, stages=[list(s) for s in stages], lr=settings.lr,
+        reconstruction_per_stage=per_stage, grad_spotcheck_per_stage=spotchecks,
+        stages=[list(s) for s in stages], lr=settings.lr,
         ds_mode=settings.ds_mode, ds_alpha=settings.ds_alpha, tv_weight=settings.tv_weight,
         reg=settings.reg, nbuckets=nbuckets, device=str(dev),
         card=card_line() if dev.type == "cuda" else None)

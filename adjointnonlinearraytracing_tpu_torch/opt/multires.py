@@ -29,6 +29,7 @@ one package resumes in the other (``convert.checkpoint_from_jax_npz``).
 
 from __future__ import annotations
 
+import dataclasses
 import os
 import time
 from typing import Callable, List, NamedTuple, Optional, Sequence, Tuple
@@ -48,6 +49,15 @@ class AdamState(NamedTuple):
     count: int
     mu: torch.Tensor
     nu: torch.Tensor
+
+
+@dataclasses.dataclass
+class MultiresResult:
+    """A ladder's final field and its loss history (the JAX module's record
+    type; :func:`multires_opt` returns the pair as a tuple)."""
+
+    n: torch.Tensor
+    loss_hist: List[float]
 
 
 def adam_init(n: torch.Tensor) -> AdamState:

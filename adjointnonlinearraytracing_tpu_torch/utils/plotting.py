@@ -2,12 +2,14 @@
 
 The port's own copy of what the experiment drivers use of
 ``adjointnonlinearraytracing_tpu/utils/plotting.py``.  ``matplotlib`` is
-imported inside the functions, so nothing else needs it.
+imported inside the functions, so nothing else needs it; where it is not
+installed they write nothing and warn.
 """
 
 from __future__ import annotations
 
 import os
+import warnings
 
 import numpy as np
 
@@ -25,12 +27,25 @@ def _to_numpy(a):
     return np.asarray(a)
 
 
-def save_multiple_images(images, outname: str):
-    """Row-of-images dump."""
-    import matplotlib
+def _pyplot():
+    """matplotlib's pyplot on the Agg backend, or None, with a warning, where
+    matplotlib is not installed: the figures are side products, and no
+    number or other file of a run depends on them."""
+    try:
+        import matplotlib
+    except ImportError:
+        warnings.warn("matplotlib is not installed: the run writes no figures", stacklevel=3)
+        return None
     matplotlib.use("Agg")
     import matplotlib.pyplot as plt
+    return plt
 
+
+def save_multiple_images(images, outname: str):
+    """Row-of-images dump."""
+    plt = _pyplot()
+    if plt is None:
+        return
     _ensure_dir(outname)
     n = len(images)
     fig, axes = plt.subplots(1, n, squeeze=False, figsize=(3 * n, 3))
@@ -42,10 +57,9 @@ def save_multiple_images(images, outname: str):
 
 
 def save_loss_plot(loss_hist, outname: str):
-    import matplotlib
-    matplotlib.use("Agg")
-    import matplotlib.pyplot as plt
-
+    plt = _pyplot()
+    if plt is None:
+        return
     _ensure_dir(outname)
     fig = plt.figure()
     plt.plot(_to_numpy(loss_hist))
@@ -58,10 +72,9 @@ def save_loss_plot(loss_hist, outname: str):
 
 def save_profile_plot(profile, grad, outname: str):
     """Radial profile and its gradient side by side (the fiber driver's dump)."""
-    import matplotlib
-    matplotlib.use("Agg")
-    import matplotlib.pyplot as plt
-
+    plt = _pyplot()
+    if plt is None:
+        return
     _ensure_dir(outname)
     fig, ax = plt.subplots(1, 2, figsize=(8, 3))
     ax[0].plot(_to_numpy(profile))

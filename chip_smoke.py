@@ -179,6 +179,27 @@ result.  Phases (any failure is an uncaught exception):
       way), each resume's end at most 1.5 times its start, and its end
       printed beside the band of 5 % around the record's; the ray order's
       ms a microbatch.
+   r. the JAX system's last repo-root drivers as the port's modules
+      (``experiments/``), each into a temporary directory, never
+      ``results/``: r1 ``image_flagship.run`` uncut (the record's 1,120 steps,
+      2 views x 128^2 x 8 spp, 3^3 .. 129^3) with its launches asserted per
+      stage and in all (``expected_launches``, the renders of its log
+      function, the report's one K2) and each correlation within 0.10 of the
+      record's, then ``--report-only`` on the JAX record's own field
+      (``results/einstein_turing_r4/result.npz``) within 0.02 of its four
+      correlations; r2 ``image_singleview.run`` uncut (630 steps to 65^3) so
+      held, within 0.10 of 0.7138; r3 ``fiber_ladder.run`` uncut (the ladder
+      at 100 steps a stage and the three shipped refinements: 4,800 steps of
+      K7 and K8, each run's launches asserted for its escalation, every L1 in
+      0.08-0.20, a NaN a failure), then ``FIBER_INIT`` on the JAX record's
+      refined profile, its L1 equal to the record's 0.144179 within 1e-6
+      relative, and before them K8 against its plain version on the
+      near-axial ray whose f32 adjoint overflows (ROADMAP C13); r4
+      ``fuel_headtohead.run`` cut to 32 views x 64^2 x 4 spp with a 16^3
+      reconstruction beside n1's report (one K2, one K1, every ratio from
+      the reports); r5 the four sweeps on a tiny screening protocol (row
+      keys the JAX rows', no error, the best row the JAX choice, one K2 and
+      one K1 a row, one K20 more for the true paths).
    Exit-step compaction: each driver run logs the buckets its trace took
    (``exit_buckets``; k makes an adjoint step k K2 and k K3 launches,
    asserted in c-g; on the card a run takes them only from
@@ -235,6 +256,7 @@ import json
 import math
 import os
 import re
+import shutil
 import subprocess
 import sys
 import tempfile
@@ -257,6 +279,8 @@ from adjointnonlinearraytracing_tpu_torch import sensors
 from adjointnonlinearraytracing_tpu_torch.experiments import fuel_injection, voxel_scenes
 from adjointnonlinearraytracing_tpu_torch.experiments import fiber, focalstack, image, luneburg
 from adjointnonlinearraytracing_tpu_torch.experiments import common, northstar, runner
+from adjointnonlinearraytracing_tpu_torch.experiments import (
+    fiber_ladder, fuel2008_sweep, fuel_headtohead, image_flagship, image_singleview)
 from adjointnonlinearraytracing_tpu_torch.fields import cylinder as cyl
 from adjointnonlinearraytracing_tpu_torch.fields import grid as G
 from adjointnonlinearraytracing_tpu_torch.fields import sdf_utils
@@ -4293,7 +4317,7 @@ def northstar_order_ms(settings, rays):
             for res, _, _ in settings.ladder}
 
 
-def northstar_phase(failures):
+def northstar_phase(failures, keep_report=None):
     """Phase n: case n1, the shipped ladder uncut (10,485,760 rays in 16
     microbatches of 655,360 at 129^3, f32, the real 65^3 volume resampled),
     each stage from 17^3 within ``NS_BAND`` of the JAX record's ``rel_norm``,
@@ -4306,7 +4330,8 @@ def northstar_phase(failures):
     ``NS_RESUME_BAND`` around the record's is printed with its verdict, not
     held (a resume starts Adam afresh, where the record's 129^3 stage went
     on from the moments of 700 iterations; ``PERF.md`` §6).  Then the ray
-    order's ms a microbatch at each grid."""
+    order's ms a microbatch at each grid.  ``keep_report``: where to copy n1's
+    ``report.json``."""
     shipped = northstar.Settings()
     res = shipped.ladder[-1][0]
     with tempfile.TemporaryDirectory() as out:
@@ -4314,6 +4339,8 @@ def northstar_phase(failures):
             os.makedirs(os.path.join(out, sub))
         n1, eta = northstar_path(shipped, "n1, shipped stages", failures,
                                  os.path.join(out, "n1"))
+        if keep_report:  # phase r's head-to-head and sweeps read it
+            shutil.copy(os.path.join(out, "n1", "report.json"), keep_report)
         bands = {r: NS_JAX_REL_NORM[r] for r, _, _ in shipped.ladder[1:]}
         got = {st["res"]: st["rel_norm"] for st in n1["per_stage"]}
         for r, want in bands.items():
@@ -4377,6 +4404,380 @@ def northstar_phase(failures):
           + ", ".join(f"{k} {v:.3f} ms" for k, v in order.items())
           + f"; {n1['card']}", flush=True)
     return dict(n1=n1, stage_check=check_row, n2=n2, n2_control=control, order_ms=order)
+
+
+# ---------------------------------------------------------------------------
+# phase r: the JAX system's last repo-root drivers (experiments/image_flagship,
+# image_singleview, fiber_ladder, fuel_headtohead, fuel2008_sweep)
+# ---------------------------------------------------------------------------
+
+REPO = os.path.dirname(os.path.abspath(__file__))
+# the JAX records each run is held to (results/*/report.json); the port draws
+# other rays, so its own runs are held to bands around them, written in
+# PERF.md before the first run
+R_FLAGSHIP_ITERS = 40            # 40 x (1 + ... + 7) = 1,120 steps, the record's
+R_FLAGSHIP_RECORD = dict(corr_einstein=0.7445039749145508, corr_turing=0.5232304334640503,
+                         corr4x_einstein=0.7632321715354919, corr4x_turing=0.5608484148979187)
+R_FLAGSHIP_BAND = 0.10           # r1's own field, each correlation
+R_JAX_FIELD = os.path.join(REPO, "results", "einstein_turing_r4", "result.npz")
+R_JAX_FIELD_BAND = 0.02          # the JAX record's own field: only the draw differs
+R_SINGLEVIEW_RECORD, R_SINGLEVIEW_BAND = 0.7138294577598572, 0.10
+R_FIBER_L1 = (0.08, 0.20)        # the ladder's and every refinement's L1 to sqrt(2 - r^2)
+R_FIBER_INIT = os.path.join(REPO, "results", "fiber_129_refine", "profile_refine0.npy")
+R_FIBER_INIT_L1, R_FIBER_INIT_TOL = 0.14417900145053864, 1e-6   # its record, relative
+# ROADMAP C13: a ray of that profile's refinement at lr 1e-5, spp 2 (the JAX
+# record's results/fiber_129_refine_r4, whose refine1 turned NaN) whose f32
+# adjoint overflows near the axis; that refinement is not run here
+R_AXIAL_RAY = os.path.join(REPO, "tests", "data", "fiber_axial_ray.json")
+# r4: the head-to-head cut to configuration 10's rays and grid, its own path model
+R_H2H_PROTOCOL = dict(nviews=32, nbins=64, spp=4, int_res=175, recon_res=16, seed=0)
+R_H2H_BAND = (0.80, 0.95)
+# r5: the four sweeps on a tiny screening protocol, the volume at 17^3
+R_SWEEP_SCREEN = dict(nviews=4, nbins=8, spp=1, int_res=32, seed=0)
+R_SWEEP_RES, R_SWEEP_GRIDS = 17, (8, 12, 16)
+R_SWEEP_ROW_KEYS = os.path.join(REPO, "results", "fuel2008_sweep", "sweep.jsonl")
+
+
+def render_launches(params, escalated):
+    """The renders ``image.multires_exp``'s log function makes (one at every
+    ``record_iters``-th step, before the step): one K2 each before the stage
+    escalation, one K5 (``trace_exact`` with no gradient) from it on.  Returns
+    each stage's launches."""
+    res_list, iters, rec = params["res_list"], params["optim_iters"], params["record_iters"]
+    first_exact = len(res_list) if escalated is None else escalated
+    out, start = [], 0
+    for s in range(len(res_list)):
+        n = iters * (s + 1)
+        k = {name: 0 for name in build.KERNELS}
+        renders = 0 if rec > 10 ** 8 else sum(1 for i in range(start, start + n) if i % rec == 0)
+        k["trace_ckpt" if s >= first_exact else "trace_fwd"] += renders
+        out.append(k)
+        start += n
+    return out
+
+
+def image_root_path(label, params, nrays, run_fn, after, failures):
+    """An image driver run through its root twin, ``run_fn(stat_fn, metrics)``,
+    held to the launches the code implies: ``expected_launches`` for the stage
+    the escalation fired at, the log function's renders, and after the last
+    step ``after`` (the report's correlation: one K2).  Appends to
+    ``failures``; returns the record and ``run_fn``'s result."""
+    step_rows, events = [], []
+
+    def stat(it, loss, secs):
+        step_rows.append((it, loss, secs, len(events)))
+
+    metrics = MetricsLogger()
+    K.reset_launches()
+    K.record_events(events)
+    t0 = time.time()
+    try:
+        out = run_fn(stat, metrics)
+        torch.cuda.synchronize()
+    finally:
+        K.record_events(None)
+    seconds = time.time() - t0
+    launches, paths = dict(K.LAUNCHES), kernel_paths()
+    escalated = escalation_stage(metrics)
+    nbuckets = run_buckets(metrics, nrays)
+    steps, want, want_paths, want_stages = expected_launches(params, escalated, nrays, 0,
+                                                             nbuckets)
+    for k, r in zip(want_stages, render_launches(params, escalated)):
+        for name in k:
+            k[name] += r[name]
+            want[name] += r[name]
+    for name in after:
+        want[name] += 1
+    got_stages, rest = stage_launches(events, step_rows, params)
+    if launches != want or paths != want_paths or got_stages != want_stages \
+            or [n_ for n_, _, _ in rest] != list(after):
+        failures.append(f"{label} must launch {want}, by path {want_paths}, by stage "
+                        f"{want_stages} and {list(after)} after the last step; counted "
+                        f"{launches}, {paths}, {got_stages} and {[n_ for n_, _, _ in rest]}")
+    if len(step_rows) != steps or not all(math.isfinite(r[1]) for r in step_rows):
+        failures.append(f"{label}: steps lost or a loss not finite")
+    per_stage, first = [], 0
+    for s, res in enumerate(params["res_list"]):
+        rows = step_rows[first:first + params["optim_iters"] * (s + 1)]
+        first += len(rows)
+        per_stage.append(dict(res=res, steps=len(rows),
+                              step_ms_median=median([1e3 * r[2] for r in rows]),
+                              loss_last=rows[-1][1]))
+    print(f"{label}: {steps} steps of {nrays} rays in {seconds:.2f} s; escalation at stage "
+          f"{escalated}; launches {launches}; K3 by path {paths}; per stage "
+          + ", ".join(f"{st['res']}^3 {st['step_ms_median']:.3f} ms a step" for st in per_stage)
+          + f"; {smi_line()}", flush=True)
+    return dict(seconds=seconds, steps=steps, escalated=escalated, launches=launches,
+                paths=paths, per_stage=per_stage), out
+
+
+def r_band(failures, label, got, want, band):
+    ok = abs(got - want) <= band
+    print(f"  {label}: {got:.4f} (record {want:.4f}, band +-{band}): "
+          f"{'inside' if ok else 'OUTSIDE'}", flush=True)
+    if not ok:
+        failures.append(f"{label} {got:.4f} lies outside {want:.4f} +- {band}")
+
+
+def flagship_phase(out, failures):
+    """r1: ``image_flagship.run`` uncut (IMG_ITERS 40: the record's 1,120 steps,
+    2 views x 128^2 x 8 spp, 3^3 .. 129^3), each correlation within
+    ``R_FLAGSHIP_BAND`` of the record's; then ``--report-only`` on the JAX
+    record's own field, within ``R_JAX_FIELD_BAND``."""
+    settings = image_flagship.Settings(result_dir=os.path.join(out, "r1"),
+                                       iters=R_FLAGSHIP_ITERS)
+    params = dict(image_flagship.run_params(settings), grad_spotcheck=True, auto_exact=True)
+    nrays = 2 * image_flagship.RESOLUTION ** 2 * params["spp"]
+    rec, (eta, hist, report) = image_root_path(
+        "r1[image_flagship, IMG_ITERS 40]", params, nrays,
+        lambda stat, metrics: image_flagship.run(settings, device="cuda", stat_fn=stat,
+                                                 metrics=metrics), ("trace_fwd",), failures)
+    if len(hist) != 1120 or eta.shape != (129,) * 3 or not bool(torch.isfinite(eta).all()):
+        failures.append("r1: the flagship did not run its 1,120 steps to a finite 129^3 field")
+    for key, want in R_FLAGSHIP_RECORD.items():
+        r_band(failures, f"r1 {key}", report[key], want, R_FLAGSHIP_BAND)
+    K.reset_launches()
+    t0 = time.time()
+    jax_report = image_flagship.main(["--report-only", "--checkpoint", R_JAX_FIELD],
+                                     dict(IMG_DIR=os.path.join(out, "r1_jax_field")))
+    torch.cuda.synchronize()
+    report_s = time.time() - t0
+    if dict(K.LAUNCHES) != {**{n: 0 for n in build.KERNELS}, "trace_fwd": 1}:
+        failures.append(f"r1 --report-only must launch one K2, counted {dict(K.LAUNCHES)}")
+    print(f"r1 --report-only on {R_JAX_FIELD} ({jax_report['n_iters']} steps, "
+          f"{jax_report['stage_res']}^3) in {report_s:.2f} s:", flush=True)
+    for key, want in R_FLAGSHIP_RECORD.items():
+        r_band(failures, f"r1 JAX field {key}", jax_report[key], want, R_JAX_FIELD_BAND)
+    return dict(rec, report=report, jax_field_report=jax_report, report_only_s=report_s)
+
+
+def singleview_phase(out, failures):
+    """r2: ``image_singleview.run`` uncut (630 steps to 65^3, one view of
+    128^2 x 8 spp), its correlation within ``R_SINGLEVIEW_BAND`` of the
+    record's."""
+    settings = image_singleview.Settings(result_dir=os.path.join(out, "r2"))
+    params = dict(image_singleview.run_params(settings, None), grad_spotcheck=True,
+                  auto_exact=True)
+    nrays = image_flagship.RESOLUTION ** 2 * params["spp"]
+    rec, (eta, hist, report) = image_root_path(
+        "r2[image_singleview]", params, nrays,
+        lambda stat, metrics: image_singleview.run(settings, device="cuda", stat_fn=stat,
+                                                   metrics=metrics), ("trace_fwd",), failures)
+    if len(hist) != 630 or eta.shape != (65,) * 3:
+        failures.append("r2: the single view did not run its 630 steps to 65^3")
+    r_band(failures, "r2 corr_einstein_single_view", report["corr_einstein_single_view"],
+           R_SINGLEVIEW_RECORD, R_SINGLEVIEW_BAND)
+    return dict(rec, report=report)
+
+
+class _Rows:
+    """A run's ``metrics.jsonl`` rows as a logger's ``history``."""
+
+    def __init__(self, path):
+        with open(path) as f:
+            self.history = [json.loads(line) for line in f if line.strip()]
+
+
+def fiber_ladder_path(label, settings, failures):
+    """A ``fiber_ladder.run`` on the card: each phase's run held to
+    ``expected_fiber_launches`` for the stage its escalation fired at (read
+    from its ``metrics.jsonl``), its L1 finite (a NaN fails the phase) and in
+    ``R_FIBER_L1``; the files the script writes."""
+    snaps, phases, t_phase = [], [], []
+    t0 = time.time()
+    K.reset_launches()
+
+    def on_phase(phase, params):
+        torch.cuda.synchronize()
+        snaps.append(dict(K.LAUNCHES))
+        phases.append((phase, params))
+        t_phase.append(time.time())
+
+    n, report = fiber_ladder.run(settings, device="cuda", on_phase=on_phase)
+    seconds = time.time() - t0
+    prev, rows = {name: 0 for name in build.KERNELS}, []
+    for (phase, params), snap, t_end in zip(phases, snaps, t_phase):
+        got = {name: snap[name] - prev[name] for name in snap}
+        prev = snap
+        name = phase["phase"]
+        if params is None:  # init: a profile loaded, nothing launched
+            want = {k: 0 for k in build.KERNELS}
+            escalated = None
+        else:
+            sub = settings.result_dir if name == "ladder" else os.path.join(
+                settings.result_dir, name)
+            escalated = escalation_stage(_Rows(os.path.join(sub, "metrics.jsonl")))
+            nrays = fiber.gen_start_rays(params, torch.Generator(device="cuda").manual_seed(1)) \
+                .x.shape[0]
+            _, want, _ = expected_fiber_launches(params, escalated, nrays)
+        if got != want:
+            failures.append(f"{label} {name} must launch {want}, counted {got}")
+        l1 = phase["l1_vs_gt"]
+        if name != "init" and not (math.isfinite(l1) and R_FIBER_L1[0] <= l1 <= R_FIBER_L1[1]):
+            failures.append(f"{label} {name}: L1 {l1} is NaN or outside {R_FIBER_L1}")
+        rows.append(dict(phase=name, l1_vs_gt=l1, escalated=escalated,
+                         last_loss=phase.get("last_loss"), launches=got,
+                         seconds=t_end - (t_phase[len(rows) - 1] if rows else t0)))
+        print(f"{label} {name}: L1 {l1!r}, loss {phase.get('last_loss')}, escalation at stage "
+              f"{escalated}, {rows[-1]['seconds']:.2f} s, launches "
+              f"{ {k: v for k, v in got.items() if v} }", flush=True)
+    files = sorted(f for f in os.listdir(settings.result_dir) if f.endswith((".npy", ".json")))
+    want_files = sorted(["final_profile.npy", "report.json"]
+                        + [f"profile_refine{i}.npy" for i in range(len(settings.refine))])
+    if files != want_files or not bool(torch.isfinite(n).all()):
+        failures.append(f"{label} wrote {files}, not {want_files}, or a profile not finite")
+    print(f"{label}: {len(rows)} phases in {seconds:.2f} s, final L1 {report['l1_vs_gt']!r}; "
+          f"{smi_line()}", flush=True)
+    return dict(seconds=seconds, phases=rows, l1_vs_gt=report["l1_vs_gt"],
+                launches=dict(K.LAUNCHES))
+
+
+def axial_ray_check(failures):
+    """ROADMAP C13: K8 against its plain version on the near-axial ray of
+    ``R_AXIAL_RAY`` (its profile, closest approach and cotangents), in f32 and
+    in f64.  The bins where the kernel's gradient is not finite must be the
+    plain version's, and the finite ones agree within ``TOL_F32_GRAD`` (f32,
+    beside the plain version's f64 sum of its f32 terms) or ``TOL_F64`` of the
+    largest.  Returns the gradients' first bins, which the ray's adjoint
+    overflows in f32."""
+    with open(R_AXIAL_RAY) as f:
+        case = json.load(f)
+    radius, length, ds, steps = case["radius"], case["length"], case["ds"], case["max_steps"]
+    rec = {}
+    for dtype, tol in ((torch.float32, TOL_F32_GRAD), (torch.float64, TOL_F64)):
+        prof = torch.tensor(case["profile"], dtype=torch.float32, device="cuda").to(dtype)
+        xt, vt, dx, dv = (torch.tensor(case[k], dtype=torch.float32, device="cuda")
+                          .to(dtype).reshape(1, 3) for k in ("xt", "vt", "dx", "dv"))
+        want = E.backtrace_cable(CylinderField(prof, radius, length), xt, vt, dx, dv, ds,
+                                 steps, acc_dtype=torch.float64)
+        got = K.backtrace_cable(prof, radius, length, xt, vt, dx, dv, ds, steps,
+                                G.snap_tol(dtype) * radius)
+        fin = torch.isfinite(want)
+        scale = float(want[fin].abs().max()) if bool(fin.any()) else 0.0
+        err = float((got[fin] - want[fin]).abs().max()) if bool(fin.any()) else 0.0
+        name = str(dtype).split(".")[-1]
+        rec[name] = dict(kernel=got[:3].tolist(), plain=want[:3].tolist(),
+                         nonfinite_bins=torch.nonzero(~fin).flatten().tolist(), abs_err=err)
+        if not torch.equal(torch.isfinite(got), fin) or err > tol * max(scale, 1e-300):
+            failures.append(f"r3 axial ray ({name}): K8 {got[:3].tolist()} departs from its "
+                            f"plain version {want[:3].tolist()} (err {err}, scale {scale})")
+        print(f"r3 axial ray ({name}): K8 {got[:3].tolist()}, plain {want[:3].tolist()}, "
+              f"non-finite bins {rec[name]['nonfinite_bins']}", flush=True)
+    return rec
+
+
+def fiber_ladder_phase(out, failures):
+    """r3: K8 against its plain version on the near-axial ray of ROADMAP C13
+    (:func:`axial_ray_check`); the shipped ladder uncut (100 steps a stage,
+    spp 2, 3 -> 129 bins) and the shipped refinement; then ``FIBER_INIT`` on
+    the JAX record's refined profile, its L1 equal to the record's within
+    ``R_FIBER_INIT_TOL``."""
+    axial = axial_ray_check(failures)
+    shipped = fiber_ladder_path("r3[fiber_ladder, shipped]",
+                                fiber_ladder.Settings(result_dir=os.path.join(out, "r3")),
+                                failures)
+    init = fiber_ladder_path("r3[fiber_ladder, FIBER_INIT]", fiber_ladder.Settings(
+        result_dir=os.path.join(out, "r3_init"), init=R_FIBER_INIT, refine=()), failures)
+    l1 = init["phases"][0]["l1_vs_gt"]
+    if not abs(l1 - R_FIBER_INIT_L1) <= R_FIBER_INIT_TOL * R_FIBER_INIT_L1:
+        failures.append(f"r3 FIBER_INIT: L1 {l1!r} is not the record's {R_FIBER_INIT_L1!r}")
+    print(f"r3 FIBER_INIT: L1 {l1!r} against the record's {R_FIBER_INIT_L1!r} (relative "
+          f"{abs(l1 - R_FIBER_INIT_L1) / R_FIBER_INIT_L1:.2e}, tol {R_FIBER_INIT_TOL})",
+          flush=True)
+    launches = {k: shipped["launches"][k] + init["launches"][k] for k in build.KERNELS}
+    return dict(axial_ray=axial, shipped=shipped, init=init, launches=launches)
+
+
+def headtohead_phase(out, ns_report, failures):
+    """r4: ``fuel_headtohead.run`` cut to ``R_H2H_PROTOCOL``, beside the north
+    star's report that phase n wrote in this run: one K2 and one K1, the 2008
+    ``rel_norm`` in ``R_H2H_BAND``, every ratio the report's numbers'."""
+    final, ns_final, per_stage = northstar.read_report(ns_report)
+    K.reset_launches()
+    t0 = time.time()
+    recon, table = fuel_headtohead.run(protocol=R_H2H_PROTOCOL, northstar_report=ns_report,
+                                       out_dir=os.path.join(out, "r4"), device="cuda")
+    seconds = time.time() - t0
+    launches = dict(K.LAUNCHES)
+    if launches != {**{n: 0 for n in build.KERNELS}, "trace_fwd": 1, "eval_grad": 1}:
+        failures.append(f"r4 must launch one K2 and one K1, counted {launches}")
+    lin = table["linear_2008"]["rel_norm"]
+    ns = {**per_stage, final: ns_final}
+    want = {f"adjoint_{a}_vs_2008_recon16": lin / ns[a] for a in (17, final)}
+    if table["advantage"] != want or recon.shape != (16,) * 3:
+        failures.append(f"r4: advantage {table['advantage']}, not {want}")
+    if not R_H2H_BAND[0] <= lin <= R_H2H_BAND[1]:
+        failures.append(f"r4: the 2008 rel_norm {lin:.4f} lies outside {R_H2H_BAND}")
+    print(f"r4[fuel_headtohead, {R_H2H_PROTOCOL}] in {seconds:.2f} s: linear "
+          + json.dumps({k: table["linear_2008"][k] for k in (
+              "rays", "rel_norm", "phi_nnz", "trace_time_s", "phi_time_s", "solve_time_s",
+              "integration_time_s", "total_time_s")})
+          + f"; advantage {json.dumps(table['advantage'])}; launches {launches}; {smi_line()}",
+          flush=True)
+    return dict(seconds=seconds, launches=launches, linear=table["linear_2008"],
+                advantage=table["advantage"])
+
+
+def sweeps_phase(out, ns_report, failures):
+    """r5: the four sweeps in turn on ``R_SWEEP_SCREEN`` through the fuel
+    volume at 17^3 (grids ``R_SWEEP_GRIDS``): each row's keys the JAX rows',
+    no row an error, each best row the least ``rel_norm`` of the rows before
+    it, its full-protocol row that configuration at 16 spp; one K2 and one K1
+    a row, one K20 more for the true paths."""
+    with open(R_SWEEP_ROW_KEYS) as f:
+        row_keys = {tuple(json.loads(line)) for line in f if line.strip()}
+    gt = G.upres_volume(fuel2008_sweep.ground_truth("cuda"), (R_SWEEP_RES,) * 3)
+    d = os.path.join(out, "r5")
+    common_kw = dict(out_dir=d, screen=R_SWEEP_SCREEN, device="cuda")
+    calls = (("sweep", dict(northstar_report=ns_report)), ("sweep2", dict(grids=R_SWEEP_GRIDS)),
+             ("sweep3", dict(northstar_report=ns_report, grids=R_SWEEP_GRIDS)),
+             ("finish", dict(northstar_report=ns_report)))
+    K.reset_launches()
+    t0, seconds, nrows = time.time(), {}, 0
+    for name, kw in calls:
+        t1 = time.time()
+        report = fuel2008_sweep.SWEEPS[name](gt, **common_kw, **kw)
+        seconds[name] = time.time() - t1
+        rows = report["rows"]
+        best = min((r for r in rows[:-1] if "rel_norm" in r), key=lambda r: r["rel_norm"])
+        keys = {tuple(r) for r in rows}
+        if keys != row_keys or any("error" in r for r in rows):
+            failures.append(f"r5 {name}: row keys {keys}, not the JAX rows' {row_keys}, or an "
+                            "error")
+        if report["best_screening"] != best or rows[-1]["cfg"] != dict(best["cfg"], spp=16) \
+                or report["best_full_protocol"] != rows[-1]:
+            failures.append(f"r5 {name}: the best row is not the least rel_norm's")
+        print(f"r5[{name}] {len(rows)} rows in {seconds[name]:.2f} s, best "
+              f"{best['name']} {best['rel_norm']:.4f}, full protocol "
+              f"{rows[-1]['rel_norm']:.4f}", flush=True)
+    with open(os.path.join(d, "sweep.jsonl")) as f:
+        on_file = [json.loads(line) for line in f if line.strip()]
+    nrows = len(on_file)
+    launches = dict(K.LAUNCHES)
+    true_rows = sum(1 for r in on_file if r["cfg"].get("spline") == "true")
+    want = {**{n: 0 for n in build.KERNELS}, "trace_fwd": nrows, "eval_grad": nrows,
+            "record_paths": true_rows}
+    if launches != want:
+        failures.append(f"r5 must launch {want}, counted {launches}")
+    print(f"r5: {nrows} rows in {time.time() - t0:.2f} s; launches {launches}", flush=True)
+    return dict(seconds=seconds, rows=nrows, launches=launches)
+
+
+def roots_phase(ns_report, failures):
+    """Phase r: r1-r5, each into a temporary directory (never ``results/``);
+    r4 and r5 read the north star's report of phase n's n1 (``ns_report``)."""
+    recs, times = {}, {}
+    with tempfile.TemporaryDirectory() as out:
+        for key, fn, args in (("flagship", flagship_phase, ()), ("singleview", singleview_phase, ()),
+                              ("fiber_ladder", fiber_ladder_phase, ()),
+                              ("headtohead", headtohead_phase, (ns_report,)),
+                              ("sweeps", sweeps_phase, (ns_report,))):
+            t0 = time.time()
+            recs[key] = fn(out, *args, failures)
+            times[key] = time.time() - t0
+            torch.cuda.empty_cache()
+    print("phase r seconds: " + json.dumps(times), flush=True)
+    return dict(recs, seconds=times)
 
 
 # ---------------------------------------------------------------------------
@@ -4925,12 +5326,20 @@ def main():
     # phase n: the fuel north star
     torch.cuda.empty_cache()
     t_n = time.time()
-    ns = northstar_phase(failures)
-    phase_n_s = time.time() - t_n
+    with tempfile.TemporaryDirectory() as keep:
+        ns_report = os.path.join(keep, "northstar_report.json")
+        ns = northstar_phase(failures, keep_report=ns_report)
+        phase_n_s = time.time() - t_n
+        # phase r: the JAX system's last repo-root drivers, as port modules
+        torch.cuda.empty_cache()
+        t_r = time.time()
+        roots = roots_phase(ns_report, failures)
+        phase_r_s = time.time() - t_r
     print(f"phases: v (variants) {phase_v_s:.1f} s, x (exact variants) {phase_x_s:.1f} s, "
           f"p (fuel2008) {phase_p_s:.1f} s, m (mesh, fuel-128) {phase_m_s:.1f} s, "
           f"s (sharded variants, slab ring) {phase_s_s:.1f} s, q (measurement modules) "
-          f"{phase_q_s:.1f} s, n (north star) {phase_n_s:.1f} s", flush=True)
+          f"{phase_q_s:.1f} s, n (north star) {phase_n_s:.1f} s, r (root drivers) "
+          f"{phase_r_s:.1f} s", flush=True)
     full_run = fuel_path(FUEL_ITERS_SHIPPED, "f32 full width, shipped optim_iters", work)
     print(f"fuel[shipped] {full_run['steps']} steps in {full_run['seconds']:.1f} s, escalated "
           f"at stage {full_run['escalated']}, rel_norm {full_run['rel_norm']:.4f}", flush=True)
@@ -4948,6 +5357,7 @@ def main():
     print("measure: " + json.dumps({k: {kk: vv for kk, vv in v.items() if kk != "result"}
                                     for k, v in measure.items()}), flush=True)
     print("northstar: " + json.dumps(ns), flush=True)
+    print("roots: " + json.dumps(roots), flush=True)
 
     paths = {"bench": bench_launches, "probe": probe_launches, "fuel": fuel["launches"],
              **{name: d["launches"] for name, d in drivers.items()},
@@ -4957,7 +5367,9 @@ def main():
              "fuel128": fuel128["launches"], "sharded": sharded_launches, "slab": slab_launches,
              "measure": measure_launches, "northstar": ns["n1"]["launches"],
              "northstar_n2": ns["n2"]["launches"],
-             "northstar_n2_control": ns["n2_control"]["launches"]}
+             "northstar_n2_control": ns["n2_control"]["launches"],
+             **{f"r_{key}": roots[key]["launches"] for key in (
+                 "flagship", "singleview", "fiber_ladder", "headtohead", "sweeps")}}
     replaces = {
         "eval_grad": "adjointnonlinearraytracing_tpu/benchmarks/probe_evalmath.py:107",
         "trace_fwd": "adjointnonlinearraytracing_tpu/tracer/paired.py:64",

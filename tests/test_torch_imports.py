@@ -57,6 +57,24 @@ def test_sources_name_neither_jax_nor_the_jax_package():
         assert not FORBIDDEN.search(f.read_text()), f
 
 
+ROOT_DRIVERS = re.compile(r"^\s*(import|from)\s+(run_\w+|bench|__graft_entry__)(\.|\s|$)",
+                          re.MULTILINE)
+
+
+def test_sources_import_no_root_script():
+    """The port's twins of the JAX system's repo-root drivers keep their own
+    copies of the scripts' settings: no port module imports a root script."""
+    scripts = sorted(p.stem for p in ROOT.glob("run_*.py"))
+    assert len(scripts) >= 9
+    files = sorted((ROOT / "adjointnonlinearraytracing_tpu_torch").rglob("*.py"))
+    for f in files + [ROOT / "chip_smoke.py"]:
+        assert not ROOT_DRIVERS.search(f.read_text()), f
+    twins = {p.stem for p in (ROOT / "adjointnonlinearraytracing_tpu_torch" / "experiments")
+             .glob("*.py")}
+    assert {"northstar", "fuel_headtohead", "image_flagship", "image_singleview",
+            "fiber_ladder", "fuel2008_sweep"} <= twins
+
+
 def test_build_case_default_device_needs_a_gpu():
     if torch.cuda.is_available():
         pytest.skip("a GPU is present: this checks the GPU-less behaviour")

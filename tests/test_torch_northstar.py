@@ -19,6 +19,7 @@ script itself, run as a script, in f32.
 """
 
 import json
+from pathlib import Path
 
 import jax
 import jax.numpy as jnp
@@ -221,6 +222,28 @@ def test_the_run_matches_the_script(jax_run, port_run):
     assert [r["stage_start"] for r in rows if "stage_start" in r] == [5, 9]
     assert report["rays_per_iter"] == 4 * 160 and report["device"] == "cpu"
     assert float((eta - 1.0).abs().max()) > 0
+
+
+def test_read_report_gives_each_stage(port_run, tmp_path):
+    """The report's ``rel_norm`` at the end of every stage, as the head-to-head
+    and the sweeps read it back; the JAX record's report reads the same way;
+    a missing report or key raises, naming the file."""
+    _, report, rows = port_run
+    per_stage = {r["stage"]: r["rel_norm"] for r in rows if "stage" in r}
+    assert report["reconstruction_per_stage"] == {str(k): v for k, v in per_stage.items()}
+    path = tmp_path / "report.json"
+    path.write_text(json.dumps(report))
+    assert NS.read_report(str(path)) == (9, report["reconstruction"]["rel_norm"], per_stage)
+    final, rel_norm, stages = NS.read_report(
+        str(Path(__file__).resolve().parent.parent / "results" / "fuel_northstar" /
+            "report.json"))
+    assert (final, rel_norm, stages[65]) == (129, 0.27131563425064087, 0.3002689480781555)
+    with pytest.raises(FileNotFoundError, match="no north-star report at .*none.json"):
+        NS.read_report(str(tmp_path / "none.json"))
+    path.write_text(json.dumps({"grid": "9^3"}))
+    with pytest.raises(KeyError, match="report.json has no"):
+        NS.read_report(str(path))
+    assert NS.REPORT == "results/fuel_northstar_torch/report.json"
 
 
 def test_resume_from_a_jax_field_equals_jax_upres(jax_run, tmp_path):
